@@ -1,0 +1,169 @@
+"""DS-CNN audio classifier in PyTorch (port of models/dscnn.py).
+
+frontend -> stem 3x3 s(1,2) -> 4 stages of plain DS (or inverted-residual)
+blocks with optional SE, base filters [32, 64, 128, 256] x alpha, repeats
+[2, 3, 4, 2] x depth_multiplier (stride (2,2) on each stage's first block)
+-> 1x1 embeddings conv_bn (skipped when the channels already match) -> GAP
+or attention pooling -> dense head -> softmax. (The JAX model's sigmoid
+and logit heads serve training, which a later slice ports.)
+
+Inference only: dropout is inert and BN runs on its running statistics.
+Public layout as the JAX model: input [B, bins, W, 1], scores [B, C];
+NCHW inside.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from birdnet_stm32_tpu_torch.config import ModelConfig
+from birdnet_stm32_tpu_torch.device import resolve_device
+from birdnet_stm32_tpu_torch.models.blocks import (
+    add_attention_pooling,
+    add_conv_bn,
+    add_ds_conv_block,
+    add_inverted_residual_block,
+    add_se_block,
+    attention_pooling,
+    conv_bn,
+    ds_conv_block,
+    inverted_residual_block,
+    make_divisible,
+    se_block,
+)
+from birdnet_stm32_tpu_torch.models.frontend_layer import AudioFrontend
+
+BASE_FILTERS: Sequence[int] = (32, 64, 128, 256)
+BASE_REPEATS: Sequence[int] = (2, 3, 4, 2)
+
+# Canonical frontend -> in-graph frontend mode (the JAX registry's built-ins).
+_FRONTEND_MODES = {"librosa": "precomputed", "mfcc": "precomputed",
+                   "log_mel": "precomputed", "hybrid": "hybrid", "raw": "raw"}
+
+
+class DSCNN(nn.Module):
+    """DS-CNN with the in-graph hybrid (or precomputed) audio frontend.
+
+    Layers carry the Keras names of the JAX model; `self.blocks` lists the
+    (kind, name) of each block in order, and forward applies them.
+    """
+
+    def __init__(self, num_mels: int = 64, spec_width: int = 256,
+                 sample_rate: int = 24000, embeddings_size: int = 256,
+                 num_classes: int = 100, audio_frontend: str = "hybrid",
+                 alpha: float = 1.0, depth_multiplier: int = 1,
+                 fft_length: int = 512, mag_scale: str = "pwl", n_mfcc: int = 20,
+                 use_se: bool = True, se_reduction: int = 8,
+                 use_inverted_residual: bool = True, expansion_factor: int = 2,
+                 use_attention_pooling: bool = False):
+        super().__init__()
+        if audio_frontend not in _FRONTEND_MODES:
+            raise ValueError(f"Invalid audio frontend: {audio_frontend!r}")
+        mode = _FRONTEND_MODES[audio_frontend]
+        input_bins = n_mfcc if audio_frontend == "mfcc" else num_mels
+        self.audio_frontend = AudioFrontend(
+            mode, mel_bins=input_bins if mode == "precomputed" else num_mels,
+            spec_width=spec_width, sample_rate=sample_rate, fft_length=fft_length,
+            mag_scale=mag_scale if mode != "precomputed" else "none")
+        self.use_attention_pooling = use_attention_pooling
+
+        blocks = []
+        ch = add_conv_bn(self, "stem", 1, make_divisible(16 * alpha, 8), (3, 3), (1, 2))
+        blocks.append(("conv_bn", "stem"))
+        for si, (bf, br) in enumerate(zip(BASE_FILTERS, BASE_REPEATS), start=1):
+            out_ch = make_divisible(int(bf * alpha), 8)
+            reps = max(1, int(math.ceil(br * depth_multiplier)))
+            for bi in range(1, reps + 1):
+                strides = (2, 2) if bi == 1 else (1, 1)
+                if use_inverted_residual:
+                    name = f"stage{si}_ir{bi}"
+                    ch = add_inverted_residual_block(self, name, ch, out_ch,
+                                                     expansion_factor, strides,
+                                                     use_se, se_reduction)
+                    blocks.append(("ir", name))
+                else:
+                    name = f"stage{si}_ds{bi}"
+                    ch = add_ds_conv_block(self, name, ch, out_ch, strides)
+                    blocks.append(("ds", name))
+                    if use_se:
+                        add_se_block(self, f"stage{si}_se{bi}", ch, se_reduction)
+                        blocks.append(("se", f"stage{si}_se{bi}"))
+        emb_ch = make_divisible(embeddings_size, 8)
+        if ch != emb_ch:
+            ch = add_conv_bn(self, "emb", ch, emb_ch, (1, 1), (1, 1))
+            blocks.append(("conv_bn", "emb"))
+        if use_attention_pooling:
+            add_attention_pooling(self, "attn_pool", ch)
+        self.pred = nn.Linear(ch, num_classes)
+        self.blocks = tuple(blocks)
+
+    def forward(self, x: torch.Tensor, return_embeddings: bool = False):
+        """[B, bins, W, 1] -> [B, num_classes] scores (and [B, emb] if asked)."""
+        x = self.audio_frontend(x).permute(0, 3, 1, 2)  # NHWC -> NCHW
+        for kind, name in self.blocks:
+            if kind == "conv_bn":
+                x = conv_bn(self, x, name)
+            elif kind == "ds":
+                x = ds_conv_block(self, x, name)
+            elif kind == "ir":
+                x = inverted_residual_block(self, x, name)
+            else:
+                x = se_block(self, x, name)
+        if self.use_attention_pooling:
+            emb = attention_pooling(self, x, "attn_pool")
+        else:
+            emb = x.mean(dim=(2, 3))  # GAP
+        y = torch.softmax(self.pred(emb), dim=-1)
+        return (y, emb) if return_embeddings else y
+
+
+def build_dscnn(cfg: ModelConfig, device: str | torch.device = "cuda") -> DSCNN:
+    """A DSCNN for `cfg`, in eval mode on `device` (default CUDA; raises if
+    there is none). Its weights are the constructor's: load a state_dict
+    (models/convert.py) or call init_model."""
+    dev = resolve_device(device)
+    model = DSCNN(
+        num_mels=cfg.num_mels,
+        spec_width=cfg.spec_width,
+        sample_rate=cfg.sample_rate,
+        embeddings_size=cfg.embeddings_size,
+        num_classes=cfg.num_classes,
+        audio_frontend=cfg.audio_frontend,
+        alpha=cfg.alpha,
+        depth_multiplier=cfg.depth_multiplier,
+        fft_length=cfg.fft_length,
+        mag_scale=cfg.mag_scale,
+        n_mfcc=cfg.n_mfcc,
+        use_se=cfg.use_se,
+        se_reduction=cfg.se_reduction,
+        use_inverted_residual=cfg.use_inverted_residual,
+        expansion_factor=cfg.expansion_factor,
+        use_attention_pooling=cfg.use_attention_pooling,
+    )
+    return model.to(dev).eval()
+
+
+@torch.no_grad()
+def init_model(model: DSCNN, seed: int = 0) -> DSCNN:
+    """Seeded random weights, the same on every device.
+
+    Conv and dense weights are drawn on the CPU from one torch.Generator:
+    He-normal for convolutions (so activations keep their scale through the
+    ReLU6 stack and the scores are not all equal), LeCun-normal for dense
+    layers. Biases are zero; BN, the mel mixer and pwl keep their
+    constructor values (identity BN, Slaney mixer, default pwl curve).
+    """
+    g = torch.Generator().manual_seed(seed)
+    for module in model.modules():
+        if isinstance(module, (nn.Conv2d, nn.Linear)):
+            w = module.weight
+            fan_in = w[0].numel()
+            gain = 2.0 if isinstance(module, nn.Conv2d) else 1.0
+            w.copy_(torch.randn(w.shape, generator=g) * math.sqrt(gain / fan_in))
+            if module.bias is not None:
+                module.bias.zero_()
+    return model

@@ -1,0 +1,154 @@
+"""PyTorch port, the slice end to end, and the rules of the port.
+
+The port's make_fused_classifier on the CPU against the JAX
+make_fused_classifier(FlaxRunner, pallas_mode='interpret') on the same
+waveforms, with the same (converted) weights: atol 5e-5 on softmax scores,
+the tolerance tests/test_pallas.py uses between the JAX kernel and XLA
+paths (float32 on both sides, summation order differs through the whole
+frontend + DS-CNN chain).
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from birdnet_stm32_tpu.config import ModelConfig as JaxModelConfig
+from birdnet_stm32_tpu.models.dscnn import build_dscnn as j_build_dscnn
+from birdnet_stm32_tpu.models.dscnn import init_model as j_init_model
+from birdnet_stm32_tpu.models.runners import FlaxRunner
+from birdnet_stm32_tpu.models.serving import make_fused_classifier as j_make_fused_classifier
+from birdnet_stm32_tpu.models.serving import top_predictions as j_top_predictions
+from birdnet_stm32_tpu_torch.config import ModelConfig
+from birdnet_stm32_tpu_torch.models.convert import flax_to_state_dict
+from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn, init_model
+from birdnet_stm32_tpu_torch.models.runners import TorchRunner
+from birdnet_stm32_tpu_torch.models.serving import (
+    classify_in_batches,
+    make_fused_classifier,
+    top_predictions,
+)
+from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import frontend_input
+
+REPO = Path(__file__).resolve().parents[1]
+SMALL = dict(sample_rate=8000, num_mels=32, spec_width=32, fft_length=256,
+             chunk_duration=1.0, embeddings_size=32, num_classes=4,
+             class_names=list("abcd"), alpha=0.25, audio_frontend="hybrid",
+             mag_scale="pwl", use_se=False, use_inverted_residual=False)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(JAX classifier, port classifier on the CPU, cfg) with shared weights."""
+    jcfg = JaxModelConfig(**SMALL)
+    jmodel = j_build_dscnn(jcfg)
+    v = jax.device_get(j_init_model(jmodel, jcfg, jax.random.key(0)))
+    j_classify = j_make_fused_classifier(FlaxRunner(jmodel, v, jcfg), jcfg,
+                                         pallas_mode="interpret")
+    cfg = ModelConfig(**SMALL)
+    model = build_dscnn(cfg, device="cpu")
+    model.load_state_dict(flax_to_state_dict(v), strict=True)
+    t_classify = make_fused_classifier(TorchRunner(model, cfg, device="cpu"), cfg,
+                                       device="cpu")
+    return j_classify, t_classify, cfg
+
+
+def _waves(seed, n, cfg):
+    return np.random.default_rng(seed).normal(0, 0.5, (n, cfg.chunk_samples)).astype(np.float32)
+
+
+def test_fused_classifier_matches_jax(pair):
+    j_classify, t_classify, cfg = pair
+    wave = _waves(0, 4, cfg)
+    before = frontend_kernel.launches
+    got = t_classify(wave)
+    assert frontend_kernel.launches == before  # CPU: the plain version, no launch
+    ref = np.asarray(j_classify(wave))
+    assert got.shape == ref.shape == (4, cfg.num_classes)
+    np.testing.assert_allclose(got, ref, atol=5e-5)
+    np.testing.assert_allclose(got.sum(axis=1), 1.0, atol=1e-5)
+
+
+def test_classify_in_batches_pads_ragged_tail(pair):
+    _, t_classify, cfg = pair
+    chunks = _waves(1, 7, cfg)
+    scores, seconds = classify_in_batches(t_classify, chunks, batch_size=3)
+    assert scores.shape == (7, cfg.num_classes) and seconds > 0
+    # The padded tail batch gives the tail chunk the scores it gets alone.
+    np.testing.assert_allclose(scores[6:], t_classify(chunks[6:]), atol=1e-6)
+    np.testing.assert_allclose(scores[:3], t_classify(chunks[:3]), atol=1e-6)
+
+
+def test_runner_predict_scores_features(pair):
+    """TorchRunner.predict takes model inputs (features), as FlaxRunner does."""
+    _, t_classify, cfg = pair
+    wave = _waves(2, 2, cfg)
+    model = build_dscnn(cfg, device="cpu")
+    runner = TorchRunner(model, cfg, device="cpu")
+    feats = frontend_input(torch.from_numpy(wave), cfg).numpy()
+    classify = make_fused_classifier(runner, cfg, device="cpu")
+    np.testing.assert_allclose(runner.predict(feats), classify(wave), atol=1e-6)
+
+
+@pytest.mark.parametrize("thr", [0.3, [0.1, 0.5, 0.2, 0.9]])
+def test_top_predictions_matches_jax(thr):
+    pooled = np.array([0.2, 0.35, 0.05, 0.4], np.float32)
+    for k in (1, 2, 4):
+        assert top_predictions(pooled, k, thr) == j_top_predictions(pooled, k, thr)
+
+
+def test_entry_points_default_to_cuda():
+    """Without device=, entry points run on CUDA; on a machine without it
+    they raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default is valid here")
+    cfg = ModelConfig(**SMALL)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_dscnn(cfg)
+    model = build_dscnn(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchRunner(model, cfg)
+    runner = TorchRunner(model, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_fused_classifier(runner, cfg)
+
+
+def test_runner_device_must_match_classifier():
+    cfg = ModelConfig(**SMALL)
+    runner = TorchRunner(build_dscnn(cfg, device="cpu"), cfg, device="cpu")
+    with pytest.raises(ValueError, match="runner is on"):
+        make_fused_classifier(runner, cfg, device="meta")
+
+
+def test_seeded_init_is_reproducible():
+    cfg = ModelConfig(**SMALL)
+    a = init_model(build_dscnn(cfg, device="cpu"), seed=5).state_dict()
+    b = init_model(build_dscnn(cfg, device="cpu"), seed=5).state_dict()
+    c = init_model(build_dscnn(cfg, device="cpu"), seed=6).state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["stem_conv.weight"], c["stem_conv.weight"])
+
+
+def _port_sources():
+    return sorted((REPO / "birdnet_stm32_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_jax(path):
+    """No module of the port, and not chip_smoke.py, imports jax, flax or
+    the JAX package (matched on the exact top-level name)."""
+    banned = {"jax", "flax", "birdnet_stm32_tpu"}
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in banned, f"{path}: imports {name}"
