@@ -1,11 +1,12 @@
 """Fused waveform -> scores classification (port of models/serving.py).
 
 make_fused_classifier runs frontend and model back to back on one device:
-on CUDA the hybrid frontend is the hand-written fused kernel
-(ops/kernels/frontend_kernel.py), on the CPU its plain version. The
-composition (ops/frontend.inputs_for_config) serves only what the kernel's
-dispatch excludes, as in the JAX package: 2*hop < n_fft, or the 'raw'
-frontend. There is no kernel on/off switch.
+on CUDA the spectrogram frontends (hybrid, librosa with any mag_scale,
+log_mel, mfcc) are the hand-written fused kernels
+(ops/kernels/frontend_kernel.py::frontend_input), on the CPU their plain
+version. The composition (ops/frontend.inputs_for_config) serves only what
+the kernels' dispatch excludes, as in the JAX package: 2*hop < n_fft, or
+the 'raw' frontend. There is no kernel on/off switch.
 
 Not ported yet (ROADMAP.md): the INT8 runner leg, int16 / mu-law ingress,
 on-device resampling (input_sample_rate), asynchronous results

@@ -1,9 +1,11 @@
-// Fused linear |STFT| frontend for Hopper (sm_90a), float32.
+// Fused |STFT| frontends for Hopper (sm_90a), float32.
 //
 // Replaces birdnet_stm32_tpu/ops/pallas/frontend_kernel.py::_kernel /
-// fused_spectrogram (grid="sample") in its mode="linear", mag_scale="none",
-// quant=None specialisation: the hybrid frontend of the serving path.
-// Per sample it computes, in one launch:
+// fused_spectrogram (grid="sample") with quant=None, in two kernels that
+// share one DFT tile loop (dft_tile):
+//
+// frontend_linear_kernel: mode="linear", mag_scale="none", the hybrid
+// frontend. Per sample, in one launch:
 //   1. framing straight from the waveform: frame k = ypad[k*hop, k*hop+n_fft)
 //      with ypad = n_fft/2 zeros ++ y ++ zeros (2*hop >= n_fft, so frame k
 //      never reaches past (n_frames+1)*hop, the reference's `need` cut);
@@ -14,37 +16,72 @@
 //      (S - min) / (max - min + 1e-10);
 //   5. freq-major output [B, F, W].
 //
-// What bounds it: the bytes. The function needs each waveform sample read
-// once and each feature written once: at the flagship 66150 floats in and
-// 257 x 256 floats out per sample, 34 MB at B=64, 10.1 us at 3.35 TB/s.
-// Its arithmetic through an FFT is ~2.5 * n_fft * log2(n_fft) FLOP per
-// frame plus the window, |.| and min-max epilogue, ~14.1 kFLOP per frame or
-// 231 MFLOP at B=64, 3.4 us at the card's 67 TFLOP/s fp32: below the bytes.
-// This design does more arithmetic than the function needs: it computes the
-// DFT as a matrix product, 2 * n_frames * n_fft * 2F FLOP per sample
-// (flagship: 2*256*512*514 = 134.7 MFLOP, ~40x the FFT's count), so in
-// practice its fp32 FMA rate limits it, not memory. The bases
-// (2 * n_fft * F_pad * 4 B = 1.2 MB) stay resident in L2.
+// frontend_features_kernel: every other epilogue of _sample_epilogue
+// without quant: the mel product, then mel / pwl / db / pcen, log_mel
+// (log1p), mfcc (power, mel, power_to_db over all frames, DCT, slice), and
+// the linear mode with pwl / db / pcen. Per sample, in one launch:
+//   1-2. as above, over a 64-frame strip and all bins;
+//   3. |X|, or |X|^2 for mfcc, staged per 32-bin tile in shared memory and
+//      multiplied into the mel bank (or, with no mel, written out as is);
+//   4. the strip's [64, C] rows go to a frame-major scratch [B, W, C];
+//   5. the last strip of the sample to arrive runs the per-sample
+//      epilogue, with every reduction it needs, and writes [B, bins, W'].
 //
-// Design. A sample's magnitudes (257 x 256 x 4 B = 263 KB) exceed the
-// 227 KB of shared memory a block may hold, so one block cannot keep a
-// whole sample the way the TPU kernel kept it in VMEM. Instead each sample
-// is cut into 64-frame x 32-bin output tiles, one block per tile (flagship:
-// 4 x 9 = 36 blocks per sample, 2304 blocks at B=64, enough to fill all
-// 132 SMs). A block runs a register-tiled SIMT GEMM: 128 threads, each
-// holding a 4 x 4 micro-tile of both re and im (32 accumulators, 32 FMA per
-// three float4 shared-memory loads), over K = n_fft in steps of 32 taps.
-// The frame tile is read from global memory as 4 frames x 8 taps per warp
-// (coalesced) and stored transposed into a padded shared array without bank
-// conflicts. The epilogue stages the tile's magnitudes through shared memory
-// so each warp writes whole rows of the freq-major output, and writes the
-// tile's min and max to a scratch array. The min-max normalisation across
-// tiles needs every tile of the sample, so the last block of a sample to
-// finish (an atomic arrival count after a __threadfence) reduces the
-// per-tile extrema, normalises the sample's output in place (that re-read
-// is L2-resident) and resets the sample's arrival count to zero, so the
-// counters are ready for the next launch on the stream without a memset.
-// One launch, no second pass over device memory.
+// What bounds them: the bytes. The function needs each waveform sample
+// read once and each feature written once: at the flagship 66150 floats in
+// and bins x 256 floats out per sample (34 MB at B=64 for the 257 linear
+// bins, 10.1 us at 3.35 TB/s; 21.1 MB and 6.3 us for 64 mels). Its
+// arithmetic through an FFT is ~14.1 kFLOP per frame, plus 2 x the mel
+// bank's nonzeros and the DCT: ~3.8 us at the card's 67 TFLOP/s fp32,
+// below the bytes. This design does more arithmetic than the function
+// needs: it computes the DFT as a matrix product, 2 * n_frames * n_fft *
+// 2F FLOP per sample (flagship: 134.7 MFLOP, ~40x the FFT's count), so in
+// practice its fp32 FMA rate limits it, not memory. The bases
+// (2 * n_fft * F_pad * 4 B = 1.2 MB) and the mel bank stay resident in L2.
+//
+// Design of the linear kernel. A sample's magnitudes (257 x 256 x 4 B =
+// 263 KB) exceed the 227 KB of shared memory a block may hold, so one block
+// cannot keep a whole sample the way the TPU kernel kept it in VMEM.
+// Instead each sample is cut into 64-frame x 32-bin output tiles, one
+// block per tile (flagship: 4 x 9 = 36 blocks per sample, 2304 blocks at
+// B=64, enough to fill all 132 SMs). A block runs a register-tiled SIMT
+// GEMM: 128 threads, each holding a 4 x 4 micro-tile of both re and im (32
+// accumulators, 32 FMA per three float4 shared-memory loads), over K =
+// n_fft in steps of 32 taps. The frame tile is read from global memory as
+// 4 frames x 8 taps per warp (coalesced) and stored transposed into a
+// padded shared array without bank conflicts. The epilogue stages the
+// tile's magnitudes through shared memory so each warp writes whole rows of
+// the freq-major output, and writes the tile's min and max to a scratch
+// array. The min-max normalisation across tiles needs every tile of the
+// sample, so the last block of a sample to finish (an atomic arrival count
+// after a __threadfence) reduces the per-tile extrema, normalises the
+// sample's output in place (that re-read is L2-resident) and resets the
+// sample's arrival count to zero, so the counters are ready for the next
+// launch on the stream without a memset. One launch, no second pass over
+// device memory.
+//
+// Design of the features kernel. After the mel product a sample is small
+// (256 x 64 x 4 B = 64 KB; mfcc's 257 frames 65.8 KB), so one block can
+// hold it. A block owns a 64-frame strip of one sample and walks all bin
+// tiles with the same DFT tile loop, staging each 64 x 32 magnitude tile
+// in shared memory and accumulating the mel product in registers: thread
+// t owns mel t % 64 of its 64-mel chunk for 32 frames, and sums the bins
+// in increasing order, skipping a tile row only when the whole warp's
+// weights are zero (the sum is unchanged). More than 64 mels take more
+// blocks (grid.x = strips x mel chunks), each recomputing the DFT. The
+// strip's rows go to scratch; the last block of the sample to arrive
+// loads the sample from L2 into shared memory (rows padded to C+1 floats,
+// so the freq-major transpose on the way out is free of bank conflicts)
+// and runs the epilogue there: the multi-pass reductions (pwl: min-max,
+// curve, min-max; db: max, dB, peak-80 clamp, min-max; mfcc: max, dB over
+// all frames, clamp, DCT, min-max) and pcen's smoother, one thread per
+// channel walking the frames in order. Sums never use float atomics: each
+// is computed by one thread in a fixed order, so the result does not
+// depend on which block arrives last. A sample too large for shared
+// memory (the linear mode's 257 bins) runs the same epilogue in place in
+// the L2-resident scratch. The shared memory is one dynamic buffer, the
+// strip's tiles first and the sample after, so every block holds only the
+// larger of the two.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,8 +96,16 @@ constexpr int TN = 4;                           // bins per thread
 constexpr int THREADS = (BM / TM) * (BN / TN);  // 128
 constexpr int WARPS = THREADS / 32;
 constexpr int AS = BM + 4;  // padded row stride: float4-aligned rows, conflict-free stores
+constexpr int MEL_CHUNK = 64;                            // mels per block
+constexpr int MEL_FRAMES = BM * MEL_CHUNK / THREADS;     // frames per thread: 32
+constexpr int TILE_FLOATS = BK * AS + 2 * BK * BN;       // As, Cs, Ss
 static_assert(BN <= BK, "the epilogue stages [BN][BM] magnitudes in the [BK][AS] frame tile");
 static_assert(BK == 32 && BM % 16 == 0, "the frame-tile load mapping assumes 32 taps, 16-frame groups");
+static_assert(THREADS % MEL_CHUNK == 0 && MEL_FRAMES % 4 == 0,
+              "mel threads own whole float4 frame runs");
+
+// The per-sample epilogues of _sample_epilogue (quant=None).
+enum Epilogue { EPI_NONE = 0, EPI_PWL = 1, EPI_DB = 2, EPI_PCEN = 3, EPI_LOG1P = 4, EPI_MFCC = 5 };
 
 __device__ __forceinline__ void block_minmax(float& mn, float& mx,
                                              float* s_min, float* s_max) {
@@ -85,33 +130,20 @@ __device__ __forceinline__ void block_minmax(float& mn, float& mx,
     __syncthreads();
 }
 
-__global__ void __launch_bounds__(THREADS)
-frontend_linear_kernel(const float* __restrict__ y,      // [B, T]
-                       const float* __restrict__ bases,  // [2, n_fft, f_pad]: cos, sin
-                       float* __restrict__ out,          // [B, n_bins, n_frames]
-                       float* __restrict__ tile_minmax,  // [B, tiles, 2]
-                       unsigned int* __restrict__ arrived,  // [B], zero on entry and exit
-                       int T, int n_fft, int hop, int n_frames, int n_bins,
-                       int f_pad) {
-    __shared__ __align__(16) float As[BK][AS];  // frame tile, [tap][frame]; later [bin][frame]
-    __shared__ __align__(16) float Cs[BK][BN];  // cos bases tile
-    __shared__ __align__(16) float Ss[BK][BN];  // sin bases tile
-    __shared__ float s_min[WARPS], s_max[WARPS];
-    __shared__ bool is_last;
-
-    const int b = blockIdx.y;
-    const int tiles_n = f_pad / BN;
-    const int f0 = (blockIdx.x / tiles_n) * BM;
-    const int n0 = (blockIdx.x % tiles_n) * BN;
+// re/im of frames [f0, f0+BM) x bins [n0, n0+BN) of one sample: each
+// thread's 4 x 4 micro-tile at frames f0 + ty*TM.., bins n0 + tx*TN...
+__device__ __forceinline__ void dft_tile(const float* __restrict__ yb,
+                                         const float* __restrict__ bases,
+                                         float (*As)[AS], float (*Cs)[BN], float (*Ss)[BN],
+                                         int f0, int n0, int T, int n_fft, int hop,
+                                         int n_frames, int f_pad,
+                                         float (&re)[TM][TN], float (&im)[TM][TN]) {
     const int t = threadIdx.x;
     const int tx = t % (BN / TN);
     const int ty = t / (BN / TN);
     const int pad = n_fft / 2;
-    const float* yb = y + (size_t)b * T;
     const float* cos_b = bases;
     const float* sin_b = bases + (size_t)n_fft * f_pad;
-
-    float re[TM][TN], im[TM][TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -159,6 +191,47 @@ frontend_linear_kernel(const float* __restrict__ y,      // [B, T]
         }
         __syncthreads();
     }
+}
+
+// Counts this block's arrival at sample b after publishing its writes;
+// true in the last block of the sample to arrive, which also resets the
+// sample's count to zero for the next launch.
+__device__ __forceinline__ bool last_to_arrive(unsigned int* arrived, int b, bool* is_last) {
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) *is_last = atomicAdd(&arrived[b], 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!*is_last) return false;
+    __threadfence();
+    if (threadIdx.x == 0) arrived[b] = 0u;  // every block of sample b has arrived
+    return true;
+}
+
+__global__ void __launch_bounds__(THREADS)
+frontend_linear_kernel(const float* __restrict__ y,      // [B, T]
+                       const float* __restrict__ bases,  // [2, n_fft, f_pad]: cos, sin
+                       float* __restrict__ out,          // [B, n_bins, n_frames]
+                       float* __restrict__ tile_minmax,  // [B, tiles, 2]
+                       unsigned int* __restrict__ arrived,  // [B], zero on entry and exit
+                       int T, int n_fft, int hop, int n_frames, int n_bins,
+                       int f_pad) {
+    __shared__ __align__(16) float As[BK][AS];  // frame tile, [tap][frame]; later [bin][frame]
+    __shared__ __align__(16) float Cs[BK][BN];  // cos bases tile
+    __shared__ __align__(16) float Ss[BK][BN];  // sin bases tile
+    __shared__ float s_min[WARPS], s_max[WARPS];
+    __shared__ bool is_last;
+
+    const int b = blockIdx.y;
+    const int tiles_n = f_pad / BN;
+    const int f0 = (blockIdx.x / tiles_n) * BM;
+    const int n0 = (blockIdx.x % tiles_n) * BN;
+    const int t = threadIdx.x;
+    const int tx = t % (BN / TN);
+    const int ty = t / (BN / TN);
+
+    float re[TM][TN], im[TM][TN];
+    dft_tile(y + (size_t)b * T, bases, As, Cs, Ss, f0, n0, T, n_fft, hop, n_frames,
+             f_pad, re, im);
 
     // Magnitudes -> shared [bin][frame] staging, plus this thread's extrema
     // over the valid (frame < n_frames, bin < n_bins) entries.
@@ -193,15 +266,8 @@ frontend_linear_kernel(const float* __restrict__ y,      // [B, T]
         mm[1] = lmax;
     }
 
-    // Publish this tile's output and extrema, then count its arrival; the
-    // last tile of the sample to arrive normalises the whole sample.
-    __threadfence();
-    __syncthreads();
-    if (t == 0) is_last = atomicAdd(&arrived[b], 1u) == gridDim.x - 1;
-    __syncthreads();
-    if (!is_last) return;
-    __threadfence();
-    if (t == 0) arrived[b] = 0u;  // every tile of sample b has arrived
+    // The last tile of the sample to arrive normalises the whole sample.
+    if (!last_to_arrive(arrived, b, &is_last)) return;
 
     float mn = INFINITY, mx = -INFINITY;
     for (int i = t; i < gridDim.x; i += THREADS) {
@@ -227,6 +293,225 @@ frontend_linear_kernel(const float* __restrict__ y,      // [B, T]
     } else {
         for (size_t e = t; e < total; e += THREADS) ob[e] = (__ldcg(ob + e) - mn) / den;
     }
+}
+
+// pwl_compress of ops/magnitude.py on a [0, 1]-normalized value, in its order.
+__device__ __forceinline__ float pwl(float x) {
+    float y = 0.40f * x;
+    y = y + 0.25f * fmaxf(x - 0.10f, 0.0f);
+    y = y + 0.15f * fmaxf(x - 0.35f, 0.0f);
+    y = y + 0.08f * fmaxf(x - 0.65f, 0.0f);
+    return y;
+}
+
+// One sample's epilogue, run by one block over buf[w * ld + c] (w < rows
+// frames, c < C channels, frame-major; in shared memory or in the scratch),
+// which it may overwrite. Writes the normalized freq-major ob[c * out_w + w]
+// (mfcc: ob[k * out_w + w], k < n_mfcc). Every reduction is a min or a max,
+// and every sum (the DCT) is one thread's, in order.
+__device__ void sample_epilogue(float* buf, int ld, int rows, int C, float* ob, int out_w,
+                                int epi, const float* __restrict__ dct, int n_mfcc,
+                                float pcen_a, float pcen_b, float* s_min, float* s_max) {
+    const int t = threadIdx.x;
+    const int n = rows * C;
+    // Element e of the sample, in frame-major order.
+    const auto at = [=](int e) -> float& { return buf[(e / C) * ld + e % C]; };
+
+    float mn = INFINITY, mx = -INFINITY;
+    if (epi == EPI_NONE || epi == EPI_PWL) {
+        for (int e = t; e < n; e += THREADS) {
+            mn = fminf(mn, at(e));
+            mx = fmaxf(mx, at(e));
+        }
+    }
+    if (epi == EPI_PWL) {
+        block_minmax(mn, mx, s_min, s_max);
+        const float lo = mn, den = mx - mn + 1e-10f;
+        mn = INFINITY;
+        mx = -INFINITY;
+        for (int e = t; e < n; e += THREADS) {
+            float& x = at(e);
+            x = pwl((x - lo) / den);
+            mn = fminf(mn, x);
+            mx = fmaxf(mx, x);
+        }
+    } else if (epi == EPI_LOG1P) {
+        for (int e = t; e < n; e += THREADS) {
+            float& x = at(e);
+            x = log1pf(x);
+            mn = fminf(mn, x);
+            mx = fmaxf(mx, x);
+        }
+    } else if (epi == EPI_DB || epi == EPI_MFCC) {
+        // db: amplitude_to_db(S, ref=max S) = power_to_db(S^2, ref^2,
+        // amin 1e-10); mfcc: power_to_db(S, ref=max S) of the power mel.
+        const bool square = epi == EPI_DB;
+        for (int e = t; e < n; e += THREADS) mx = fmaxf(mx, at(e));
+        block_minmax(mn, mx, s_min, s_max);
+        const float ref_db = 10.0f * log10f(fmaxf(square ? mx * mx : mx, 1e-10f));
+        mx = -INFINITY;
+        for (int e = t; e < n; e += THREADS) {
+            float& x = at(e);
+            x = 10.0f * log10f(fmaxf(square ? x * x : x, 1e-10f)) - ref_db;
+            mx = fmaxf(mx, x);
+        }
+        block_minmax(mn, mx, s_min, s_max);
+        const float floor_db = mx - 80.0f;  // top_db over every frame
+        mn = INFINITY;
+        mx = -INFINITY;
+        for (int e = t; e < n; e += THREADS) {
+            float& x = at(e);
+            x = fmaxf(x, floor_db);
+            mn = fminf(mn, x);
+            mx = fmaxf(mx, x);
+        }
+        if (epi == EPI_MFCC) {
+            __syncthreads();
+            // DCT over the mel axis for the first out_w frames, then the
+            // min-max of the coefficients.
+            mn = INFINITY;
+            mx = -INFINITY;
+            for (int e = t; e < n_mfcc * out_w; e += THREADS) {
+                const int k = e / out_w, w = e % out_w;
+                const float* row = buf + (size_t)w * ld;
+                float acc = 0.0f;
+                for (int m = 0; m < C; ++m) acc = fmaf(row[m], __ldg(dct + m * n_mfcc + k), acc);
+                ob[e] = acc;
+                mn = fminf(mn, acc);
+                mx = fmaxf(mx, acc);
+            }
+            block_minmax(mn, mx, s_min, s_max);
+            const float den = mx - mn + 1e-10f;
+            for (int e = t; e < n_mfcc * out_w; e += THREADS) ob[e] = (ob[e] - mn) / den;
+            return;
+        }
+    } else if (epi == EPI_PCEN) {  // on S * 2^31, librosa.pcen's defaults
+        // The smoother, one thread per channel over the frames in order:
+        // m[0] = s[0], m[w] = a*m[w-1] + b*s[w]; M parks in ob (rows == out_w).
+        for (int c = t; c < C; c += THREADS) {
+            float m = buf[c] * 2147483648.0f;
+            ob[(size_t)c * out_w] = m;
+            for (int w = 1; w < rows; ++w) {
+                m = pcen_a * m + pcen_b * (buf[(size_t)w * ld + c] * 2147483648.0f);
+                ob[(size_t)c * out_w + w] = m;
+            }
+        }
+        __syncthreads();
+        const float log_eps = logf(1e-6f);
+        for (int e = t; e < n; e += THREADS) {
+            float& x = at(e);
+            const float s = x * 2147483648.0f;
+            const float M = ob[(size_t)(e % C) * out_w + e / C];
+            const float smooth = expf(-0.98f * (log_eps + log1pf(M / 1e-6f)));
+            x = 1.41421356f * expm1f(0.5f * log1pf(s * smooth / 2.0f));
+            mn = fminf(mn, x);
+            mx = fmaxf(mx, x);
+        }
+    }
+    block_minmax(mn, mx, s_min, s_max);
+    const float den = mx - mn + 1e-10f;
+    for (int e = t; e < C * out_w; e += THREADS) {
+        const int c = e / out_w, w = e % out_w;
+        ob[e] = (buf[(size_t)w * ld + c] - mn) / den;
+    }
+}
+
+__global__ void __launch_bounds__(THREADS)
+frontend_features_kernel(const float* __restrict__ y,       // [B, T]
+                         const float* __restrict__ bases,   // [2, n_fft, f_pad]
+                         const float* __restrict__ mel_fb,  // [f_pad, n_mel], zero rows past F
+                         const float* __restrict__ dct,     // [n_mel, n_mfcc] (mfcc)
+                         float* __restrict__ scratch,       // [B, n_frames, C]
+                         float* __restrict__ out,           // [B, bins, out_w]
+                         unsigned int* __restrict__ arrived,  // [B], zero on entry and exit
+                         int T, int n_fft, int hop, int n_frames, int n_bins, int f_pad,
+                         int n_mel, int n_mfcc, int out_w, int epi, float pcen_a,
+                         float pcen_b, int stage_in_smem) {
+    extern __shared__ __align__(16) float smem[];  // the strip's tiles, then the sample
+    float (*As)[AS] = reinterpret_cast<float (*)[AS]>(smem);
+    float (*Cs)[BN] = reinterpret_cast<float (*)[BN]>(smem + BK * AS);
+    float (*Ss)[BN] = reinterpret_cast<float (*)[BN]>(smem + BK * AS + BK * BN);
+    __shared__ float s_min[WARPS], s_max[WARPS];
+    __shared__ bool is_last;
+
+    const int b = blockIdx.y;
+    const int strips = (n_frames + BM - 1) / BM;
+    const int f0 = (blockIdx.x % strips) * BM;
+    const int t = threadIdx.x;
+    const int tx = t % (BN / TN);
+    const int ty = t / (BN / TN);
+    const int C = n_mel > 0 ? n_mel : n_bins;
+    const bool power = epi == EPI_MFCC;
+    float* sb = scratch + (size_t)b * n_frames * C;
+
+    // Mel product: thread t owns mel m of frames fm .. fm + MEL_FRAMES.
+    const int m = (blockIdx.x / strips) * MEL_CHUNK + t % MEL_CHUNK;
+    const int fm = (t / MEL_CHUNK) * MEL_FRAMES;
+    float mel[MEL_FRAMES];
+#pragma unroll
+    for (int j = 0; j < MEL_FRAMES; ++j) mel[j] = 0.0f;
+
+    for (int n0 = 0; n0 < f_pad; n0 += BN) {
+        float re[TM][TN], im[TM][TN];
+        dft_tile(y + (size_t)b * T, bases, As, Cs, Ss, f0, n0, T, n_fft, hop, n_frames,
+                 f_pad, re, im);
+        // |X| (mfcc: |X|^2) -> As[bin][frame]; bins past F are zero.
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+            float v[TM];
+#pragma unroll
+            for (int i = 0; i < TM; ++i) {
+                v[i] = re[i][j] * re[i][j] + im[i][j] * im[i][j];
+                if (!power) v[i] = sqrtf(v[i]);
+            }
+            *reinterpret_cast<float4*>(&As[tx * TN + j][ty * TM]) =
+                make_float4(v[0], v[1], v[2], v[3]);
+        }
+        __syncthreads();
+        if (n_mel > 0) {
+            for (int kk = 0; kk < BN; ++kk) {
+                const float w = m < n_mel ? __ldg(mel_fb + (size_t)(n0 + kk) * n_mel + m) : 0.0f;
+                if (!__any_sync(0xffffffffu, w != 0.0f)) continue;  // adds exact zeros only
+                const float4* row = reinterpret_cast<const float4*>(&As[kk][fm]);
+#pragma unroll
+                for (int q = 0; q < MEL_FRAMES / 4; ++q) {
+                    const float4 a = row[q];
+                    mel[4 * q + 0] = fmaf(a.x, w, mel[4 * q + 0]);
+                    mel[4 * q + 1] = fmaf(a.y, w, mel[4 * q + 1]);
+                    mel[4 * q + 2] = fmaf(a.z, w, mel[4 * q + 2]);
+                    mel[4 * q + 3] = fmaf(a.w, w, mel[4 * q + 3]);
+                }
+            }
+        } else {
+            for (int e = t; e < BM * BN; e += THREADS) {
+                const int f = e / BN, k = e % BN;
+                if (f0 + f < n_frames && n0 + k < n_bins)
+                    sb[(size_t)(f0 + f) * C + n0 + k] = As[k][f];
+            }
+        }
+        __syncthreads();
+    }
+    if (n_mel > 0 && m < n_mel) {
+#pragma unroll
+        for (int j = 0; j < MEL_FRAMES; ++j)
+            if (f0 + fm + j < n_frames) sb[(size_t)(f0 + fm + j) * C + m] = mel[j];
+    }
+
+    if (!last_to_arrive(arrived, b, &is_last)) return;
+
+    float* buf = sb;
+    int ld = C;
+    if (stage_in_smem) {
+        // __ldcg reads through L2: other blocks' writes are not in this SM's L1.
+        ld = C + 1;
+        for (int e = t; e < n_frames * C; e += THREADS)
+            smem[(e / C) * ld + e % C] = __ldcg(sb + e);
+        __syncthreads();
+        buf = smem;
+    }
+    const int bins = epi == EPI_MFCC ? n_mfcc : C;
+    sample_epilogue(buf, ld, n_frames, C, out + (size_t)b * bins * out_w, out_w, epi, dct,
+                    n_mfcc, pcen_a, pcen_b, s_min, s_max);
 }
 
 }  // namespace
@@ -256,6 +541,50 @@ int frontend_linear_f32(const float* y, const float* bases, float* out,
     frontend_linear_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         y, bases, out, tile_minmax, arrived, T, n_fft, hop, n_frames,
         n_fft / 2 + 1, frontend_linear_bin_pad(n_fft));
+    return (int)cudaGetLastError();
+}
+
+// Launches the features kernel on `stream`; returns a cudaError_t (0 = ok).
+// `epi` is an Epilogue; n_mel 0 means no mel product (linear bins). `mel_fb`
+// is [bin_pad, n_mel] with zero rows past n_fft/2+1, `dct` [n_mel, n_mfcc]
+// (mfcc only), `scratch` B * n_frames * C floats (C = n_mel, or the bins),
+// `out` B * bins * out_w floats (bins = n_mfcc for mfcc, else C); out_w ==
+// n_frames except for mfcc. `arrived` as for frontend_linear_f32.
+int frontend_features_f32(const float* y, const float* bases, const float* mel_fb,
+                          const float* dct, float* scratch, float* out,
+                          unsigned int* arrived, int B, int T, int n_fft, int hop,
+                          int n_frames, int n_mel, int n_mfcc, int out_w, int epi,
+                          float pcen_a, float pcen_b, void* stream) {
+    const int n_bins = n_fft / 2 + 1;
+    const int C = n_mel > 0 ? n_mel : n_bins;
+    if (B <= 0 || B > 65535 || n_fft % BK != 0 || 2 * hop < n_fft || n_frames <= 0 ||
+        n_mel < 0 || epi < EPI_NONE || epi > EPI_MFCC ||
+        (epi == EPI_MFCC ? (n_mel == 0 || n_mfcc <= 0 || out_w <= 0 || out_w > n_frames)
+                         : out_w != n_frames))
+        return (int)cudaErrorInvalidValue;
+    int dev = 0, optin = 0;
+    cudaFuncAttributes attr;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+            cudaSuccess ||
+        cudaFuncGetAttributes(&attr, frontend_features_kernel) != cudaSuccess)
+        return (int)cudaGetLastError();
+    const size_t tile_bytes = sizeof(float) * TILE_FLOATS;
+    const size_t sample_bytes = sizeof(float) * (size_t)n_frames * (C + 1);
+    const int stage_in_smem = sample_bytes + attr.sharedSizeBytes <= (size_t)optin;
+    const size_t smem = stage_in_smem && sample_bytes > tile_bytes ? sample_bytes : tile_bytes;
+    if (smem > 48 * 1024) {
+        const cudaError_t rc = cudaFuncSetAttribute(
+            frontend_features_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (rc != cudaSuccess) return (int)rc;
+    }
+    const int strips = (n_frames + BM - 1) / BM;
+    const int chunks = n_mel > 0 ? (n_mel + MEL_CHUNK - 1) / MEL_CHUNK : 1;
+    const dim3 grid(strips * chunks, B);
+    frontend_features_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+        y, bases, mel_fb, dct, scratch, out, arrived, T, n_fft, hop, n_frames, n_bins,
+        frontend_linear_bin_pad(n_fft), n_mel, n_mfcc, out_w, epi, pcen_a, pcen_b,
+        stage_in_smem);
     return (int)cudaGetLastError();
 }
 

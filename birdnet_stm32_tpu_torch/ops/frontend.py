@@ -1,14 +1,14 @@
 """Waveform batch -> model-input batch (port of ops/frontend.py).
 
 - librosa -> mel spectrogram with the configured mag_scale, [B, M, W, 1]
+- mfcc    -> MFCC features (mag_scale forced to 'none'),    [B, n_mfcc, W, 1]
 - log_mel -> log1p mel (mag_scale forced to 'none'),        [B, M, W, 1]
 - hybrid  -> linear |STFT| normalized to [0, 1],            [B, F, W, 1]
 - raw     -> peak-normalized waveform,                      [B, T, 1]
 
-'mfcc' waits for a later slice (ROADMAP.md, Queue 1 item 2). This is the
-composition: serving computes the hybrid frontend with the fused kernel
-(ops/kernels/frontend_kernel.py) and comes here only for what that kernel's
-dispatch excludes.
+This is the composition: serving computes the spectrogram frontends with
+the fused kernel (ops/kernels/frontend_kernel.py) and comes here only for
+what that kernel's dispatch excludes.
 """
 
 from __future__ import annotations

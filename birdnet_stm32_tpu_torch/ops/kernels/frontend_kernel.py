@@ -1,69 +1,116 @@
-"""Fused waveform -> normalized linear |STFT| frontend (port of
+"""Fused waveform -> normalized spectrogram features (port of
 ops/pallas/frontend_kernel.py).
 
-The TPU kernel `_kernel` (grid="sample") becomes a hand-written CUDA kernel
-for Hopper, ops/csrc/frontend_kernel.cu, in the hybrid specialisation the
-serving path runs: mode="linear", mag_scale="none", quant=None. Its source
-note says what bounds it (float32 FMA: 2 * n_frames * n_fft * 2F FLOP per
-sample) and how its design handles a sample larger than shared memory.
+The TPU kernel `_kernel` (grid="sample") becomes two hand-written CUDA
+kernels for Hopper in ops/csrc/frontend_kernel.cu, which share one DFT
+tile loop:
+
+- the linear kernel: mode="linear", mag_scale="none", the hybrid frontend;
+- the features kernel: every other float epilogue of `_sample_epilogue`,
+  i.e. the mel product with mag_scale none / pwl / db / pcen, log_mel,
+  mfcc (power, mel, power_to_db over all frames, DCT, slice), and the
+  linear mode with pwl / db / pcen.
+
+The source note says what bounds them (bytes; in practice their fp32 FMA
+DFT) and how the design handles a sample larger than shared memory.
 
 `fused_spectrogram` dispatches on the tensor's device and nothing else:
 
-- CUDA tensor: launches the kernel (built with nvcc on first use), counts
-  the launch in the module attribute `launches`, or raises;
+- CUDA tensor: launches a kernel (built with nvcc on first use), counts the
+  launch in the module attribute `launches` under the specialisation's
+  name (`kernel_name`), or raises;
 - CPU tensor: runs `fused_spectrogram_plain`, the same function in plain
   PyTorch, which the CPU tests hold against the JAX kernel and which the
-  chip smoke test holds the CUDA kernel against.
+  chip smoke test holds the CUDA kernels against.
 
-Not ported yet (ROADMAP.md, Queue 2): the mel / log_mel / mfcc / pwl / db
-epilogues and the int8 entry epilogue of `_kernel` (K1), the batched
-`_kernel_tile` grid (K2). Asking for them raises NotImplementedError.
+`frontend_input` serves the hybrid, librosa, log_mel and mfcc frontends
+through the kernels, pcen included: the JAX dispatch keeps pcen on the XLA
+composition only because Mosaic cannot lower its associative scan, and
+CUDA has no such limit (the kernel runs pcen's smoother one thread per
+channel, frame by frame).
+
+Not ported yet (ROADMAP.md, Queue 2): the int8-entry epilogue of `_kernel`
+(K1, `quant=`, which raises NotImplementedError) and the batched
+`_kernel_tile` grid (K2).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
 import torch
 
+from birdnet_stm32_tpu_torch.config import VALID_MAG_SCALES
 from birdnet_stm32_tpu_torch.device import full_fp32
+from birdnet_stm32_tpu_torch.ops.dct import dct_matrix
 from birdnet_stm32_tpu_torch.ops.frontend import inputs_for_config
-from birdnet_stm32_tpu_torch.ops.magnitude import normalize_minmax
-from birdnet_stm32_tpu_torch.ops.spectrogram import spectrogram_batch
+from birdnet_stm32_tpu_torch.ops.magnitude import pcen_coefficients
+from birdnet_stm32_tpu_torch.ops.mel import mel_filterbank
+from birdnet_stm32_tpu_torch.ops.spectrogram import (
+    VALID_MODES,
+    spectrogram_batch,
+    spectrogram_epilogue,
+)
 from birdnet_stm32_tpu_torch.ops.stft import dft_bases_tensor, stft_magnitude
 
-# Kernel launches since the last reset; the plain (CPU) path never counts.
-launches = 0
+# Kernel launches since the last clear(), by kernel_name(mode, mag_scale);
+# the plain (CPU) path never counts.
+launches: collections.Counter[str] = collections.Counter()
 
-_NOT_PORTED = ("ROADMAP.md, Queue 2, K1: the mel/log_mel/mfcc/pwl/db and "
-               "int8-entry epilogues of the fused frontend are not ported yet")
+_NOT_PORTED = ("ROADMAP.md, Queue 2, K1: the int8-entry epilogue of the fused "
+               "frontend (quant=) is not ported yet")
+# The CUDA kernel's Epilogue codes (ops/csrc/frontend_kernel.cu).
+_EPILOGUES = {"none": 0, "pwl": 1, "db": 2, "pcen": 3, "log_mel": 4, "mfcc": 5}
+FRONTEND_MODES = {"hybrid": "linear", "librosa": "mel", "mfcc": "mfcc",
+                   "log_mel": "log_mel"}
 
 
-def _geometry(T: int, n_fft: int, spec_width: int, hop: int | None,
-              n_frames: int | None) -> tuple[int, int]:
+def kernel_name(mode: str, mag_scale: str) -> str:
+    """The specialisation a (mode, mag_scale) launches: log_mel and mfcc
+    ignore mag_scale, as the reference does."""
+    if mode in ("log_mel", "mfcc") or mag_scale == "none":
+        return f"fused_spectrogram_{mode}"
+    return f"fused_spectrogram_{mode}_{mag_scale}"
+
+
+def _geometry(mode: str, T: int, n_fft: int, spec_width: int, hop: int | None,
+              n_frames: int | None) -> tuple[int, int, int]:
+    """(hop, frames computed, frames out). mfcc's power_to_db stats run over
+    all 1 + T//hop frames before the slice to spec_width; the other modes
+    slice first."""
     if hop is None:
         hop = max(1, T // spec_width) if spec_width > 0 else n_fft // 2
     if 2 * hop < n_fft:
         raise ValueError(f"fused frontend requires 2*hop >= n_fft, got {hop=} {n_fft=}")
+    n_frames_full = 1 + T // hop
     if n_frames is None:
-        n_frames_full = 1 + T // hop
-        n_frames = n_frames_full if spec_width <= 0 else min(spec_width, n_frames_full)
-    return hop, n_frames
+        if mode == "mfcc" or spec_width <= 0:
+            n_frames = n_frames_full
+        else:
+            n_frames = min(spec_width, n_frames_full)
+    out_w = min(spec_width, n_frames) if mode == "mfcc" and spec_width > 0 else n_frames
+    return hop, n_frames, out_w
 
 
-def fused_spectrogram_plain(y: torch.Tensor, n_fft: int, hop: int,
-                            n_frames: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: [B, T] -> [B, F, n_frames].
+def fused_spectrogram_plain(y: torch.Tensor, n_fft: int, hop: int, n_frames: int,
+                            mode: str = "linear", mag_scale: str = "none",
+                            sample_rate: int = 22050, mel_bins: int = 64,
+                            n_mfcc: int = 20, out_w: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernels: [B, T] -> [B, bins, out_w].
 
     Centre-pads, frames row k ++ row k+1 of the [n_frames+1, hop] view,
-    takes |frames @ windowed DFT bases| in float32 (ops/stft.py), then
-    per-sample min-max. With 2*hop >= n_fft no frame reaches past
-    (n_frames+1)*hop samples, so this equals the reference's pad-and-cut
-    (n_fft//2 on the left, exactly (n_frames+1)*hop samples kept).
+    takes |frames @ windowed DFT bases| in float32 (ops/stft.py), then the
+    mode x mag_scale epilogue of ops/spectrogram.py. With 2*hop >= n_fft
+    no frame reaches past (n_frames+1)*hop samples, so this equals the
+    reference's pad-and-cut (n_fft//2 on the left, exactly (n_frames+1)*hop
+    samples kept).
     """
     S = stft_magnitude(y, n_fft=n_fft, hop=hop, n_frames=n_frames)  # [B, W, F]
-    return normalize_minmax(S, dim=(1, 2)).transpose(1, 2)
+    return spectrogram_epilogue(S, mode, mag_scale, sample_rate, n_fft, hop,
+                                -1 if mode == "linear" else mel_bins, n_mfcc,
+                                n_frames if out_w is None else out_w)
 
 
 @functools.lru_cache(maxsize=1)
@@ -78,6 +125,10 @@ def _lib() -> ctypes.CDLL:
     lib.frontend_linear_f32.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.frontend_linear_f32.restype = ctypes.c_int
+    lib.frontend_features_f32.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
+        + [ctypes.c_void_p])
+    lib.frontend_features_f32.restype = ctypes.c_int
     return lib
 
 
@@ -93,8 +144,25 @@ def _kernel_bases(n_fft: int, f_pad: int, device: torch.device) -> torch.Tensor:
     return bases
 
 
-# Per-sample arrival counters, one buffer per (device, stream): the kernel
-# leaves them at zero when it ends, so they are zeroed only when allocated.
+@functools.lru_cache(maxsize=16)
+def _kernel_mel_bank(sample_rate: int, n_fft: int, mel_bins: int, f_pad: int,
+                     device: torch.device) -> torch.Tensor:
+    """[f_pad, mel_bins] Slaney mel bank (fmin 150, fmax sr//2), zero rows
+    past F."""
+    fb = torch.zeros(f_pad, mel_bins, dtype=torch.float32)
+    fb[: n_fft // 2 + 1] = torch.from_numpy(
+        mel_filterbank(sample_rate, n_fft, mel_bins, fmin=150.0, fmax=float(sample_rate // 2)))
+    return fb.to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _kernel_dct(mel_bins: int, n_mfcc: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(dct_matrix(mel_bins, n_mfcc)).to(device)
+
+
+# Per-sample arrival counters, one buffer per (device, stream), shared by
+# both kernels: each leaves them at zero when it ends, so they are zeroed
+# only when allocated.
 _arrival_counters: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
@@ -107,15 +175,17 @@ def _arrival_counter(B: int, device: torch.device, stream: int) -> torch.Tensor:
     return buf
 
 
-def _launch(y: torch.Tensor, n_fft: int, hop: int, n_frames: int) -> torch.Tensor:
-    global launches
+def _check_launch(y: torch.Tensor, n_fft: int) -> None:
     if not y.is_contiguous():
         raise ValueError("fused_spectrogram kernel needs a contiguous [B, T] tensor")
     if n_fft % 32:
         raise ValueError(f"fused_spectrogram kernel needs n_fft % 32 == 0, got {n_fft}")
+    if not 0 < y.shape[0] <= 65535:
+        raise ValueError(f"fused_spectrogram kernel takes 1..65535 samples, got {y.shape[0]}")
+
+
+def _launch_linear(y: torch.Tensor, n_fft: int, hop: int, n_frames: int) -> torch.Tensor:
     B, T = y.shape
-    if not 0 < B <= 65535:
-        raise ValueError(f"fused_spectrogram kernel takes 1..65535 samples, got {B}")
     lib = _lib()
     bases = _kernel_bases(n_fft, lib.frontend_linear_bin_pad(n_fft), y.device)
     nbin = n_fft // 2 + 1
@@ -130,34 +200,76 @@ def _launch(y: torch.Tensor, n_fft: int, hop: int, n_frames: int) -> torch.Tenso
             arrived.data_ptr(), B, T, n_fft, hop, n_frames, stream)
     if rc != 0:
         raise RuntimeError(f"frontend_linear_f32 launch failed: cudaError {rc}")
-    launches += 1
+    launches[kernel_name("linear", "none")] += 1
     return out
 
 
-def fused_spectrogram(y: torch.Tensor, mode: str = "linear",
-                      mag_scale: str = "none", n_fft: int = 512,
-                      spec_width: int = 256, quant: tuple[float, int] | None = None,
-                      hop: int | None = None,
-                      n_frames: int | None = None) -> torch.Tensor:
-    """[B, T] float32 waveforms -> [B, n_fft//2+1, W] normalized |STFT|.
+def _launch_features(y: torch.Tensor, mode: str, mag_scale: str, sample_rate: int,
+                     n_fft: int, mel_bins: int, n_mfcc: int, hop: int, n_frames: int,
+                     out_w: int) -> torch.Tensor:
+    B, T = y.shape
+    lib = _lib()
+    f_pad = lib.frontend_linear_bin_pad(n_fft)
+    bases = _kernel_bases(n_fft, f_pad, y.device)
+    n_mel = 0 if mode == "linear" else mel_bins
+    mel_fb = _kernel_mel_bank(sample_rate, n_fft, n_mel, f_pad, y.device) if n_mel else None
+    dct = _kernel_dct(n_mel, n_mfcc, y.device) if mode == "mfcc" else None
+    channels = n_mel or n_fft // 2 + 1
+    scratch = torch.empty(B, n_frames, channels, dtype=torch.float32, device=y.device)
+    bins = n_mfcc if mode == "mfcc" else channels
+    out = torch.empty(B, bins, out_w, dtype=torch.float32, device=y.device)
+    epi = _EPILOGUES[mode if mode in ("log_mel", "mfcc") else mag_scale]
+    pcen_a, pcen_b = (pcen_coefficients(sample_rate, hop) if epi == _EPILOGUES["pcen"]
+                      else (0.0, 0.0))
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        arrived = _arrival_counter(B, y.device, stream)
+        rc = lib.frontend_features_f32(
+            y.data_ptr(), bases.data_ptr(), None if mel_fb is None else mel_fb.data_ptr(),
+            None if dct is None else dct.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            arrived.data_ptr(), B, T, n_fft, hop, n_frames, n_mel, n_mfcc, out_w, epi,
+            pcen_a, pcen_b, stream)
+    if rc != 0:
+        raise RuntimeError(f"frontend_features_f32 launch failed: cudaError {rc}")
+    launches[kernel_name(mode, mag_scale)] += 1
+    return out
 
-    Equivalent to spectrogram_batch(mode='linear', mag_scale='none') with
-    librosa centering and hop = T // spec_width. Requires 2*hop >= n_fft.
-    A CUDA tensor goes through the CUDA kernel, a CPU tensor through its
-    plain version.
+
+def fused_spectrogram(y: torch.Tensor, mode: str = "linear", mag_scale: str = "none",
+                      sample_rate: int = 22050, n_fft: int = 512, mel_bins: int = 64,
+                      spec_width: int = 256, n_mfcc: int = 20,
+                      quant: tuple[float, int] | None = None, hop: int | None = None,
+                      n_frames: int | None = None) -> torch.Tensor:
+    """[B, T] float32 waveforms -> [B, bins, W] normalized features.
+
+    Equivalent to spectrogram_batch(...) for the same (mode, mag_scale) with
+    librosa centering and hop = T // spec_width; bins = n_fft//2+1 (linear),
+    mel_bins (mel, log_mel) or n_mfcc (mfcc). Requires 2*hop >= n_fft. A
+    CUDA tensor goes through a CUDA kernel, a CPU tensor through the plain
+    version. `quant` (the int8 entry epilogue) is not ported yet.
     """
-    if mode != "linear" or mag_scale != "none" or quant is not None:
-        raise NotImplementedError(
-            f"fused_spectrogram(mode={mode!r}, mag_scale={mag_scale!r}, "
-            f"quant={quant!r}): {_NOT_PORTED}")
+    if quant is not None:
+        raise NotImplementedError(f"fused_spectrogram(quant={quant!r}): {_NOT_PORTED}")
+    if mode not in VALID_MODES:
+        raise ValueError(f"Invalid mode: {mode!r}")
+    if mag_scale not in VALID_MAG_SCALES:
+        raise ValueError(f"Invalid mag_scale: {mag_scale!r}")
+    if mode != "linear" and mel_bins <= 0:
+        raise ValueError(f"mode {mode!r} needs mel_bins > 0, got {mel_bins}")
     if y.dim() != 2 or y.dtype != torch.float32:
         raise ValueError(f"expected [B, T] float32 waveforms, got "
                          f"{tuple(y.shape)} {y.dtype}")
-    hop, n_frames = _geometry(y.shape[1], n_fft, spec_width, hop, n_frames)
+    hop, n_frames, out_w = _geometry(mode, y.shape[1], n_fft, spec_width, hop, n_frames)
     if y.is_cuda:
-        return _launch(y, n_fft, hop, n_frames)
+        _check_launch(y, n_fft)
+        if mode == "linear" and mag_scale == "none":
+            return _launch_linear(y, n_fft, hop, n_frames)
+        return _launch_features(y, mode, mag_scale, sample_rate, n_fft, mel_bins, n_mfcc,
+                                hop, n_frames, out_w)
     if y.device.type == "cpu":
-        return fused_spectrogram_plain(y, n_fft, hop, n_frames)
+        return fused_spectrogram_plain(y, n_fft, hop, n_frames, mode=mode,
+                                       mag_scale=mag_scale, sample_rate=sample_rate,
+                                       mel_bins=mel_bins, n_mfcc=n_mfcc, out_w=out_w)
     raise ValueError(f"fused_spectrogram runs on CUDA or CPU tensors, got {y.device}")
 
 
@@ -174,22 +286,28 @@ def _kernel_geometry_ok(cfg, T: int) -> bool:
     return 2 * hop >= cfg.fft_length
 
 
-def frontend_input(y: torch.Tensor, cfg) -> torch.Tensor:
-    """[B, T] -> model input [B, bins, W, 1] through the fused kernel.
+def frontend_input(y: torch.Tensor, cfg,
+                   quant: tuple[float, int] | None = None) -> torch.Tensor:
+    """[B, T] -> model input [B, bins, W, 1] through the fused kernels, for
+    the hybrid, librosa (any mag_scale, pcen included), log_mel and mfcc
+    frontends.
 
-    As in the JAX dispatch, the composition (ops/frontend.inputs_for_config)
-    serves only what the kernel cannot: the 'raw' frontend, and geometries
-    with 2*hop < n_fft. The librosa / mfcc / log_mel epilogues are not
-    ported yet and raise. The composition's matmuls run with TF32 off; the
-    kernel never uses TF32.
+    As in the JAX dispatch, mag_scale is passed on only in mode 'mel', and
+    the composition (ops/frontend.inputs_for_config) serves only the 'raw'
+    frontend and geometries with 2*hop < n_fft. Its matmuls run with TF32
+    off; the kernels never use TF32. `quant` (the int8 executor's entry
+    tensor) is not ported yet and raises.
     """
-    if cfg.audio_frontend == "raw" or not _kernel_geometry_ok(cfg, y.shape[1]):
+    if quant is not None:
+        raise NotImplementedError(f"frontend_input(quant={quant!r}): {_NOT_PORTED}")
+    mode = FRONTEND_MODES.get(cfg.audio_frontend)
+    if mode is None or not _kernel_geometry_ok(cfg, y.shape[1]):
         with full_fp32():
             return inputs_for_config(y, cfg)
-    if cfg.audio_frontend != "hybrid":
-        raise NotImplementedError(
-            f"frontend_input for audio_frontend={cfg.audio_frontend!r}: {_NOT_PORTED}")
-    return fused_spectrogram(y, n_fft=cfg.fft_length, spec_width=cfg.spec_width)[..., None]
+    return fused_spectrogram(
+        y, mode=mode, mag_scale=cfg.mag_scale if mode == "mel" else "none",
+        sample_rate=cfg.sample_rate, n_fft=cfg.fft_length, mel_bins=cfg.num_mels,
+        spec_width=cfg.spec_width, n_mfcc=cfg.n_mfcc)[..., None]
 
 
 def hybrid_frontend_input(y: torch.Tensor, cfg) -> torch.Tensor:

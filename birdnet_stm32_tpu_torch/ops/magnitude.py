@@ -1,11 +1,12 @@
 """Magnitude compression curves and dB helpers (port of ops/magnitude.py).
 
-Elementwise math over [..., F, W] spectrograms. `pcen` waits for a later
-slice (ROADMAP.md, Queue 1 item 2).
+Elementwise math over [..., F, W] spectrograms, and pcen's smoother along
+the last (time) axis.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # PWL default breakpoints/slopes (reference: audio/spectrogram.py:141-144).
@@ -61,3 +62,36 @@ def amplitude_to_db(S: torch.Tensor, ref: torch.Tensor | float = 1.0,
 def db_compress(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """In-graph dB curve: 10*log10(max(x, eps))."""
     return 10.0 * torch.log10(torch.clamp(x, min=eps))
+
+
+def pcen_coefficients(sr: int, hop_length: int,
+                      time_constant: float = 0.400) -> tuple[float, float]:
+    """(1 - b, b) of pcen's EMA smoother, rounded as the JAX package rounds
+    them: t_frames in float64, the rest in float32 arithmetic."""
+    t_frames = time_constant * sr / float(hop_length)
+    b = ((np.sqrt(np.float32(1.0 + 4.0 * t_frames**2)) - np.float32(1.0))
+         / np.float32(2.0 * t_frames**2))
+    return float(np.float32(1.0) - b), float(b)
+
+
+def pcen(S: torch.Tensor, sr: int, hop_length: int, gain: float = 0.98,
+         bias: float = 2.0, power: float = 0.5, time_constant: float = 0.400,
+         eps: float = 1e-6) -> torch.Tensor:
+    """Per-channel energy normalization over [..., F, T], librosa.pcen's
+    defaults.
+
+    The smoother m[t] = (1-b)*m[t-1] + b*S[t] starts at m[0] = S[0]
+    (scipy's lfilter_zi convention) and runs sequentially over frames, in
+    the order the CUDA kernel runs it; the JAX package evaluates the same
+    recurrence with an associative scan.
+    """
+    a, b = pcen_coefficients(sr, hop_length, time_constant)
+    M = torch.empty_like(S)
+    m = S[..., 0]
+    M[..., 0] = m
+    for t in range(1, S.shape[-1]):
+        m = a * m + b * S[..., t]
+        M[..., t] = m
+    log_eps = float(np.log(np.float32(eps)))
+    smooth = torch.exp(-gain * (log_eps + torch.log1p(M / eps)))
+    return float(np.float32(bias**power)) * torch.expm1(power * torch.log1p(S * smooth / bias))

@@ -1,10 +1,10 @@
 """Batched spectrogram features (port of ops/spectrogram.py::spectrogram_batch).
 
 Maps [B, T] waveforms to [B, bins, W] features with the reference's mode x
-mag_scale behaviour matrix and normalization placement. This slice ports
-the 'linear', 'mel' and 'log_mel' modes with mag_scale 'none' | 'pwl' |
-'db' in float32; 'mfcc' and 'pcen' wait for a later slice (ROADMAP.md,
-Queue 1 item 2).
+mag_scale behaviour matrix and normalization placement, in float32: modes
+'linear', 'mel', 'log_mel' and 'mfcc', mag_scale 'none' | 'pwl' | 'db' |
+'pcen'. `spectrogram_epilogue` is everything after the |STFT|; the fused
+kernel's plain version (ops/kernels/frontend_kernel.py) shares it.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import functools
 import torch
 
 from birdnet_stm32_tpu_torch.ops import magnitude as mag_ops
+from birdnet_stm32_tpu_torch.ops.dct import dct2_ortho
 from birdnet_stm32_tpu_torch.ops.mel import mel_filterbank
 from birdnet_stm32_tpu_torch.ops.stft import stft_magnitude
 
@@ -31,6 +32,42 @@ def _mel_fb(sample_rate: int, n_fft: int, mel_bins: int,
     return torch.from_numpy(fb).to(device)
 
 
+def spectrogram_epilogue(S: torch.Tensor, mode: str, mag_scale: str,
+                         sample_rate: int, n_fft: int, hop: int, mel_bins: int,
+                         n_mfcc: int, out_w: int) -> torch.Tensor:
+    """[B, W, F] |STFT| -> [B, bins, out_w] features in [0, 1].
+
+    mfcc squares the magnitude before the mel product, takes power_to_db's
+    ref and top_db over all W frames and keeps the first out_w frames after
+    the DCT; every other mode expects W == out_w. log_mel and mfcc ignore
+    mag_scale, as in the reference.
+    """
+    if not (mel_bins <= 0 or mode == "linear"):
+        if mode == "mfcc":
+            S = torch.square(S)
+        S = S @ _mel_fb(sample_rate, n_fft, mel_bins, S.device)  # [B, W, M]
+    S = S.transpose(1, 2)  # [B, bins, W] freq-major
+
+    if mode == "mfcc":
+        ref = S.amax(dim=_SAMPLE_DIMS, keepdim=True)
+        S = mag_ops.power_to_db(S, ref=ref, top_db=80.0, dim=_SAMPLE_DIMS)
+        S = dct2_ortho(S.transpose(1, 2), n_mfcc).transpose(1, 2)  # DCT over mels
+        return mag_ops.normalize_minmax(S[:, :, :out_w], dim=_SAMPLE_DIMS)
+
+    if mode == "log_mel":
+        return mag_ops.normalize_minmax(torch.log1p(S), dim=_SAMPLE_DIMS)
+
+    # 'mel' and 'linear' modes share the mag_scale behaviour matrix.
+    if mag_scale == "pcen":
+        S = mag_ops.pcen(S * (2.0**31), sr=sample_rate, hop_length=hop)
+    elif mag_scale == "pwl":
+        S = mag_ops.pwl_compress(mag_ops.normalize_minmax(S, dim=_SAMPLE_DIMS))
+    elif mag_scale == "db":
+        ref = S.amax(dim=_SAMPLE_DIMS, keepdim=True)
+        S = mag_ops.amplitude_to_db(S, ref=ref, top_db=80.0, dim=_SAMPLE_DIMS)
+    return mag_ops.normalize_minmax(S, dim=_SAMPLE_DIMS)
+
+
 def spectrogram_batch(audio: torch.Tensor, sample_rate: int = 24000,
                       n_fft: int = 512, mel_bins: int = 64, spec_width: int = 256,
                       mag_scale: str = "none", mode: str = "mel",
@@ -43,35 +80,28 @@ def spectrogram_batch(audio: torch.Tensor, sample_rate: int = 24000,
         n_fft: FFT size.
         mel_bins: Mel band count; <= 0 selects linear STFT bins.
         spec_width: Output frame count W (hop = T // W).
-        mag_scale: 'none' | 'pwl' | 'db' ('pcen' is not ported yet).
-        mode: 'mel' | 'log_mel' | 'linear' ('mfcc' is not ported yet).
-        n_mfcc: Accepted for signature parity with the JAX function.
+        mag_scale: 'none' | 'pcen' | 'pwl' | 'db' (mel/linear modes only).
+        mode: 'mel' | 'mfcc' | 'log_mel' | 'linear'.
+        n_mfcc: Coefficients kept in mfcc mode.
     """
     if mode not in VALID_MODES:
         raise ValueError(f"Invalid mode: {mode!r}")
-    if mode == "mfcc" or mag_scale == "pcen":
-        raise NotImplementedError(
-            f"spectrogram_batch mode={mode!r} mag_scale={mag_scale!r} is not "
-            "ported yet (ROADMAP.md, Queue 1 item 2: mfcc and pcen)")
+    if mode == "mfcc" and mel_bins <= 0:
+        raise ValueError("mfcc mode needs mel_bins > 0 (DCT runs over mel bands)")
     B, T = audio.shape
     # hop = T // spec_width; spec_width <= 0 means "all frames" at n_fft//2
     # (the reference's explicit fallback).
     hop = max(1, T // spec_width) if spec_width > 0 else n_fft // 2
+    # librosa (center=True) yields 1 + T//hop frames; the reference slices
+    # to spec_width before any stats except in mfcc mode, where
+    # power_to_db's ref/top_db max runs over the full frame count.
     n_frames_full = 1 + T // hop
-    n_frames = n_frames_full if spec_width <= 0 else min(spec_width, n_frames_full)
+    if mode == "mfcc" or spec_width <= 0:
+        n_frames = n_frames_full
+    else:
+        n_frames = min(spec_width, n_frames_full)
+    out_w = min(spec_width, n_frames) if spec_width > 0 else n_frames
 
     S = stft_magnitude(audio, n_fft=n_fft, hop=hop, n_frames=n_frames)  # [B, W, F]
-    if not (mel_bins <= 0 or mode == "linear"):
-        S = S @ _mel_fb(sample_rate, n_fft, mel_bins, audio.device)  # [B, W, M]
-    S = S.transpose(1, 2)  # [B, bins, W] freq-major
-
-    if mode == "log_mel":
-        return mag_ops.normalize_minmax(torch.log1p(S), dim=_SAMPLE_DIMS)
-
-    # 'mel' and 'linear' modes share the mag_scale behaviour matrix.
-    if mag_scale == "pwl":
-        S = mag_ops.pwl_compress(mag_ops.normalize_minmax(S, dim=_SAMPLE_DIMS))
-    elif mag_scale == "db":
-        ref = S.amax(dim=_SAMPLE_DIMS, keepdim=True)
-        S = mag_ops.amplitude_to_db(S, ref=ref, top_db=80.0, dim=_SAMPLE_DIMS)
-    return mag_ops.normalize_minmax(S, dim=_SAMPLE_DIMS)
+    return spectrogram_epilogue(S, mode, mag_scale, sample_rate, n_fft, hop,
+                                mel_bins, n_mfcc, out_w)

@@ -10,17 +10,23 @@ It imports nothing of JAX. In order it:
 2. builds every CUDA kernel of the port from ops/csrc/ with nvcc and
    prints the build seconds and the compiler's register/spill report;
 3. kernel phase: at the flagship geometry (B=64, T=66150, n_fft 512, hop
-   258, 256 frames) holds the fused frontend kernel against its plain
-   PyTorch version on the card (max abs <= 1e-5) and times kernel, plain
-   version and the torch.stft yardstick with CUDA events;
-4. slice phase: loads artifacts/flagship/bundle/model_config.json, gives
-   the full-width DS-CNN seeded weights, and serves three requests of 64
-   chunks and one ragged request of 37 through make_fused_classifier +
-   classify_in_batches on CUDA. Checks: scores [N, 100], finite, rows sum
-   to 1 within 1e-5, the kernel's launch count rose by the number of
-   batches, and one batch's scores match the same port run on the CPU
-   (plain frontend, same weights) within 1e-4. It also times one warm
-   64-chunk batch by part: host-to-device copy, frontend, DS-CNN, whole;
+   258, 256 frames, 64 mels, 20 mfcc) holds each specialisation of the
+   fused frontend kernels against its plain PyTorch version on the card
+   (max abs <= 1e-5 for linear, 2e-5 for the others), times kernel, plain
+   version and a torch.stft yardstick with CUDA events, and checks the
+   kernel again after the timing launches;
+4. slice phase: loads artifacts/flagship/bundle/model_config.json and
+   derives one config per served frontend with dataclasses.replace:
+   hybrid (the flagship) and librosa + pwl get three requests of 64 chunks
+   and a ragged one of 37; librosa + none / db / pcen, log_mel and mfcc one
+   request of 64. Each config gets a full-width DS-CNN with seeded weights
+   and is served through make_fused_classifier + classify_in_batches on
+   CUDA. Checks per config: scores [N, 100], finite, rows sum to 1 within
+   1e-5, the config's kernel launched once per batch and no other kernel
+   launched, and one batch's scores match the same port run on the CPU
+   (plain frontend, same weights) within 1e-4. For hybrid and librosa +
+   pwl it also times one warm 64-chunk batch by part: host-to-device copy,
+   frontend, DS-CNN, whole;
 5. prints the `kernels` JSON line, the card's name and power limit, and
    last the `ok` JSON line.
 
@@ -29,6 +35,7 @@ Any failed check exits non-zero before the `ok` line.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -37,10 +44,21 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-B, T, N_FFT, SPEC_WIDTH = 64, 66150, 512, 256
+B, T, N_FFT, SPEC_WIDTH, N_MELS, N_MFCC, SR = 64, 66150, 512, 256, 64, 20, 22050
 REQUESTS = (64, 64, 64, 37)
 FP32_PEAK_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (data sheet)
 HBM_BYTES_PER_S = 3.35e12
+# (mode, mag_scale) of each kernel specialisation on a served path.
+SPECS = (("linear", "none"), ("mel", "none"), ("mel", "pwl"), ("mel", "db"),
+         ("mel", "pcen"), ("log_mel", "none"), ("mfcc", "none"))
+# (audio_frontend, mag_scale or None to keep the flagship's, requests).
+SERVED = (("hybrid", None, REQUESTS), ("librosa", "pwl", REQUESTS),
+          ("librosa", "none", (64,)), ("librosa", "db", (64,)),
+          ("librosa", "pcen", (64,)), ("log_mel", None, (64,)), ("mfcc", None, (64,)))
+# Operations per post-mel element in the epilogue beyond min, max,
+# subtract and divide (4): pwl's second min-max and curve, dB's log,
+# pcen's smoother and four transcendentals, log1p, mfcc's dB and clamp.
+SCALE_OPS = {"none": 0, "pwl": 16, "db": 8, "pcen": 14, "log_mel": 1, "mfcc": 6}
 
 
 def fail(msg: str) -> None:
@@ -73,82 +91,117 @@ def build_phase() -> None:
     for name in _build.SOURCES:
         log = _build.library_path(name).with_suffix(".log")
         for line in log.read_text().splitlines() if log.exists() else []:
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"ptxas {name}: {line.strip()}")
 
 
-def kernel_phase(torch) -> dict:
+def bound(np, mode: str, mag: str, n_frames: int, bins: int) -> tuple[float, str]:
+    """Least time for the function at this run's shapes, whatever the
+    algorithm: each waveform sample read once and each feature written once,
+    against the operations of the FFT route (real-input FFT ~2.5 n log2 n,
+    the window, |.| = 2 mul + add + sqrt per bin), the mel bank's nonzeros
+    (one multiply-add each), mfcc's DCT, and the epilogue per element."""
+    from birdnet_stm32_tpu_torch.ops.mel import mel_filterbank
+
+    n_bins = N_FFT // 2 + 1
+    per_frame = 2.5 * N_FFT * math.log2(N_FFT) + N_FFT + 4 * n_bins
+    if mode == "linear":
+        channels = n_bins
+    else:
+        channels = N_MELS
+        per_frame += 2 * np.count_nonzero(mel_filterbank(SR, N_FFT, N_MELS, fmin=150.0,
+                                                         fmax=float(SR // 2)))
+    ops = n_frames * (per_frame + channels * (4 + SCALE_OPS[mode if mode in SCALE_OPS else mag]))
+    if mode == "mfcc":
+        ops += SPEC_WIDTH * N_MFCC * (2 * N_MELS + 4)
+    ops *= B
+    n_bytes = 4.0 * (B * T + B * bins * SPEC_WIDTH)
+    t_ops, t_bytes = ops / FP32_PEAK_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def kernel_phase(torch, np) -> list[dict]:
     from birdnet_stm32_tpu_torch.device import full_fp32
     from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import (
         fused_spectrogram,
         fused_spectrogram_plain,
+        kernel_name,
     )
+    from birdnet_stm32_tpu_torch.ops.spectrogram import spectrogram_epilogue
 
     hop = T // SPEC_WIDTH
-    n_bins = N_FFT // 2 + 1
     g = torch.Generator(device="cuda").manual_seed(0)
     y = 0.5 * torch.randn(B, T, generator=g, device="cuda")
-
-    def kernel():
-        return fused_spectrogram(y, n_fft=N_FFT, spec_width=SPEC_WIDTH)
-
-    def plain():
-        return fused_spectrogram_plain(y, N_FFT, hop, SPEC_WIDTH)
-
     window = torch.hann_window(N_FFT, periodic=True, device="cuda")
+    entries = []
+    for mode, mag in SPECS:
+        name = kernel_name(mode, mag)
+        n_frames = 1 + T // hop if mode == "mfcc" else SPEC_WIDTH
+        bins = {"linear": N_FFT // 2 + 1, "mfcc": N_MFCC}.get(mode, N_MELS)
+        geometry = dict(n_fft=N_FFT, hop=hop, n_frames=n_frames, mode=mode, mag_scale=mag,
+                        sample_rate=SR, mel_bins=N_MELS, n_mfcc=N_MFCC, out_w=SPEC_WIDTH)
 
-    def library():
-        S = torch.stft(y, N_FFT, hop_length=hop, window=window, center=True,
-                       pad_mode="constant", return_complex=True).abs()[..., :SPEC_WIDTH]
-        s_min = S.amin(dim=(1, 2), keepdim=True)
-        s_max = S.amax(dim=(1, 2), keepdim=True)
-        return (S - s_min) / (s_max - s_min + 1e-10)
+        def kernel():
+            return fused_spectrogram(y, mode=mode, mag_scale=mag, sample_rate=SR,
+                                     n_fft=N_FFT, mel_bins=N_MELS, spec_width=SPEC_WIDTH,
+                                     n_mfcc=N_MFCC)
 
-    with full_fp32():
-        got = kernel()
-        torch.cuda.synchronize()
-        ref = plain()
-        lib = library()
-        torch.cuda.synchronize()
-        if got.shape != (B, n_bins, SPEC_WIDTH) or not torch.isfinite(got).all():
-            fail(f"kernel output {tuple(got.shape)} not finite [B, F, W]")
-        err = (got - ref).abs().max().item()
-        print(json.dumps({"kernel": "fused_spectrogram_linear", "max_abs_vs_plain": err,
-                          "max_abs_vs_torch_stft": (got - lib).abs().max().item()}))
-        if not err <= 1e-5:
-            fail(f"fused_spectrogram kernel vs plain: max abs {err} > 1e-5")
-        ms = cuda_ms(torch, kernel)
-        plain_ms = cuda_ms(torch, plain)
-        library_ms = cuda_ms(torch, library)
-        # The kernel resets its arrival counters itself: after the timed
-        # launches it must still normalise every sample.
-        err_after = (kernel() - ref).abs().max().item()
-        if not err_after <= 1e-5:
-            fail(f"fused_spectrogram kernel after the timing launches: max abs "
-                 f"{err_after} > 1e-5 (arrival counters not reset?)")
-        err = max(err, err_after)
+        def plain():
+            return fused_spectrogram_plain(y, **geometry)
 
-    # Least time for the same function, whatever the algorithm: each
-    # waveform sample read once and each feature written once, against the
-    # operations of the FFT route per frame (real-input FFT ~2.5 n log2 n,
-    # the window, |.| = 2 mul + add + sqrt, min and max, subtract and
-    # divide). The kernel's own DFT-as-matmul does ~40x these operations.
-    fft_ops = 2.5 * N_FFT * math.log2(N_FFT) + N_FFT + n_bins * (4 + 2 + 2)
-    flops = B * SPEC_WIDTH * fft_ops
-    n_bytes = 4.0 * (B * T + B * n_bins * SPEC_WIDTH)
-    t_ops, t_bytes = flops / FP32_PEAK_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
-    return {"name": "fused_spectrogram_linear", "route": "cuda",
-            "source": "birdnet_stm32_tpu_torch/ops/csrc/frontend_kernel.cu",
-            "replaces": "birdnet_stm32_tpu/ops/pallas/frontend_kernel.py:154",
-            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms}
+        def library():
+            S = torch.stft(y, N_FFT, hop_length=hop, window=window, center=True,
+                           pad_mode="constant", return_complex=True).abs()[..., :n_frames]
+            return spectrogram_epilogue(S.transpose(1, 2), mode, mag, SR, N_FFT, hop,
+                                        -1 if mode == "linear" else N_MELS, N_MFCC,
+                                        SPEC_WIDTH)
+
+        tol = 1e-5 if mode == "linear" else 2e-5
+        with full_fp32():
+            got = kernel()
+            torch.cuda.synchronize()
+            ref = plain()
+            lib = library()
+            torch.cuda.synchronize()
+            if got.shape != (B, bins, SPEC_WIDTH) or not torch.isfinite(got).all():
+                fail(f"{name} output {tuple(got.shape)} not finite [B, {bins}, {SPEC_WIDTH}]")
+            err = (got - ref).abs().max().item()
+            print(json.dumps({"kernel": name, "max_abs_vs_plain": err,
+                              "max_abs_vs_torch_stft": (got - lib).abs().max().item()}))
+            if not err <= tol:
+                fail(f"{name} kernel vs plain: max abs {err} > {tol}")
+            ms = cuda_ms(torch, kernel)
+            plain_ms = cuda_ms(torch, plain, iters=5, warmup=1)
+            library_ms = cuda_ms(torch, library, iters=5, warmup=1)
+            # The kernels reset their arrival counters themselves: after the
+            # timed launches each must still finish every sample.
+            err_after = (kernel() - ref).abs().max().item()
+            if not err_after <= tol:
+                fail(f"{name} kernel after the timing launches: max abs {err_after} > {tol} "
+                     "(arrival counters not reset?)")
+        bound_ms, bound_by = bound(np, mode, mag, n_frames, bins)
+        entries.append({"name": name, "route": "cuda",
+                        "source": "birdnet_stm32_tpu_torch/ops/csrc/frontend_kernel.cu",
+                        "replaces": "birdnet_stm32_tpu/ops/pallas/frontend_kernel.py:154",
+                        "launches": None, "max_abs_err": max(err, err_after), "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library_ms})
+    return entries
 
 
-def slice_phase(torch, np) -> int:
-    """Serve the flagship config on CUDA; returns the kernel launches counted."""
-    from birdnet_stm32_tpu_torch.config import ModelConfig
+def requests_for(np, cfg, sizes):
+    rng = np.random.default_rng(0)
+    t = np.arange(cfg.chunk_samples) / cfg.sample_rate
+    out = []
+    for n in sizes:
+        f0 = rng.uniform(500.0, 6000.0, (n, 1))
+        chirp = 0.5 * np.sin(2 * np.pi * f0 * t * (1.0 + 0.3 * t))
+        out.append((chirp + rng.normal(0, 0.05, (n, t.size))).astype(np.float32))
+    return out
+
+
+def serve(torch, np, cfg, sizes, breakdown: bool) -> tuple[str, int]:
+    """Serve `cfg` on CUDA and check it; returns (kernel name, its launches)."""
     from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn, init_model
     from birdnet_stm32_tpu_torch.models.runners import TorchRunner
     from birdnet_stm32_tpu_torch.models.serving import (
@@ -157,64 +210,78 @@ def slice_phase(torch, np) -> int:
     )
     from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
 
-    cfg = ModelConfig.load(ROOT / "artifacts/flagship/bundle/model_config.json")
+    mode = frontend_kernel.FRONTEND_MODES[cfg.audio_frontend]
+    name = frontend_kernel.kernel_name(mode, cfg.mag_scale if mode == "mel" else "none")
+    label = f"{cfg.audio_frontend}+{cfg.mag_scale}"
     model = init_model(build_dscnn(cfg, device="cuda"), seed=0)
     classify = make_fused_classifier(TorchRunner(model, cfg, device="cuda"), cfg,
                                      device="cuda")
-    rng = np.random.default_rng(0)
-    t = np.arange(cfg.chunk_samples) / cfg.sample_rate
-    requests = []
-    for n in REQUESTS:
-        f0 = rng.uniform(500.0, 6000.0, (n, 1))
-        chirp = 0.5 * np.sin(2 * np.pi * f0 * t * (1.0 + 0.3 * t))
-        requests.append((chirp + rng.normal(0, 0.05, (n, t.size))).astype(np.float32))
+    requests = requests_for(np, cfg, sizes)
 
-    frontend_kernel.launches = 0
+    frontend_kernel.launches.clear()
     t0 = time.perf_counter()
     results = [classify_in_batches(classify, r, batch_size=B) for r in requests]
     wall = time.perf_counter() - t0
-    launches = frontend_kernel.launches
-    n_batches = sum(-(-n // B) for n in REQUESTS)
+    launches = frontend_kernel.launches[name]
+    others = frontend_kernel.launches.total() - launches
+    n_batches = sum(-(-n // B) for n in sizes)
 
     scores = np.concatenate([s for s, _ in results])
-    n_chunks = sum(REQUESTS)
-    print(json.dumps({"served_chunks": n_chunks, "batches": n_batches,
-                      "kernel_launches": launches, "serve_wall_s": wall,
-                      "chunks_per_s_incl_first_call": n_chunks / wall,
+    n_chunks = sum(sizes)
+    print(json.dumps({"config": label, "kernel": name, "served_chunks": n_chunks,
+                      "batches": n_batches, "kernel_launches": launches,
+                      "serve_wall_s": wall, "chunks_per_s_incl_first_call": n_chunks / wall,
                       "request_seconds": [dt for _, dt in results],
                       "top1_mean": float(scores.max(axis=1).mean())}))
-    if launches != n_batches or launches == 0:
-        fail(f"fused frontend kernel launched {launches} times for {n_batches} batches")
+    if launches != n_batches or launches == 0 or others:
+        fail(f"{label}: {name} launched {launches} times for {n_batches} batches "
+             f"({others} other launches)")
     if scores.shape != (n_chunks, cfg.num_classes):
-        fail(f"scores shape {scores.shape} != {(n_chunks, cfg.num_classes)}")
+        fail(f"{label}: scores shape {scores.shape} != {(n_chunks, cfg.num_classes)}")
     if not np.isfinite(scores).all():
-        fail("non-finite scores")
+        fail(f"{label}: non-finite scores")
     row_err = float(np.abs(scores.sum(axis=1) - 1.0).max())
     if not row_err <= 1e-5:
-        fail(f"score rows sum to 1 only within {row_err}")
+        fail(f"{label}: score rows sum to 1 only within {row_err}")
 
-    # Where one warm 64-chunk batch spends its time (CUDA events; the
-    # launches these add come after the count above was read).
-    runner = TorchRunner(model, cfg, device="cuda")
-    wave = torch.from_numpy(requests[0])
-    x = wave.cuda()
-    with torch.no_grad():
-        feats = frontend_kernel.frontend_input(x, cfg)
-        print(json.dumps({"batch_breakdown_ms": {
-            "h2d_copy": cuda_ms(torch, lambda: wave.cuda()),
-            "frontend_kernel": cuda_ms(torch, lambda: frontend_kernel.frontend_input(x, cfg)),
-            "dscnn_forward": cuda_ms(torch, lambda: runner.forward(feats)),
-            "classify_total": cuda_ms(torch, lambda: classify(requests[0])),
-        }}))
+    if breakdown:
+        # Where one warm 64-chunk batch spends its time (CUDA events; the
+        # launches these add come after the count above was read).
+        runner = TorchRunner(model, cfg, device="cuda")
+        wave = torch.from_numpy(requests[0])
+        x = wave.cuda()
+        with torch.no_grad():
+            feats = frontend_kernel.frontend_input(x, cfg)
+            print(json.dumps({"config": label, "batch_breakdown_ms": {
+                "h2d_copy": cuda_ms(torch, lambda: wave.cuda()),
+                "frontend_kernel": cuda_ms(torch, lambda: frontend_kernel.frontend_input(x, cfg)),
+                "dscnn_forward": cuda_ms(torch, lambda: runner.forward(feats)),
+                "classify_total": cuda_ms(torch, lambda: classify(requests[0])),
+            }}))
 
     cpu_model = build_dscnn(cfg, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
     cpu_classify = make_fused_classifier(TorchRunner(cpu_model, cfg, device="cpu"), cfg,
                                          device="cpu")
     cpu_err = float(np.abs(cpu_classify(requests[0]) - scores[:B]).max())
-    print(json.dumps({"cuda_vs_cpu_max_abs": cpu_err, "row_sum_max_err": row_err}))
+    print(json.dumps({"config": label, "cuda_vs_cpu_max_abs": cpu_err,
+                      "row_sum_max_err": row_err}))
     if not cpu_err <= 1e-4:
-        fail(f"CUDA vs CPU scores differ by {cpu_err} > 1e-4")
+        fail(f"{label}: CUDA vs CPU scores differ by {cpu_err} > 1e-4")
+    return name, launches
+
+
+def slice_phase(torch, np) -> dict[str, int]:
+    """Serve every config of SERVED; returns {kernel name: launches}."""
+    from birdnet_stm32_tpu_torch.config import ModelConfig
+
+    flagship = ModelConfig.load(ROOT / "artifacts/flagship/bundle/model_config.json")
+    launches = {}
+    for frontend, mag, sizes in SERVED:
+        cfg = dataclasses.replace(flagship, audio_frontend=frontend,
+                                  mag_scale=mag or flagship.mag_scale)
+        name, n = serve(torch, np, cfg, sizes, breakdown=len(sizes) > 1)
+        launches[name] = n
     return launches
 
 
@@ -230,15 +297,19 @@ def main() -> None:
                       "device": torch.cuda.get_device_name(0)}))
 
     build_phase()
-    entry = kernel_phase(torch)
-    entry["launches"] = slice_phase(torch, np)
+    entries = kernel_phase(torch, np)
+    launches = slice_phase(torch, np)
+    for entry in entries:
+        entry["launches"] = launches.get(entry["name"], 0)
+        if entry["launches"] == 0:
+            fail(f"{entry['name']} was never launched on its served path")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

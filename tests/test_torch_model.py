@@ -26,6 +26,9 @@ from birdnet_stm32_tpu_torch.models import blocks
 from birdnet_stm32_tpu_torch.models.convert import flax_to_state_dict
 from birdnet_stm32_tpu_torch.models.dscnn import DSCNN
 from birdnet_stm32_tpu_torch.models.frontend_layer import AudioFrontend
+from tests.test_torch_cpu_warmup import warm_up
+
+warm_up()
 
 # The small config of tests/test_pallas.py's serving test, with the
 # flagship's block choice (plain DS blocks, no SE); ModelConfig's own
@@ -40,6 +43,10 @@ VARIANTS = {
     "ds_se_attention_librosa": dict(use_se=True, use_attention_pooling=True,
                                     audio_frontend="librosa", mag_scale="none"),
     "hybrid_db_depth2": dict(mag_scale="db", depth_multiplier=2, embeddings_size=64),
+    # The precomputed-frontend DS-CNN at the served inputs [B, 64, 256, 1]
+    # (librosa, log_mel) and [B, 20, 256, 1] (mfcc), at narrow width.
+    "librosa_64x256": dict(audio_frontend="librosa", num_mels=64, spec_width=256),
+    "mfcc_20x256": dict(audio_frontend="mfcc", num_mels=64, spec_width=256, n_mfcc=20),
 }
 
 

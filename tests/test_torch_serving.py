@@ -9,6 +9,7 @@ frontend + DS-CNN chain).
 """
 
 import ast
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -34,6 +35,9 @@ from birdnet_stm32_tpu_torch.models.serving import (
 )
 from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
 from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import frontend_input
+from tests.test_torch_cpu_warmup import warm_up
+
+warm_up()
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = dict(sample_rate=8000, num_mels=32, spec_width=32, fft_length=256,
@@ -42,15 +46,16 @@ SMALL = dict(sample_rate=8000, num_mels=32, spec_width=32, fft_length=256,
              mag_scale="pwl", use_se=False, use_inverted_residual=False)
 
 
-@pytest.fixture(scope="module")
-def pair():
+@functools.lru_cache(maxsize=None)
+def _pair(frontend: str, mag_scale: str):
     """(JAX classifier, port classifier on the CPU, cfg) with shared weights."""
-    jcfg = JaxModelConfig(**SMALL)
+    kw = dict(SMALL, audio_frontend=frontend, mag_scale=mag_scale)
+    jcfg = JaxModelConfig(**kw)
     jmodel = j_build_dscnn(jcfg)
     v = jax.device_get(j_init_model(jmodel, jcfg, jax.random.key(0)))
     j_classify = j_make_fused_classifier(FlaxRunner(jmodel, v, jcfg), jcfg,
                                          pallas_mode="interpret")
-    cfg = ModelConfig(**SMALL)
+    cfg = ModelConfig(**kw)
     model = build_dscnn(cfg, device="cpu")
     model.load_state_dict(flax_to_state_dict(v), strict=True)
     t_classify = make_fused_classifier(TorchRunner(model, cfg, device="cpu"), cfg,
@@ -58,16 +63,28 @@ def pair():
     return j_classify, t_classify, cfg
 
 
+@pytest.fixture(scope="module")
+def pair():
+    return _pair("hybrid", "pwl")
+
+
 def _waves(seed, n, cfg):
     return np.random.default_rng(seed).normal(0, 0.5, (n, cfg.chunk_samples)).astype(np.float32)
 
 
-def test_fused_classifier_matches_jax(pair):
-    j_classify, t_classify, cfg = pair
+@pytest.mark.parametrize("frontend,mag_scale", [("hybrid", "pwl"), ("librosa", "pwl"),
+                                                ("librosa", "pcen"), ("log_mel", "pwl"),
+                                                ("mfcc", "pwl")])
+def test_fused_classifier_matches_jax(frontend, mag_scale):
+    """The slice end to end for each served frontend: the JAX classifier
+    runs its Pallas kernel in interpret mode (pcen included), the port its
+    plain version; converted weights, the precomputed-frontend DS-CNN at
+    [B, 32, 32, 1] (mfcc [B, 20, 32, 1]) for all but hybrid."""
+    j_classify, t_classify, cfg = _pair(frontend, mag_scale)
     wave = _waves(0, 4, cfg)
-    before = frontend_kernel.launches
+    before = frontend_kernel.launches.total()
     got = t_classify(wave)
-    assert frontend_kernel.launches == before  # CPU: the plain version, no launch
+    assert frontend_kernel.launches.total() == before  # CPU: the plain version, no launch
     ref = np.asarray(j_classify(wave))
     assert got.shape == ref.shape == (4, cfg.num_classes)
     np.testing.assert_allclose(got, ref, atol=5e-5)
