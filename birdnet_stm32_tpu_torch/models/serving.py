@@ -8,9 +8,16 @@ version. The composition (ops/frontend.inputs_for_config) serves only what
 the kernels' dispatch excludes, as in the JAX package: 2*hop < n_fft, or
 the 'raw' frontend. There is no kernel on/off switch.
 
-Not ported yet (ROADMAP.md): the INT8 runner leg, int16 / mu-law ingress,
-on-device resampling (input_sample_rate), asynchronous results
-(as_numpy=False), bf16 runners, meshes and make_embedder.
+With a TFLiteSimRunner (the INT8 leg) the model is the bit-exact integer
+executor. When the graph starts with QUANTIZE -> TRANSPOSE and the kernels
+serve the frontend, the kernel's int8-entry epilogue quantizes straight
+into the executor's entry tensor (build_executor(prequantized_input=True));
+otherwise the float features feed the graph's own entry QUANTIZE. Both give
+the same scores, bit for bit.
+
+Not ported yet (ROADMAP.md): int16 / mu-law ingress, on-device resampling
+(input_sample_rate), asynchronous results (as_numpy=False), bf16 runners,
+meshes and make_embedder.
 """
 
 from __future__ import annotations
@@ -21,14 +28,22 @@ import numpy as np
 import torch
 
 from birdnet_stm32_tpu_torch.device import resolve_device
-from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import frontend_input
+from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import (
+    FRONTEND_MODES,
+    _kernel_geometry_ok,
+    frontend_input,
+)
+from birdnet_stm32_tpu_torch.quant.tflite_import import (
+    entry_quant_params,
+    entry_transpose_perm,
+)
 
 
 def make_fused_classifier(runner, cfg, device: str | torch.device = "cuda"):
     """waveform batch [B, T] -> scores [B, C] on `device`.
 
     Args:
-        runner: TorchRunner whose model lives on `device`.
+        runner: TorchRunner or TFLiteSimRunner on `device`.
         cfg: ModelConfig (audio + model geometry).
         device: Where frontend and model run; default CUDA (raises if there
             is none).
@@ -36,6 +51,8 @@ def make_fused_classifier(runner, cfg, device: str | torch.device = "cuda"):
     dev = resolve_device(device)
     if runner.device != dev:
         raise ValueError(f"runner is on {runner.device}, classifier on {dev}")
+    if hasattr(runner, "graph"):
+        return _int8_classifier(runner, cfg, dev)
 
     @torch.no_grad()
     def classify(wave) -> np.ndarray:
@@ -43,6 +60,28 @@ def make_fused_classifier(runner, cfg, device: str | torch.device = "cuda"):
         # frontend_input and runner.forward each hold TF32 off where it matters.
         return runner.forward(frontend_input(w, cfg)).cpu().numpy()
 
+    return classify
+
+
+def _int8_classifier(runner, cfg, dev: torch.device):
+    """The INT8 leg: frontend kernel -> integer executor, one executor per
+    batch size (the runner keeps them)."""
+    # Deepest fusion: the kernel quantizes into the executor's entry tensor
+    # when the graph starts with QUANTIZE -> TRANSPOSE and a kernel serves
+    # this frontend at this geometry (pcen included: the CUDA kernel runs it).
+    entry_q = None
+    if (cfg.audio_frontend in FRONTEND_MODES
+            and _kernel_geometry_ok(cfg, cfg.chunk_samples)
+            and entry_transpose_perm(runner.graph) is not None):
+        entry_q = entry_quant_params(runner.graph)
+
+    @torch.no_grad()
+    def classify(wave) -> np.ndarray:
+        w = torch.as_tensor(np.asarray(wave, np.float32)).to(dev).contiguous()
+        fwd = runner.executor(w.shape[0], prequantized_input=entry_q is not None)
+        return fwd(frontend_input(w, cfg, quant=entry_q)).cpu().numpy()
+
+    classify.entry_quant = entry_q
     return classify
 
 

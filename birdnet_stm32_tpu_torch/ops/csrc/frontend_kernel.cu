@@ -1,8 +1,18 @@
-// Fused |STFT| frontends for Hopper (sm_90a), float32.
+// Fused |STFT| frontends for Hopper (sm_90a), float32 math, float32 or
+// int8 out.
 //
 // Replaces birdnet_stm32_tpu/ops/pallas/frontend_kernel.py::_kernel /
-// fused_spectrogram (grid="sample") with quant=None, in two kernels that
-// share one DFT tile loop (dft_tile):
+// fused_spectrogram (grid="sample"), in two kernels that share one DFT tile
+// loop (dft_tile). Each has a float32 and an int8-entry specialisation
+// (quant=(scale, zp), _sample_epilogue's last step): the int8 one computes
+// the same normalized floats S in the same operations, then stores
+// q = clip(round_half_away(S * inv_scale) + zp, -128, 127) as int8 in the
+// frame-major [W, bins] layout, the INT8 executor's entry tensor. inv_scale
+// is float32(1) / float32(scale), taken on the host: jitted XLA turns the
+// reference's S / scale into that multiply. __fmul_rn / __fadd_rn keep
+// nvcc from contracting the rounding into an FMA, and the build has no
+// --use_fast_math, so the codes equal quantize(float kernel output) bit for
+// bit. The two kernels:
 //
 // frontend_linear_kernel: mode="linear", mag_scale="none", the hybrid
 // frontend. Per sample, in one launch:
@@ -16,8 +26,8 @@
 //      (S - min) / (max - min + 1e-10);
 //   5. freq-major output [B, F, W].
 //
-// frontend_features_kernel: every other epilogue of _sample_epilogue
-// without quant: the mel product, then mel / pwl / db / pcen, log_mel
+// frontend_features_kernel: every other epilogue of _sample_epilogue:
+// the mel product, then mel / pwl / db / pcen, log_mel
 // (log1p), mfcc (power, mel, power_to_db over all frames, DCT, slice), and
 // the linear mode with pwl / db / pcen. Per sample, in one launch:
 //   1-2. as above, over a 64-frame strip and all bins;
@@ -82,6 +92,17 @@
 // the L2-resident scratch. The shared memory is one dynamic buffer, the
 // strip's tiles first and the sample after, so every block holds only the
 // larger of the two.
+//
+// The int8 specialisations. The linear kernel's tiles then write their
+// magnitudes frame-major into a float scratch ([B, W, bins], the float
+// output's bytes), and the last block reads them back, normalizes and
+// quantizes them in the same order, so both its loads and its int8 stores
+// are contiguous (float4 in, char4 out). The features kernel's last block
+// quantizes where the float one writes its normalized output, walking the
+// output frame-major; its float output buffer stays the scratch that pcen
+// (the smoother) and mfcc (the DCT) use. Bytes at the flagship B=64: the
+// waveform (16.9 MB) plus B x W x bins int8 codes (4.2 MB linear, 1.0 MB
+// for 64 mels).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -104,8 +125,16 @@ static_assert(BK == 32 && BM % 16 == 0, "the frame-tile load mapping assumes 32 
 static_assert(THREADS % MEL_CHUNK == 0 && MEL_FRAMES % 4 == 0,
               "mel threads own whole float4 frame runs");
 
-// The per-sample epilogues of _sample_epilogue (quant=None).
+// The per-sample epilogues of _sample_epilogue.
 enum Epilogue { EPI_NONE = 0, EPI_PWL = 1, EPI_DB = 2, EPI_PCEN = 3, EPI_LOG1P = 4, EPI_MFCC = 5 };
+
+// The int8-entry quantization of one normalized value:
+// clip(round_half_away(s * inv_scale) + zp, -128, 127).
+__device__ __forceinline__ signed char quantize_code(float s, float inv_scale, float zp) {
+    const float f = __fmul_rn(s, inv_scale);
+    const float q = __fadd_rn(copysignf(floorf(__fadd_rn(fabsf(f), 0.5f)), f), zp);
+    return static_cast<signed char>(fminf(fmaxf(q, -128.0f), 127.0f));
+}
 
 __device__ __forceinline__ void block_minmax(float& mn, float& mx,
                                              float* s_min, float* s_max) {
@@ -207,14 +236,18 @@ __device__ __forceinline__ bool last_to_arrive(unsigned int* arrived, int b, boo
     return true;
 }
 
+// kInt8: `out` is the frame-major scratch [B, n_frames, n_bins] and the
+// result is out8 [B, n_frames, n_bins] int8; else out [B, n_bins, n_frames].
+template <bool kInt8>
 __global__ void __launch_bounds__(THREADS)
 frontend_linear_kernel(const float* __restrict__ y,      // [B, T]
                        const float* __restrict__ bases,  // [2, n_fft, f_pad]: cos, sin
-                       float* __restrict__ out,          // [B, n_bins, n_frames]
+                       float* __restrict__ out,
+                       signed char* __restrict__ out8,
                        float* __restrict__ tile_minmax,  // [B, tiles, 2]
                        unsigned int* __restrict__ arrived,  // [B], zero on entry and exit
                        int T, int n_fft, int hop, int n_frames, int n_bins,
-                       int f_pad) {
+                       int f_pad, float inv_scale, float zp) {
     __shared__ __align__(16) float As[BK][AS];  // frame tile, [tap][frame]; later [bin][frame]
     __shared__ __align__(16) float Cs[BK][BN];  // cos bases tile
     __shared__ __align__(16) float Ss[BK][BN];  // sin bases tile
@@ -253,10 +286,18 @@ frontend_linear_kernel(const float* __restrict__ y,      // [B, T]
     __syncthreads();
 
     float* ob = out + (size_t)b * n_bins * n_frames;
-    for (int e = t; e < BN * BM; e += THREADS) {
-        const int n = e / BM, f = e % BM;
-        if (n0 + n < n_bins && f0 + f < n_frames)
-            ob[(size_t)(n0 + n) * n_frames + f0 + f] = As[n][f];
+    if constexpr (kInt8) {
+        for (int e = t; e < BM * BN; e += THREADS) {
+            const int f = e / BN, n = e % BN;
+            if (n0 + n < n_bins && f0 + f < n_frames)
+                ob[(size_t)(f0 + f) * n_bins + n0 + n] = As[n][f];
+        }
+    } else {
+        for (int e = t; e < BN * BM; e += THREADS) {
+            const int n = e / BM, f = e % BM;
+            if (n0 + n < n_bins && f0 + f < n_frames)
+                ob[(size_t)(n0 + n) * n_frames + f0 + f] = As[n][f];
+        }
     }
 
     block_minmax(lmin, lmax, s_min, s_max);
@@ -280,7 +321,24 @@ frontend_linear_kernel(const float* __restrict__ y,      // [B, T]
 
     // __ldcg reads through L2: other blocks' writes are not in this SM's L1.
     const size_t total = (size_t)n_bins * n_frames;
-    if ((total & 3) == 0) {
+    if constexpr (kInt8) {
+        // Same order of the same values: codes frame-major, like the scratch.
+        signed char* qb = out8 + (size_t)b * total;
+        if ((total & 3) == 0) {
+            const float4* ob4 = reinterpret_cast<const float4*>(ob);
+            char4* qb4 = reinterpret_cast<char4*>(qb);
+            for (size_t e = t; e < total / 4; e += THREADS) {
+                const float4 v = __ldcg(ob4 + e);
+                qb4[e] = make_char4(quantize_code((v.x - mn) / den, inv_scale, zp),
+                                    quantize_code((v.y - mn) / den, inv_scale, zp),
+                                    quantize_code((v.z - mn) / den, inv_scale, zp),
+                                    quantize_code((v.w - mn) / den, inv_scale, zp));
+            }
+        } else {
+            for (size_t e = t; e < total; e += THREADS)
+                qb[e] = quantize_code((__ldcg(ob + e) - mn) / den, inv_scale, zp);
+        }
+    } else if ((total & 3) == 0) {
         float4* ob4 = reinterpret_cast<float4*>(ob);
         for (size_t e = t; e < total / 4; e += THREADS) {
             float4 v = __ldcg(ob4 + e);
@@ -307,11 +365,14 @@ __device__ __forceinline__ float pwl(float x) {
 // One sample's epilogue, run by one block over buf[w * ld + c] (w < rows
 // frames, c < C channels, frame-major; in shared memory or in the scratch),
 // which it may overwrite. Writes the normalized freq-major ob[c * out_w + w]
-// (mfcc: ob[k * out_w + w], k < n_mfcc). Every reduction is a min or a max,
-// and every sum (the DCT) is one thread's, in order.
+// (mfcc: ob[k * out_w + w], k < n_mfcc); with o8, writes those values'
+// int8 codes frame-major to o8[w * bins + c] instead, and ob is scratch.
+// Every reduction is a min or a max, and every sum (the DCT) is one
+// thread's, in order.
 __device__ void sample_epilogue(float* buf, int ld, int rows, int C, float* ob, int out_w,
                                 int epi, const float* __restrict__ dct, int n_mfcc,
-                                float pcen_a, float pcen_b, float* s_min, float* s_max) {
+                                float pcen_a, float pcen_b, float* s_min, float* s_max,
+                                signed char* o8, float inv_scale, float zp) {
     const int t = threadIdx.x;
     const int n = rows * C;
     // Element e of the sample, in frame-major order.
@@ -380,8 +441,15 @@ __device__ void sample_epilogue(float* buf, int ld, int rows, int C, float* ob, 
                 mn = fminf(mn, acc);
                 mx = fmaxf(mx, acc);
             }
-            block_minmax(mn, mx, s_min, s_max);
+            block_minmax(mn, mx, s_min, s_max);  // its barriers publish ob
             const float den = mx - mn + 1e-10f;
+            if (o8) {
+                for (int e = t; e < n_mfcc * out_w; e += THREADS) {
+                    const int w = e / n_mfcc, k = e % n_mfcc;
+                    o8[e] = quantize_code((ob[k * out_w + w] - mn) / den, inv_scale, zp);
+                }
+                return;
+            }
             for (int e = t; e < n_mfcc * out_w; e += THREADS) ob[e] = (ob[e] - mn) / den;
             return;
         }
@@ -410,6 +478,13 @@ __device__ void sample_epilogue(float* buf, int ld, int rows, int C, float* ob, 
     }
     block_minmax(mn, mx, s_min, s_max);
     const float den = mx - mn + 1e-10f;
+    if (o8) {
+        for (int e = t; e < C * out_w; e += THREADS) {
+            const int w = e / C, c = e % C;
+            o8[e] = quantize_code((buf[(size_t)w * ld + c] - mn) / den, inv_scale, zp);
+        }
+        return;
+    }
     for (int e = t; e < C * out_w; e += THREADS) {
         const int c = e / out_w, w = e % out_w;
         ob[e] = (buf[(size_t)w * ld + c] - mn) / den;
@@ -423,10 +498,11 @@ frontend_features_kernel(const float* __restrict__ y,       // [B, T]
                          const float* __restrict__ dct,     // [n_mel, n_mfcc] (mfcc)
                          float* __restrict__ scratch,       // [B, n_frames, C]
                          float* __restrict__ out,           // [B, bins, out_w]
+                         signed char* __restrict__ out8,    // [B, out_w, bins] or null
                          unsigned int* __restrict__ arrived,  // [B], zero on entry and exit
                          int T, int n_fft, int hop, int n_frames, int n_bins, int f_pad,
                          int n_mel, int n_mfcc, int out_w, int epi, float pcen_a,
-                         float pcen_b, int stage_in_smem) {
+                         float pcen_b, int stage_in_smem, float inv_scale, float zp) {
     extern __shared__ __align__(16) float smem[];  // the strip's tiles, then the sample
     float (*As)[AS] = reinterpret_cast<float (*)[AS]>(smem);
     float (*Cs)[BN] = reinterpret_cast<float (*)[BN]>(smem + BK * AS);
@@ -511,7 +587,8 @@ frontend_features_kernel(const float* __restrict__ y,       // [B, T]
     }
     const int bins = epi == EPI_MFCC ? n_mfcc : C;
     sample_epilogue(buf, ld, n_frames, C, out + (size_t)b * bins * out_w, out_w, epi, dct,
-                    n_mfcc, pcen_a, pcen_b, s_min, s_max);
+                    n_mfcc, pcen_a, pcen_b, s_min, s_max,
+                    out8 ? out8 + (size_t)b * bins * out_w : nullptr, inv_scale, zp);
 }
 
 }  // namespace
@@ -529,18 +606,25 @@ int frontend_linear_tiles(int n_fft, int n_frames) {
     return (n_frames + BM - 1) / BM * (frontend_linear_bin_pad(n_fft) / BN);
 }
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 = ok).
-// `arrived` must hold B zeros, and holds B zeros again when the kernel ends;
-// `tile_minmax` B * tiles * 2 floats.
-int frontend_linear_f32(const float* y, const float* bases, float* out,
-                        float* tile_minmax, unsigned int* arrived, int B, int T,
-                        int n_fft, int hop, int n_frames, void* stream) {
+// Launches the linear kernel on `stream` and returns cudaGetLastError()
+// (0 = ok). `out` holds B * bins * n_frames floats: the result [B, bins, W],
+// or with `out8` (B * n_frames * bins int8, the codes [B, W, bins]) the
+// scratch. `arrived` must hold B zeros, and holds B zeros again when the
+// kernel ends; `tile_minmax` B * tiles * 2 floats.
+int frontend_linear(const float* y, const float* bases, float* out, signed char* out8,
+                    float* tile_minmax, unsigned int* arrived, int B, int T, int n_fft,
+                    int hop, int n_frames, float inv_scale, int zp, void* stream) {
     if (B <= 0 || B > 65535 || n_fft % BK != 0 || 2 * hop < n_fft || n_frames <= 0)
         return (int)cudaErrorInvalidValue;
     const dim3 grid(frontend_linear_tiles(n_fft, n_frames), B);
-    frontend_linear_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        y, bases, out, tile_minmax, arrived, T, n_fft, hop, n_frames,
-        n_fft / 2 + 1, frontend_linear_bin_pad(n_fft));
+    if (out8)
+        frontend_linear_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+            y, bases, out, out8, tile_minmax, arrived, T, n_fft, hop, n_frames,
+            n_fft / 2 + 1, frontend_linear_bin_pad(n_fft), inv_scale, (float)zp);
+    else
+        frontend_linear_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+            y, bases, out, nullptr, tile_minmax, arrived, T, n_fft, hop, n_frames,
+            n_fft / 2 + 1, frontend_linear_bin_pad(n_fft), 0.0f, 0.0f);
     return (int)cudaGetLastError();
 }
 
@@ -549,12 +633,14 @@ int frontend_linear_f32(const float* y, const float* bases, float* out,
 // is [bin_pad, n_mel] with zero rows past n_fft/2+1, `dct` [n_mel, n_mfcc]
 // (mfcc only), `scratch` B * n_frames * C floats (C = n_mel, or the bins),
 // `out` B * bins * out_w floats (bins = n_mfcc for mfcc, else C); out_w ==
-// n_frames except for mfcc. `arrived` as for frontend_linear_f32.
-int frontend_features_f32(const float* y, const float* bases, const float* mel_fb,
-                          const float* dct, float* scratch, float* out,
-                          unsigned int* arrived, int B, int T, int n_fft, int hop,
-                          int n_frames, int n_mel, int n_mfcc, int out_w, int epi,
-                          float pcen_a, float pcen_b, void* stream) {
+// n_frames except for mfcc. With `out8` (B * out_w * bins int8) the codes
+// go there, frame-major, and `out` is scratch. `arrived` as for
+// frontend_linear.
+int frontend_features(const float* y, const float* bases, const float* mel_fb,
+                      const float* dct, float* scratch, float* out, signed char* out8,
+                      unsigned int* arrived, int B, int T, int n_fft, int hop,
+                      int n_frames, int n_mel, int n_mfcc, int out_w, int epi,
+                      float pcen_a, float pcen_b, float inv_scale, int zp, void* stream) {
     const int n_bins = n_fft / 2 + 1;
     const int C = n_mel > 0 ? n_mel : n_bins;
     if (B <= 0 || B > 65535 || n_fft % BK != 0 || 2 * hop < n_fft || n_frames <= 0 ||
@@ -582,9 +668,9 @@ int frontend_features_f32(const float* y, const float* bases, const float* mel_f
     const int chunks = n_mel > 0 ? (n_mel + MEL_CHUNK - 1) / MEL_CHUNK : 1;
     const dim3 grid(strips * chunks, B);
     frontend_features_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        y, bases, mel_fb, dct, scratch, out, arrived, T, n_fft, hop, n_frames, n_bins,
+        y, bases, mel_fb, dct, scratch, out, out8, arrived, T, n_fft, hop, n_frames, n_bins,
         frontend_linear_bin_pad(n_fft), n_mel, n_mfcc, out_w, epi, pcen_a, pcen_b,
-        stage_in_smem);
+        stage_in_smem, inv_scale, (float)zp);
     return (int)cudaGetLastError();
 }
 

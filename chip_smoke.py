@@ -14,7 +14,11 @@ It imports nothing of JAX. In order it:
    fused frontend kernels against its plain PyTorch version on the card
    (max abs <= 1e-5 for linear, 2e-5 for the others), times kernel, plain
    version and a torch.stft yardstick with CUDA events, and checks the
-   kernel again after the timing launches;
+   kernel again after the timing launches. The int8-entry specialisations
+   (linear; mel + pwl), quantizing with the entry (scale, zero point) of
+   the INT8 graph, must equal quantize(the float kernel's output) bit for
+   bit, and quantize(the plain version) within one code on fewer than 1 %
+   of codes;
 4. slice phase: loads artifacts/flagship/bundle/model_config.json and
    derives one config per served frontend with dataclasses.replace:
    hybrid (the flagship) and librosa + pwl get three requests of 64 chunks
@@ -27,7 +31,24 @@ It imports nothing of JAX. In order it:
    (plain frontend, same weights) within 1e-4. For hybrid and librosa +
    pwl it also times one warm 64-chunk batch by part: host-to-device copy,
    frontend, DS-CNN, whole;
-5. prints the `kernels` JSON line, the card's name and power limit, and
+5. INT8 phase: the committed flagship graph
+   (artifacts/flagship/bundle/model_quantized.tflite), read by the port's
+   own reader, served through TFLiteSimRunner + make_fused_classifier +
+   classify_in_batches on the hybrid requests (3 x 64 + 37):
+   (a) the flagship graph: scores [229, 100], finite, in [0, 1]; the
+       linear float kernel launched once per batch and no int8 kernel;
+       one batch's scores bit-equal to the port's CPU executor on the same
+       features, copied to the host;
+   (b) the entry-transpose fixture (tests/int8_fixture.py: ops 1-2 become
+       TRANSPOSE (0, 3, 2, 1) and RESHAPE, the same function): the fused
+       leg, the linear int8 kernel launched once per batch and the float
+       one never; scores bit-equal to (a)'s;
+   (c) the CUDA executor on the golden's features bit-equal to
+       tests/goldens/torch_int8_flagship_scores.npz;
+   (d) one warm 64-chunk batch of each leg by part (copy, frontend,
+       executor, whole), and the CUDA launches its executor makes with
+       their summed device time (torch.profiler);
+6. prints the `kernels` JSON line, the card's name and power limit, and
    last the `ok` JSON line.
 
 Any failed check exits non-zero before the `ok` line.
@@ -48,9 +69,21 @@ B, T, N_FFT, SPEC_WIDTH, N_MELS, N_MFCC, SR = 64, 66150, 512, 256, 64, 20, 22050
 REQUESTS = (64, 64, 64, 37)
 FP32_PEAK_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (data sheet)
 HBM_BYTES_PER_S = 3.35e12
-# (mode, mag_scale) of each kernel specialisation on a served path.
-SPECS = (("linear", "none"), ("mel", "none"), ("mel", "pwl"), ("mel", "db"),
-         ("mel", "pcen"), ("log_mel", "none"), ("mfcc", "none"))
+FLAGSHIP_TFLITE = ROOT / "artifacts/flagship/bundle/model_quantized.tflite"
+INT8_GOLDEN = ROOT / "tests/goldens/torch_int8_flagship_scores.npz"
+# (mode, mag_scale, int8 entry, served path or None) of each kernel
+# specialisation held in the kernel phase.
+SPECS = (("linear", "none", False, "hybrid"), ("mel", "none", False, "librosa+none"),
+         ("mel", "pwl", False, "librosa+pwl"), ("mel", "db", False, "librosa+db"),
+         ("mel", "pcen", False, "librosa+pcen"), ("log_mel", "none", False, "log_mel"),
+         ("mfcc", "none", False, "mfcc"),
+         ("linear", "none", True, "INT8 leg, fused entry (entry-transpose graph)"),
+         # No graph the repo makes starts with QUANTIZE -> TRANSPOSE after a
+         # mel frontend, so this one has no served path; held on the card only.
+         ("mel", "pwl", True, None))
+# Operations per output element of the int8-entry epilogue: multiply, |.|,
+# + 0.5, floor, sign, + zp, clamp.
+QUANT_OPS = 7
 # (audio_frontend, mag_scale or None to keep the flagship's, requests).
 SERVED = (("hybrid", None, REQUESTS), ("librosa", "pwl", REQUESTS),
           ("librosa", "none", (64,)), ("librosa", "db", (64,)),
@@ -95,12 +128,14 @@ def build_phase() -> None:
                 print(f"ptxas {name}: {line.strip()}")
 
 
-def bound(np, mode: str, mag: str, n_frames: int, bins: int) -> tuple[float, str]:
+def bound(np, mode: str, mag: str, n_frames: int, bins: int,
+          int8: bool = False) -> tuple[float, str]:
     """Least time for the function at this run's shapes, whatever the
-    algorithm: each waveform sample read once and each feature written once,
-    against the operations of the FFT route (real-input FFT ~2.5 n log2 n,
-    the window, |.| = 2 mul + add + sqrt per bin), the mel bank's nonzeros
-    (one multiply-add each), mfcc's DCT, and the epilogue per element."""
+    algorithm: each waveform sample read once and each feature written once
+    (4 bytes, or 1 for an int8 code), against the operations of the FFT
+    route (real-input FFT ~2.5 n log2 n, the window, |.| = 2 mul + add +
+    sqrt per bin), the mel bank's nonzeros (one multiply-add each), mfcc's
+    DCT, and the epilogue per element (the quantize too, for int8)."""
     from birdnet_stm32_tpu_torch.ops.mel import mel_filterbank
 
     n_bins = N_FFT // 2 + 1
@@ -114,18 +149,23 @@ def bound(np, mode: str, mag: str, n_frames: int, bins: int) -> tuple[float, str
     ops = n_frames * (per_frame + channels * (4 + SCALE_OPS[mode if mode in SCALE_OPS else mag]))
     if mode == "mfcc":
         ops += SPEC_WIDTH * N_MFCC * (2 * N_MELS + 4)
+    if int8:
+        ops += SPEC_WIDTH * bins * QUANT_OPS
     ops *= B
-    n_bytes = 4.0 * (B * T + B * bins * SPEC_WIDTH)
+    n_bytes = 4.0 * B * T + (1.0 if int8 else 4.0) * B * bins * SPEC_WIDTH
     t_ops, t_bytes = ops / FP32_PEAK_FLOPS * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def kernel_phase(torch, np) -> list[dict]:
+def kernel_phase(torch, np, quant: tuple[float, int]) -> list[dict]:
+    """Hold, time and bound every specialisation of SPECS; `quant` is the
+    INT8 graph's entry (scale, zero point)."""
     from birdnet_stm32_tpu_torch.device import full_fp32
     from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import (
         fused_spectrogram,
         fused_spectrogram_plain,
         kernel_name,
+        quantize_entry,
     )
     from birdnet_stm32_tpu_torch.ops.spectrogram import spectrogram_epilogue
 
@@ -134,40 +174,61 @@ def kernel_phase(torch, np) -> list[dict]:
     y = 0.5 * torch.randn(B, T, generator=g, device="cuda")
     window = torch.hann_window(N_FFT, periodic=True, device="cuda")
     entries = []
-    for mode, mag in SPECS:
-        name = kernel_name(mode, mag)
+    for mode, mag, int8, served in SPECS:
+        name = kernel_name(mode, mag, int8)
         n_frames = 1 + T // hop if mode == "mfcc" else SPEC_WIDTH
         bins = {"linear": N_FFT // 2 + 1, "mfcc": N_MFCC}.get(mode, N_MELS)
         geometry = dict(n_fft=N_FFT, hop=hop, n_frames=n_frames, mode=mode, mag_scale=mag,
                         sample_rate=SR, mel_bins=N_MELS, n_mfcc=N_MFCC, out_w=SPEC_WIDTH)
+        q = quant if int8 else None
 
-        def kernel():
+        def kernel(q=q):
             return fused_spectrogram(y, mode=mode, mag_scale=mag, sample_rate=SR,
                                      n_fft=N_FFT, mel_bins=N_MELS, spec_width=SPEC_WIDTH,
-                                     n_mfcc=N_MFCC)
+                                     n_mfcc=N_MFCC, quant=q)
 
         def plain():
-            return fused_spectrogram_plain(y, **geometry)
+            S = fused_spectrogram_plain(y, **geometry)
+            return S if q is None else quantize_entry(S, q)
 
         def library():
             S = torch.stft(y, N_FFT, hop_length=hop, window=window, center=True,
                            pad_mode="constant", return_complex=True).abs()[..., :n_frames]
-            return spectrogram_epilogue(S.transpose(1, 2), mode, mag, SR, N_FFT, hop,
-                                        -1 if mode == "linear" else N_MELS, N_MFCC,
-                                        SPEC_WIDTH)
+            S = spectrogram_epilogue(S.transpose(1, 2), mode, mag, SR, N_FFT, hop,
+                                     -1 if mode == "linear" else N_MELS, N_MFCC, SPEC_WIDTH)
+            return S if q is None else quantize_entry(S, q)
 
-        tol = 1e-5 if mode == "linear" else 2e-5
+        def error(got, ref, what="plain version"):
+            """Max abs difference; for codes, also fail at >= 1 % differing."""
+            if q is None:
+                return (got - ref).abs().max().item()
+            diff = (got.int() - ref.int()).abs()
+            share = (diff > 0).float().mean().item()
+            if what and not share < 0.01:
+                fail(f"{name}: {share:.4%} of codes differ from the {what} (>= 1 %)")
+            return diff.max().item()
+
+        tol = 1 if int8 else 1e-5 if mode == "linear" else 2e-5
+        shape = (B, 1, SPEC_WIDTH, bins) if int8 else (B, bins, SPEC_WIDTH)
         with full_fp32():
             got = kernel()
             torch.cuda.synchronize()
             ref = plain()
             lib = library()
             torch.cuda.synchronize()
-            if got.shape != (B, bins, SPEC_WIDTH) or not torch.isfinite(got).all():
-                fail(f"{name} output {tuple(got.shape)} not finite [B, {bins}, {SPEC_WIDTH}]")
-            err = (got - ref).abs().max().item()
-            print(json.dumps({"kernel": name, "max_abs_vs_plain": err,
-                              "max_abs_vs_torch_stft": (got - lib).abs().max().item()}))
+            if got.shape != shape or (not int8 and not torch.isfinite(got).all()):
+                fail(f"{name} output {tuple(got.shape)} not finite {shape}")
+            err = error(got, ref)
+            report = {"kernel": name, "max_abs_vs_plain": err,
+                      "max_abs_vs_torch_stft": error(got, lib, what=None)}
+            if int8:
+                # Bit for bit the executor's quantize of the float kernel.
+                same = torch.equal(got, quantize_entry(kernel(None), q))
+                report["equals_quantize_of_float_kernel"] = same
+                report["codes_differing_vs_plain"] = (got != ref).float().mean().item()
+                if not same:
+                    fail(f"{name} != quantize(float kernel output)")
+            print(json.dumps(report))
             if not err <= tol:
                 fail(f"{name} kernel vs plain: max abs {err} > {tol}")
             ms = cuda_ms(torch, kernel)
@@ -175,17 +236,18 @@ def kernel_phase(torch, np) -> list[dict]:
             library_ms = cuda_ms(torch, library, iters=5, warmup=1)
             # The kernels reset their arrival counters themselves: after the
             # timed launches each must still finish every sample.
-            err_after = (kernel() - ref).abs().max().item()
+            err_after = error(kernel(), ref)
             if not err_after <= tol:
                 fail(f"{name} kernel after the timing launches: max abs {err_after} > {tol} "
                      "(arrival counters not reset?)")
-        bound_ms, bound_by = bound(np, mode, mag, n_frames, bins)
+        bound_ms, bound_by = bound(np, mode, mag, n_frames, bins, int8)
         entries.append({"name": name, "route": "cuda",
                         "source": "birdnet_stm32_tpu_torch/ops/csrc/frontend_kernel.cu",
-                        "replaces": "birdnet_stm32_tpu/ops/pallas/frontend_kernel.py:154",
+                        "replaces": "birdnet_stm32_tpu/ops/pallas/frontend_kernel.py:"
+                                    + ("126" if int8 else "154"),
                         "launches": None, "max_abs_err": max(err, err_after), "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": library_ms})
+                        "library_ms": library_ms, "served_path": served})
     return entries
 
 
@@ -285,6 +347,109 @@ def slice_phase(torch, np) -> dict[str, int]:
     return launches
 
 
+def device_activity(torch, fn) -> dict:
+    """The CUDA kernels, copies and memsets one call of fn() puts on the
+    card, and the sum of their device times (ms), by torch.profiler; both
+    None when the profiler sees no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    except RuntimeError as e:  # counts only: the checks do not depend on them
+        print(json.dumps({"device_activity_not_measured": str(e)}))
+        events = []
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    return {"cuda_launches": len(events) or None, "device_busy_ms": busy if events else None}
+
+
+def int8_phase(torch, np, flagship_cfg) -> dict[str, int]:
+    """The INT8 leg, (a)-(d) of the module docstring; returns the int8
+    kernel launches of the fused leg."""
+    from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner
+    from birdnet_stm32_tpu_torch.models.serving import (
+        classify_in_batches,
+        make_fused_classifier,
+    )
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from birdnet_stm32_tpu_torch.quant.tflite_import import build_executor
+    from tests.int8_fixture import entry_transpose_fixture, flagship_features
+
+    cfg = flagship_cfg
+    requests = requests_for(np, cfg, REQUESTS)
+    n_chunks, n_batches = sum(REQUESTS), sum(-(-n // B) for n in REQUESTS)
+    flagship = TFLiteSimRunner(FLAGSHIP_TFLITE, device="cuda")
+    fixture = TFLiteSimRunner(entry_transpose_fixture(flagship.graph), device="cuda")
+    legs = {}
+    for leg, runner, fused in (("flagship", flagship, False), ("fixture", fixture, True)):
+        classify = make_fused_classifier(runner, cfg, device="cuda")
+        if (classify.entry_quant is not None) != fused:
+            fail(f"INT8 {leg}: fused entry {classify.entry_quant}, expected fused={fused}")
+        frontend_kernel.launches.clear()
+        t0 = time.perf_counter()
+        results = [classify_in_batches(classify, r, batch_size=B) for r in requests]
+        wall = time.perf_counter() - t0
+        counts = dict(frontend_kernel.launches)
+        scores = np.concatenate([sc for sc, _ in results])
+        name = frontend_kernel.kernel_name("linear", "none", quant=fused)
+        print(json.dumps({"int8_leg": leg, "fused_entry": fused, "served_chunks": n_chunks,
+                          "batches": n_batches, "kernel_launches": counts,
+                          "serve_wall_s": wall,
+                          "chunks_per_s_incl_first_call": n_chunks / wall,
+                          "request_seconds": [dt for _, dt in results],
+                          "top1_mean": float(scores.max(axis=1).mean())}))
+        if counts.get(name, 0) != n_batches or sum(counts.values()) != n_batches:
+            fail(f"INT8 {leg}: launches {counts}, expected {name} x {n_batches} only")
+        if scores.shape != (n_chunks, cfg.num_classes) or not np.isfinite(scores).all():
+            fail(f"INT8 {leg}: scores {scores.shape} not finite [{n_chunks}, {cfg.num_classes}]")
+        if scores.min() < 0.0 or scores.max() > 1.0:
+            fail(f"INT8 {leg}: scores outside [0, 1]")
+        legs[leg] = (classify, runner, scores, counts.get(name, 0))
+
+    # (a) one batch: CUDA executor vs the port's CPU executor, same features.
+    x = torch.from_numpy(requests[0]).cuda()
+    with torch.no_grad():
+        feats = frontend_kernel.frontend_input(x, cfg)
+    cpu_scores = build_executor(flagship.graph, B, device="cpu")(feats.cpu()).numpy()
+    a_scores, b_scores = legs["flagship"][2], legs["fixture"][2]
+    checks = {"a_cuda_vs_cpu_executor_bit_equal": bool(np.array_equal(cpu_scores, a_scores[:B])),
+              "b_fused_vs_flagship_bit_equal": bool(np.array_equal(a_scores, b_scores))}
+    # (c) the golden's features through the CUDA executor.
+    golden = np.load(INT8_GOLDEN)["scores"]
+    got = build_executor(flagship.graph, 8, device="cuda")(
+        torch.from_numpy(flagship_features(8)).cuda()).cpu().numpy()
+    checks["c_golden_bit_equal"] = bool(np.array_equal(got, golden))
+    print(json.dumps({"int8_checks": checks,
+                      "a_max_abs_cuda_vs_cpu": float(np.abs(cpu_scores - a_scores[:B]).max()),
+                      "b_max_abs_fused_vs_flagship": float(np.abs(a_scores - b_scores).max()),
+                      "c_max_abs_vs_golden": float(np.abs(got - golden).max())}))
+    for check, ok in checks.items():
+        if not ok:
+            fail(f"INT8 check {check} failed")
+
+    # (d) one warm 64-chunk batch of each leg by part (CUDA events), and
+    # what its executor puts on the card (profiler).
+    wave = torch.from_numpy(requests[0])
+    for leg, (classify, runner, _, _) in legs.items():
+        quant = classify.entry_quant
+        fwd = runner.executor(B, prequantized_input=quant is not None)
+        with torch.no_grad():
+            feats = frontend_kernel.frontend_input(x, cfg, quant=quant)
+            print(json.dumps({"int8_leg": leg, "batch_breakdown_ms": {
+                "h2d_copy": cuda_ms(torch, lambda: wave.cuda()),
+                "frontend_kernel": cuda_ms(torch, lambda: frontend_kernel.frontend_input(
+                    x, cfg, quant=quant)),
+                "executor": cuda_ms(torch, lambda: fwd(feats)),
+                "classify_total": cuda_ms(torch, lambda: classify(requests[0])),
+            }, "executor_per_batch": device_activity(torch, lambda: fwd(feats))}))
+    name = frontend_kernel.kernel_name("linear", "none", quant=True)
+    return {name: legs["fixture"][3]}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -296,12 +461,19 @@ def main() -> None:
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                       "device": torch.cuda.get_device_name(0)}))
 
+    from birdnet_stm32_tpu_torch.config import ModelConfig
+    from birdnet_stm32_tpu_torch.quant.tflite_import import TFLiteGraph, entry_quant_params
+    from tests.int8_fixture import entry_transpose_fixture
+
     build_phase()
-    entries = kernel_phase(torch, np)
+    quant = entry_quant_params(entry_transpose_fixture(TFLiteGraph(FLAGSHIP_TFLITE)))
+    entries = kernel_phase(torch, np, quant)
     launches = slice_phase(torch, np)
+    flagship = ModelConfig.load(ROOT / "artifacts/flagship/bundle/model_config.json")
+    launches.update(int8_phase(torch, np, flagship))
     for entry in entries:
         entry["launches"] = launches.get(entry["name"], 0)
-        if entry["launches"] == 0:
+        if entry["launches"] == 0 and entry["served_path"] is not None:
             fail(f"{entry['name']} was never launched on its served path")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

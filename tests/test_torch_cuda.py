@@ -6,6 +6,12 @@ JAX, so run it there with:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
+The INT8 leg: each int8-entry specialisation must equal the executor's
+quantize of the float kernel's output bit for bit, and its plain version
+(quantize of the plain float features) within one code on fewer than 1 %
+of codes (the allowance of tests/test_pallas.py); the CUDA integer executor
+must equal the golden scores and its own CPU run bit for bit.
+
 Tolerances: 1e-5 for the linear kernel and 2e-5 for the other epilogues
 (the JAX package's gates, tests/test_pallas.py) on [0, 1]-normalized
 features. Kernel and plain version both compute in float32 (the plain
@@ -15,17 +21,30 @@ a magnitude 1e-4 of it, so a summation-order error relative to the frame
 energy grows ~1e4-fold in that bin's dB (measured 7.6e-5 on an H100).
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from birdnet_stm32_tpu_torch.config import ModelConfig
 from birdnet_stm32_tpu_torch.device import full_fp32
 from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
 from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import (
+    frontend_input,
     fused_spectrogram,
     fused_spectrogram_plain,
     kernel_name,
+    quantize_entry,
 )
+from birdnet_stm32_tpu_torch.quant.tflite_import import (
+    TFLiteGraph,
+    build_executor,
+    entry_quant_params,
+)
+from tests.int8_fixture import FLAGSHIP_TFLITE, entry_transpose_fixture, flagship_features
+
+GOLDEN = Path(__file__).resolve().parent / "goldens" / "torch_int8_flagship_scores.npz"
 
 COMBOS = [("linear", "none"), ("mel", "none"), ("mel", "pwl"), ("mel", "pcen"),
           ("mel", "db"), ("log_mel", "none"), ("mfcc", "none"), ("linear", "pwl"),
@@ -98,3 +117,66 @@ def test_more_than_64_mels_on_card(cuda, mode):
     """96 mels take two mel chunks per strip, each recomputing the DFT."""
     geometry = {**FLAGSHIP, "mel_bins": 96}
     _check(_wave(6, 4, 66150), mode, "pwl" if mode == "mel" else "none", geometry, 66150)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,mag", COMBOS)
+def test_int8_epilogue_on_card(cuda, mode, mag):
+    """Each int8-entry specialisation at the flagship geometry, twice in a
+    row: bit-equal to quantize(the float kernel's output), and within one
+    code of quantize(the plain version) on fewer than 1 % of codes."""
+    y = _wave(10, 4, 66150)
+    quant = entry_quant_params(entry_transpose_fixture(TFLiteGraph(FLAGSHIP_TFLITE)))
+    kw = dict(mode=mode, mag_scale=mag, **FLAGSHIP)
+    name = kernel_name(mode, mag, quant=True)
+    before = frontend_kernel.launches[name]
+    got = [fused_spectrogram(y, quant=quant, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert frontend_kernel.launches[name] == before + 2
+    floats = fused_spectrogram(y, **kw)
+    bins, out_w = floats.shape[1:]
+    assert got[0].shape == (4, 1, out_w, bins) and got[0].dtype == torch.int8
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(got[0], quantize_entry(floats, quant))
+    T, hop = y.shape[1], y.shape[1] // FLAGSHIP["spec_width"]
+    n_frames = 1 + T // hop if mode == "mfcc" else FLAGSHIP["spec_width"]
+    with full_fp32():
+        plain = quantize_entry(fused_spectrogram_plain(
+            y, FLAGSHIP["n_fft"], hop, n_frames, mode=mode, mag_scale=mag,
+            sample_rate=FLAGSHIP["sample_rate"], mel_bins=FLAGSHIP["mel_bins"],
+            n_mfcc=FLAGSHIP["n_mfcc"], out_w=FLAGSHIP["spec_width"]), quant)
+    diff = (got[0].int() - plain.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() < 0.01
+
+
+@pytest.mark.cuda
+def test_int8_executor_matches_golden_on_card(cuda):
+    """The CUDA integer executor on the golden's features: bit-equal to the
+    JAX executor's scores (which equal the TFLite interpreter's)."""
+    x = torch.from_numpy(flagship_features(8)).cuda()
+    got = build_executor(TFLiteGraph(FLAGSHIP_TFLITE), 8, device="cuda")(x).cpu().numpy()
+    np.testing.assert_array_equal(got, np.load(GOLDEN)["scores"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_int8_executor_matches_cpu_on_card(cuda, fused):
+    """CUDA vs CPU executor on chirp features from the linear kernel: the
+    flagship graph on float features, or the fixture graph on the int8
+    kernel's entry tensor; bit-equal scores."""
+    cfg = ModelConfig.load(Path(__file__).resolve().parents[1]
+                           / "artifacts/flagship/bundle/model_config.json")
+    t = np.arange(cfg.chunk_samples) / cfg.sample_rate
+    f0 = np.random.default_rng(11).uniform(500.0, 6000.0, (6, 1))
+    wave = torch.from_numpy((0.5 * np.sin(2 * np.pi * f0 * t * (1 + 0.3 * t))).astype(np.float32))
+    graph = TFLiteGraph(FLAGSHIP_TFLITE)
+    quant = None
+    if fused:
+        graph = entry_transpose_fixture(graph)
+        quant = entry_quant_params(graph)
+    feats = frontend_input(wave.cuda(), cfg, quant=quant)
+    got = build_executor(graph, 6, device="cuda", prequantized_input=fused)(feats)
+    ref = build_executor(graph, 6, device="cpu", prequantized_input=fused)(feats.cpu())
+    assert torch.isfinite(got).all() and got.shape == (6, 100)
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy())

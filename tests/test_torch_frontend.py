@@ -186,21 +186,42 @@ def test_cpu_tensor_never_counts_a_launch():
     assert frontend_kernel.launches.total() == before
 
 
-@pytest.mark.parametrize("kw", [dict(quant=(1.0 / 255.0, -128))])
+@pytest.mark.parametrize("kw", [dict(mode="bogus"), dict(mag_scale="bogus"),
+                                dict(mode="mel", mel_bins=0)])
 def test_unported_epilogues_raise(kw):
-    """Only the int8-entry epilogue is still to port."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_spectrogram(torch.zeros(2, 8000), n_fft=256, spec_width=32, **kw)
+    """Every epilogue of the kernel is ported, the int8 entry included; a
+    mode, mag_scale or mel count it does not have raises ValueError."""
+    with pytest.raises(ValueError):
+        fused_spectrogram(torch.zeros(2, 8000), n_fft=256, spec_width=32,
+                          quant=(1.0 / 255.0, -128), **kw)
 
 
 def test_unported_frontends_raise():
-    """frontend_input serves every spectrogram frontend; asking it for the
-    int8 executor's entry tensor (quant=) still raises."""
+    """The composition frontends (raw, or 2*hop < n_fft) have no int8-entry
+    epilogue: asking frontend_input for the executor's entry tensor there
+    raises ValueError, as in the JAX dispatch."""
     y = torch.zeros(2, 8000)
-    for frontend in ("hybrid", "librosa", "mfcc", "raw"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            frontend_input(y, _small_cfg(ModelConfig, audio_frontend=frontend),
-                           quant=(1.0 / 255.0, -128))
+    with pytest.raises(ValueError, match="no composition fallback"):
+        frontend_input(y, _small_cfg(ModelConfig, audio_frontend="raw"),
+                       quant=(1.0 / 255.0, -128))
+    with pytest.raises(ValueError, match="no composition fallback"):
+        frontend_input(y, _small_cfg(ModelConfig, fft_length=1024), quant=(1.0 / 255.0, -128))
+
+
+@pytest.mark.parametrize("frontend", ["hybrid", "librosa", "mfcc", "log_mel"])
+def test_frontend_input_int8_entry(frontend):
+    """frontend_input(quant=...) serves the int8 entry tensor [B, 1, W, bins]
+    for every kernel frontend: the executor's quantize of the float features,
+    transposed, bit for bit."""
+    cfg = _small_cfg(ModelConfig, audio_frontend=frontend)
+    y = torch.from_numpy(_wave(9, 2, cfg.chunk_samples))
+    quant = (1.0 / 255.0, -128)
+    got = frontend_input(y, cfg, quant=quant)
+    floats = frontend_input(y, cfg)[..., 0]  # [B, bins, W]
+    assert got.dtype == torch.int8 and got.shape == (2, 1, floats.shape[2], floats.shape[1])
+    v = (floats.transpose(1, 2).numpy() * (np.float32(1) / np.float32(quant[0])))
+    manual = np.clip(np.sign(v) * np.floor(np.abs(v) + np.float32(0.5)) + quant[1], -128, 127)
+    np.testing.assert_array_equal(got[:, 0].numpy(), manual.astype(np.int8))
 
 
 def test_wrapper_rejects_bad_input():

@@ -152,14 +152,18 @@ def test_seeded_init_is_reproducible():
 
 
 def _port_sources():
-    return sorted((REPO / "birdnet_stm32_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # chip_smoke.py and the INT8 fixture helper it imports run on the card
+    # machine, which has no JAX.
+    return sorted((REPO / "birdnet_stm32_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "int8_fixture.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
-    """No module of the port, and not chip_smoke.py, imports jax, flax or
-    the JAX package (matched on the exact top-level name)."""
-    banned = {"jax", "flax", "birdnet_stm32_tpu"}
+    """No module of the port, not chip_smoke.py and not the INT8 fixture
+    helper imports jax, flax, tensorflow, flatbuffers or the JAX package
+    (matched on the exact top-level name)."""
+    banned = {"jax", "flax", "tensorflow", "flatbuffers", "birdnet_stm32_tpu"}
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
