@@ -1,9 +1,11 @@
 // Fused |STFT| frontends for Hopper (sm_90a), float32 math, float32 or
 // int8 out.
 //
-// Replaces birdnet_stm32_tpu/ops/pallas/frontend_kernel.py::_kernel /
-// fused_spectrogram (grid="sample"), in two kernels that share one DFT tile
-// loop (dft_tile). Each has a float32 and an int8-entry specialisation
+// Replaces birdnet_stm32_tpu/ops/pallas/frontend_kernel.py::_kernel
+// (fused_spectrogram(grid="sample")) and ::_kernel_tile (grid="tile"), in
+// two kernels that share one DFT tile loop (dft_tile); both grids are one
+// kernel each, with the samples of a block's group as a parameter (see "The
+// tile grid" below). Each has a float32 and an int8-entry specialisation
 // (quant=(scale, zp), _sample_epilogue's last step): the int8 one computes
 // the same normalized floats S in the same operations, then stores
 // q = clip(round_half_away(S * inv_scale) + zp, -128, 127) as int8 in the
@@ -24,7 +26,7 @@
 //   3. magnitude sqrt(re^2 + im^2);
 //   4. per-sample min-max over the whole [n_frames, F] block,
 //      (S - min) / (max - min + 1e-10);
-//   5. freq-major output [B, F, W].
+//   5. freq-major output [B, F, W] (the tile grid: frame-major [B, W, F]).
 //
 // frontend_features_kernel: every other epilogue of _sample_epilogue:
 // the mel product, then mel / pwl / db / pcen, log_mel
@@ -35,7 +37,8 @@
 //      multiplied into the mel bank (or, with no mel, written out as is);
 //   4. the strip's [64, C] rows go to a frame-major scratch [B, W, C];
 //   5. the last strip of the sample to arrive runs the per-sample
-//      epilogue, with every reduction it needs, and writes [B, bins, W'].
+//      epilogue, with every reduction it needs, and writes [B, bins, W']
+//      (the tile grid: [B, W', bins]).
 //
 // What bounds them: the bytes. The function needs each waveform sample
 // read once and each feature written once: at the flagship 66150 floats in
@@ -103,6 +106,31 @@
 // (the smoother) and mfcc (the DCT) use. Bytes at the flagship B=64: the
 // waveform (16.9 MB) plus B x W x bins int8 codes (4.2 MB linear, 1.0 MB
 // for 64 mels).
+//
+// The tile grid (_kernel_tile, batch_tile samples per program). The TPU
+// kernel stacks the frames of `tile` samples along M so that one DFT and
+// one mel product run over the whole stack; its garbage boundary row per
+// sample is an artifact of framing a [tile*(W+1), hop] view inside Mosaic.
+// Here framing reads the waveform directly, so a group of `tile` samples is
+// a stack of tile * n_frames valid rows: row r is frame r % n_frames of
+// sample r / n_frames, and the 64-row strips of both kernels walk the stack
+// (grid = (strips per group x bin tiles or mel chunks, B / tile)). A strip
+// may straddle samples; one that lies in a single sample frames exactly as
+// the sample grid does, a straddling one maps each row on its own. The
+// k-loop order is unchanged, so every sum runs in the sample grid's order
+// and the tile grid equals it bit for bit. The sample grid is the case
+// tile == 1. Per sample, what used to count to gridDim.x now counts to its
+// own number of strips (first strip and count per sample of a group come
+// from the host, ops/kernels/frontend_kernel.py::tile_layout): a block
+// arrives at every sample it touches, keeps per-(sample, tile) extrema in
+// the linear kernel, and runs each epilogue it is last for. Float results
+// are written frame-major [B, W, bins], the TPU kernel's layout (the caller
+// sees them through a transposed view); the int8 codes are frame-major in
+// both grids. Stacking drops mfcc's fifth, one-frame strip per sample
+// (tile 8: 33 strips for 8 samples, not 40), but at B=64 on an H100 that
+// bought nothing: the blocks fit in one wave either way, and a straddling
+// strip (framed through dft_tile's slower path, and possibly last for two
+// samples) sits on the critical path; see PERF.md.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -159,13 +187,34 @@ __device__ __forceinline__ void block_minmax(float& mn, float& mx,
     __syncthreads();
 }
 
-// re/im of frames [f0, f0+BM) x bins [n0, n0+BN) of one sample: each
-// thread's 4 x 4 micro-tile at frames f0 + ty*TM.., bins n0 + tx*TN...
-__device__ __forceinline__ void dft_tile(const float* __restrict__ yb,
+// Whether the strip of rows [r0, r0+BM) (cut at n_rows) lies in one
+// sample: always so in the sample grid, and in the tile grid unless it
+// straddles a sample boundary. Block-uniform.
+__device__ __forceinline__ bool strip_in_one_sample(int r0, int n_rows, int n_frames) {
+    return (min(r0 + BM, n_rows) - 1) / n_frames == r0 / n_frames;
+}
+
+// re/im of stacked rows [r0, r0+BM) x bins [n0, n0+BN) of one group of
+// samples (yg: its first sample's waveform; n_rows = samples * n_frames):
+// row r is frame r % n_frames of sample r / n_frames, rows past n_rows are
+// zero. Each thread's 4 x 4 micro-tile is at rows r0 + ty*TM.., bins
+// n0 + tx*TN... kOneSample (strip_in_one_sample): the rows are consecutive
+// frames f0.. of one sample; past that sample's end (the group's last
+// strip) they are zero. Otherwise row f is frame (f0 + f) % n_frames of
+// sample s0 + (f0 + f) / n_frames, the quotient taken as one __umulhi by
+// `magic` (ceil(2^32 / n_frames): exact for f0 + f and n_frames below
+// 2^16, which the launchers check). The flag is a template parameter, not
+// a branch per element, and the k-loop neither divides nor reads a table
+// from shared memory: on an H100 a branch and a division between the 16
+// loads of a k-step made the DFT 1.65x slower, and a per-row table in
+// shared memory (its loads not hoisted above the frame tile's stores)
+// 1.6x slower.
+template <bool kOneSample>
+__device__ __forceinline__ void dft_tile(const float* __restrict__ yg,
                                          const float* __restrict__ bases,
                                          float (*As)[AS], float (*Cs)[BN], float (*Ss)[BN],
-                                         int f0, int n0, int T, int n_fft, int hop,
-                                         int n_frames, int f_pad,
+                                         int r0, int n0, int T, int n_fft, int hop,
+                                         int n_frames, int n_rows, int f_pad,
                                          float (&re)[TM][TN], float (&im)[TM][TN]) {
     const int t = threadIdx.x;
     const int tx = t % (BN / TN);
@@ -173,13 +222,17 @@ __device__ __forceinline__ void dft_tile(const float* __restrict__ yb,
     const int pad = n_fft / 2;
     const float* cos_b = bases;
     const float* sin_b = bases + (size_t)n_fft * f_pad;
+    const int s0 = r0 / n_frames;
+    const int f0 = r0 - s0 * n_frames;
+    const float* yb = yg + (size_t)s0 * T;
+    const unsigned int magic = 0xffffffffu / n_frames + 1u;  // unused when kOneSample
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) re[i][j] = im[i][j] = 0.0f;
 
     for (int k0 = 0; k0 < n_fft; k0 += BK) {
-        // Frame tile As[k][f] = ypad[(f0+f)*hop + k0 + k]. Element e maps to
+        // Frame tile As[k][f] = ypad(row r0+f)[k0 + k]. Element e maps to
         // k = (e%8) + 8*((e/32)%4), f = ((e/8)%4) + 4*(e/128): a warp reads 4
         // frames x 8 consecutive taps and stores them to 32 distinct banks.
 #pragma unroll
@@ -187,10 +240,18 @@ __device__ __forceinline__ void dft_tile(const float* __restrict__ yb,
             const int e = i * THREADS + t;
             const int k = (e & 7) + ((e >> 5) & 3) * 8;
             const int f = ((e >> 3) & 3) + (e >> 7) * 4;
-            const int frame = f0 + f;
-            const int idx = frame * hop + k0 + k - pad;
             float v = 0.0f;
-            if (frame < n_frames && idx >= 0 && idx < T) v = __ldg(yb + idx);
+            if constexpr (kOneSample) {
+                const int frame = f0 + f;
+                const int idx = frame * hop + k0 + k - pad;
+                if (frame < n_frames && idx >= 0 && idx < T) v = __ldg(yb + idx);
+            } else {
+                const unsigned int a = f0 + f;
+                const int ds = n_frames == 1 ? (int)a : (int)__umulhi(a, magic);
+                const int idx = ((int)a - ds * n_frames) * hop + k0 + k - pad;
+                if (r0 + f < n_rows && idx >= 0 && idx < T)
+                    v = __ldg(yb + (size_t)ds * T + idx);
+            }
             As[k][f] = v;
         }
 #pragma unroll
@@ -222,13 +283,14 @@ __device__ __forceinline__ void dft_tile(const float* __restrict__ yb,
     }
 }
 
-// Counts this block's arrival at sample b after publishing its writes;
-// true in the last block of the sample to arrive, which also resets the
-// sample's count to zero for the next launch.
-__device__ __forceinline__ bool last_to_arrive(unsigned int* arrived, int b, bool* is_last) {
+// Counts this block's arrival at sample b, which `blocks` blocks touch,
+// after publishing its writes; true in the last of them to arrive, which
+// also resets the sample's count to zero for the next launch.
+__device__ __forceinline__ bool last_to_arrive(unsigned int* arrived, int b, int blocks,
+                                               bool* is_last) {
     __threadfence();
     __syncthreads();
-    if (threadIdx.x == 0) *is_last = atomicAdd(&arrived[b], 1u) == gridDim.x - 1;
+    if (threadIdx.x == 0) *is_last = atomicAdd(&arrived[b], 1u) == (unsigned int)blocks - 1u;
     __syncthreads();
     if (!*is_last) return false;
     __threadfence();
@@ -236,93 +298,17 @@ __device__ __forceinline__ bool last_to_arrive(unsigned int* arrived, int b, boo
     return true;
 }
 
-// kInt8: `out` is the frame-major scratch [B, n_frames, n_bins] and the
-// result is out8 [B, n_frames, n_bins] int8; else out [B, n_bins, n_frames].
+// The linear kernel's last step for sample b, by one block: (S - mn) / den
+// over its `total` magnitudes in out (either layout) in place, or with
+// kInt8 their codes, in the same order, into out8 (frame-major, like the
+// scratch). __ldcg reads through L2: other blocks' writes are not in this
+// SM's L1.
 template <bool kInt8>
-__global__ void __launch_bounds__(THREADS)
-frontend_linear_kernel(const float* __restrict__ y,      // [B, T]
-                       const float* __restrict__ bases,  // [2, n_fft, f_pad]: cos, sin
-                       float* __restrict__ out,
-                       signed char* __restrict__ out8,
-                       float* __restrict__ tile_minmax,  // [B, tiles, 2]
-                       unsigned int* __restrict__ arrived,  // [B], zero on entry and exit
-                       int T, int n_fft, int hop, int n_frames, int n_bins,
-                       int f_pad, float inv_scale, float zp) {
-    __shared__ __align__(16) float As[BK][AS];  // frame tile, [tap][frame]; later [bin][frame]
-    __shared__ __align__(16) float Cs[BK][BN];  // cos bases tile
-    __shared__ __align__(16) float Ss[BK][BN];  // sin bases tile
-    __shared__ float s_min[WARPS], s_max[WARPS];
-    __shared__ bool is_last;
-
-    const int b = blockIdx.y;
-    const int tiles_n = f_pad / BN;
-    const int f0 = (blockIdx.x / tiles_n) * BM;
-    const int n0 = (blockIdx.x % tiles_n) * BN;
+__device__ void normalize_sample(float* __restrict__ out, signed char* __restrict__ out8, int b,
+                                 size_t total, float mn, float den, float inv_scale, float zp) {
     const int t = threadIdx.x;
-    const int tx = t % (BN / TN);
-    const int ty = t / (BN / TN);
-
-    float re[TM][TN], im[TM][TN];
-    dft_tile(y + (size_t)b * T, bases, As, Cs, Ss, f0, n0, T, n_fft, hop, n_frames,
-             f_pad, re, im);
-
-    // Magnitudes -> shared [bin][frame] staging, plus this thread's extrema
-    // over the valid (frame < n_frames, bin < n_bins) entries.
-    float lmin = INFINITY, lmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-        float m[TM];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-            m[i] = sqrtf(re[i][j] * re[i][j] + im[i][j] * im[i][j]);
-            if (f0 + ty * TM + i < n_frames && n0 + tx * TN + j < n_bins) {
-                lmin = fminf(lmin, m[i]);
-                lmax = fmaxf(lmax, m[i]);
-            }
-        }
-        *reinterpret_cast<float4*>(&As[tx * TN + j][ty * TM]) =
-            make_float4(m[0], m[1], m[2], m[3]);
-    }
-    __syncthreads();
-
-    float* ob = out + (size_t)b * n_bins * n_frames;
+    float* ob = out + (size_t)b * total;
     if constexpr (kInt8) {
-        for (int e = t; e < BM * BN; e += THREADS) {
-            const int f = e / BN, n = e % BN;
-            if (n0 + n < n_bins && f0 + f < n_frames)
-                ob[(size_t)(f0 + f) * n_bins + n0 + n] = As[n][f];
-        }
-    } else {
-        for (int e = t; e < BN * BM; e += THREADS) {
-            const int n = e / BM, f = e % BM;
-            if (n0 + n < n_bins && f0 + f < n_frames)
-                ob[(size_t)(n0 + n) * n_frames + f0 + f] = As[n][f];
-        }
-    }
-
-    block_minmax(lmin, lmax, s_min, s_max);
-    if (t == 0) {
-        float* mm = tile_minmax + ((size_t)b * gridDim.x + blockIdx.x) * 2;
-        mm[0] = lmin;
-        mm[1] = lmax;
-    }
-
-    // The last tile of the sample to arrive normalises the whole sample.
-    if (!last_to_arrive(arrived, b, &is_last)) return;
-
-    float mn = INFINITY, mx = -INFINITY;
-    for (int i = t; i < gridDim.x; i += THREADS) {
-        const float* mm = tile_minmax + ((size_t)b * gridDim.x + i) * 2;
-        mn = fminf(mn, __ldcg(mm));
-        mx = fmaxf(mx, __ldcg(mm + 1));
-    }
-    block_minmax(mn, mx, s_min, s_max);
-    const float den = mx - mn + 1e-10f;
-
-    // __ldcg reads through L2: other blocks' writes are not in this SM's L1.
-    const size_t total = (size_t)n_bins * n_frames;
-    if constexpr (kInt8) {
-        // Same order of the same values: codes frame-major, like the scratch.
         signed char* qb = out8 + (size_t)b * total;
         if ((total & 3) == 0) {
             const float4* ob4 = reinterpret_cast<const float4*>(ob);
@@ -353,6 +339,130 @@ frontend_linear_kernel(const float* __restrict__ y,      // [B, T]
     }
 }
 
+// One block per (64-row strip, 32-bin tile) of a group of `tile` samples
+// (grid.y: the group). frame_major: `out` is [B, n_frames, n_bins] (the
+// tile grid's float result, or the int8 path's scratch); else [B, n_bins,
+// n_frames] (the sample grid, tile == 1). Both kernels take the layout as
+// a runtime flag: it picks one of two store loops per block (or per
+// sample's epilogue), outside every inner loop, so a template would gain
+// nothing. kInt8: the result is out8 [B, n_frames, n_bins] int8 (needs
+// frame_major). layout[g] = (first strip, strips) of the group's sample g;
+// tile_minmax holds `slots` (min, max) pairs per sample, one per (strip,
+// bin tile) that touches it.
+// 4 blocks per SM, which holds ptxas to 128 registers: with both tile
+// loops inlined it took 138-142 and the int8 kernel ran 4-6 % slower on an
+// H100 (no spills at 128).
+template <bool kInt8>
+__global__ void __launch_bounds__(THREADS, 4)
+frontend_linear_kernel(const float* __restrict__ y,      // [B, T]
+                       const float* __restrict__ bases,  // [2, n_fft, f_pad]: cos, sin
+                       float* __restrict__ out,
+                       signed char* __restrict__ out8,
+                       float* __restrict__ tile_minmax,  // [B, slots, 2]
+                       unsigned int* __restrict__ arrived,  // [B], zero on entry and exit
+                       const int2* __restrict__ layout,     // [tile]
+                       int T, int n_fft, int hop, int n_frames, int n_bins,
+                       int f_pad, int tile, int slots, bool frame_major, float inv_scale,
+                       float zp) {
+    __shared__ __align__(16) float As[BK][AS];  // frame tile, [tap][row]; later [bin][row]
+    __shared__ __align__(16) float Cs[BK][BN];  // cos bases tile
+    __shared__ __align__(16) float Ss[BK][BN];  // sin bases tile
+    __shared__ float s_min[WARPS], s_max[WARPS];
+    __shared__ bool is_last;
+
+    const int group = blockIdx.y;
+    const int n_rows = tile * n_frames;
+    const int tiles_n = f_pad / BN;
+    const int strip = blockIdx.x / tiles_n;
+    const int r0 = strip * BM;
+    const int n0 = (blockIdx.x % tiles_n) * BN;
+    const int t = threadIdx.x;
+    const int tx = t % (BN / TN);
+    const int ty = t / (BN / TN);
+
+    float re[TM][TN], im[TM][TN];
+    const float* yg = y + (size_t)group * tile * T;
+    if (strip_in_one_sample(r0, n_rows, n_frames))
+        dft_tile<true>(yg, bases, As, Cs, Ss, r0, n0, T, n_fft, hop, n_frames, n_rows, f_pad,
+                       re, im);
+    else
+        dft_tile<false>(yg, bases, As, Cs, Ss, r0, n0, T, n_fft, hop, n_frames, n_rows, f_pad,
+                        re, im);
+
+    // Magnitudes -> shared [bin][row] staging.
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+        float m[TM];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) m[i] = sqrtf(re[i][j] * re[i][j] + im[i][j] * im[i][j]);
+        *reinterpret_cast<float4*>(&As[tx * TN + j][ty * TM]) =
+            make_float4(m[0], m[1], m[2], m[3]);
+    }
+    __syncthreads();
+
+    float* og = out + (size_t)group * n_rows * n_bins;  // the group's rows
+    if (frame_major) {
+        for (int e = t; e < BM * BN; e += THREADS) {
+            const int f = e / BN, n = e % BN;
+            if (n0 + n < n_bins && r0 + f < n_rows)
+                og[(size_t)(r0 + f) * n_bins + n0 + n] = As[n][f];
+        }
+    } else {
+        for (int e = t; e < BN * BM; e += THREADS) {
+            const int n = e / BM, f = e % BM;
+            if (n0 + n < n_bins && r0 + f < n_rows)
+                og[(size_t)(n0 + n) * n_rows + r0 + f] = As[n][f];
+        }
+    }
+
+    // The block's extrema over each sample it touches (the valid bins of
+    // that sample's rows [lo, hi) of the strip, read back from the staged
+    // tile), in that sample's slot.
+    const int g_lo = r0 / n_frames;
+    const int g_hi = (min(r0 + BM, n_rows) - 1) / n_frames;
+    for (int g = g_lo; g <= g_hi; ++g) {
+        const int lo = g * n_frames - r0, hi = lo + n_frames;
+        float lmin = INFINITY, lmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+            if (n0 + tx * TN + j >= n_bins) continue;
+            const float4 v = *reinterpret_cast<const float4*>(&As[tx * TN + j][ty * TM]);
+            const float m[TM] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int i = 0; i < TM; ++i) {
+                if (ty * TM + i >= lo && ty * TM + i < hi) {
+                    lmin = fminf(lmin, m[i]);
+                    lmax = fmaxf(lmax, m[i]);
+                }
+            }
+        }
+        block_minmax(lmin, lmax, s_min, s_max);
+        if (t == 0) {
+            const int slot = (strip - __ldg(&layout[g].x)) * tiles_n + blockIdx.x % tiles_n;
+            float* mm = tile_minmax + ((size_t)(group * tile + g) * slots + slot) * 2;
+            mm[0] = lmin;
+            mm[1] = lmax;
+        }
+    }
+
+    // The last tile of a sample to arrive normalises the whole sample.
+    for (int g = g_lo; g <= g_hi; ++g) {
+        const int b = group * tile + g;
+        const int n_slots = __ldg(&layout[g].y) * tiles_n;
+        if (!last_to_arrive(arrived, b, n_slots, &is_last)) continue;
+
+        float mn = INFINITY, mx = -INFINITY;
+        for (int i = t; i < n_slots; i += THREADS) {
+            const float* mm = tile_minmax + ((size_t)b * slots + i) * 2;
+            mn = fminf(mn, __ldcg(mm));
+            mx = fmaxf(mx, __ldcg(mm + 1));
+        }
+        block_minmax(mn, mx, s_min, s_max);
+        normalize_sample<kInt8>(out, out8, b, (size_t)n_bins * n_frames, mn, mx - mn + 1e-10f,
+                                inv_scale, zp);
+    }
+}
+
 // pwl_compress of ops/magnitude.py on a [0, 1]-normalized value, in its order.
 __device__ __forceinline__ float pwl(float x) {
     float y = 0.40f * x;
@@ -365,14 +475,15 @@ __device__ __forceinline__ float pwl(float x) {
 // One sample's epilogue, run by one block over buf[w * ld + c] (w < rows
 // frames, c < C channels, frame-major; in shared memory or in the scratch),
 // which it may overwrite. Writes the normalized freq-major ob[c * out_w + w]
-// (mfcc: ob[k * out_w + w], k < n_mfcc); with o8, writes those values'
-// int8 codes frame-major to o8[w * bins + c] instead, and ob is scratch.
-// Every reduction is a min or a max, and every sum (the DCT) is one
-// thread's, in order.
+// (mfcc: ob[k * out_w + w], k < n_mfcc), or with frame_major ob[w * bins +
+// c]; with o8 (which comes with frame_major), writes those values' int8
+// codes to o8[w * bins + c] instead, and ob is scratch. Every reduction is
+// a min or a max, and every sum (the DCT) is one thread's, in order, so the
+// layout changes no value.
 __device__ void sample_epilogue(float* buf, int ld, int rows, int C, float* ob, int out_w,
-                                int epi, const float* __restrict__ dct, int n_mfcc,
-                                float pcen_a, float pcen_b, float* s_min, float* s_max,
-                                signed char* o8, float inv_scale, float zp) {
+                                bool frame_major, int epi, const float* __restrict__ dct,
+                                int n_mfcc, float pcen_a, float pcen_b, float* s_min,
+                                float* s_max, signed char* o8, float inv_scale, float zp) {
     const int t = threadIdx.x;
     const int n = rows * C;
     // Element e of the sample, in frame-major order.
@@ -428,12 +539,13 @@ __device__ void sample_epilogue(float* buf, int ld, int rows, int C, float* ob, 
         }
         if (epi == EPI_MFCC) {
             __syncthreads();
-            // DCT over the mel axis for the first out_w frames, then the
-            // min-max of the coefficients.
+            // DCT over the mel axis for the first out_w frames, into ob in
+            // the output's layout, then the min-max of the coefficients.
             mn = INFINITY;
             mx = -INFINITY;
             for (int e = t; e < n_mfcc * out_w; e += THREADS) {
-                const int k = e / out_w, w = e % out_w;
+                const int k = frame_major ? e % n_mfcc : e / out_w;
+                const int w = frame_major ? e / n_mfcc : e % out_w;
                 const float* row = buf + (size_t)w * ld;
                 float acc = 0.0f;
                 for (int m = 0; m < C; ++m) acc = fmaf(row[m], __ldg(dct + m * n_mfcc + k), acc);
@@ -444,10 +556,8 @@ __device__ void sample_epilogue(float* buf, int ld, int rows, int C, float* ob, 
             block_minmax(mn, mx, s_min, s_max);  // its barriers publish ob
             const float den = mx - mn + 1e-10f;
             if (o8) {
-                for (int e = t; e < n_mfcc * out_w; e += THREADS) {
-                    const int w = e / n_mfcc, k = e % n_mfcc;
-                    o8[e] = quantize_code((ob[k * out_w + w] - mn) / den, inv_scale, zp);
-                }
+                for (int e = t; e < n_mfcc * out_w; e += THREADS)
+                    o8[e] = quantize_code((ob[e] - mn) / den, inv_scale, zp);
                 return;
             }
             for (int e = t; e < n_mfcc * out_w; e += THREADS) ob[e] = (ob[e] - mn) / den;
@@ -478,10 +588,14 @@ __device__ void sample_epilogue(float* buf, int ld, int rows, int C, float* ob, 
     }
     block_minmax(mn, mx, s_min, s_max);
     const float den = mx - mn + 1e-10f;
-    if (o8) {
+    if (frame_major) {
         for (int e = t; e < C * out_w; e += THREADS) {
             const int w = e / C, c = e % C;
-            o8[e] = quantize_code((buf[(size_t)w * ld + c] - mn) / den, inv_scale, zp);
+            const float v = (buf[(size_t)w * ld + c] - mn) / den;
+            if (o8)
+                o8[e] = quantize_code(v, inv_scale, zp);
+            else
+                ob[e] = v;
         }
         return;
     }
@@ -491,18 +605,26 @@ __device__ void sample_epilogue(float* buf, int ld, int rows, int C, float* ob, 
     }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// One block per (64-row strip, mel chunk) of a group of `tile` samples
+// (grid.y: the group); layout as for the linear kernel. frame_major (as
+// for the linear kernel): `out` is [B, out_w, bins], else [B, bins, out_w].
+// At most 3 blocks per SM: a mel sample staged in shared memory (66.5 KB)
+// allows no more, and the bound lets ptxas use up to 170 registers (at its
+// default 128 the kernel spilled and ran 14 % slower on an H100).
+__global__ void __launch_bounds__(THREADS, 3)
 frontend_features_kernel(const float* __restrict__ y,       // [B, T]
                          const float* __restrict__ bases,   // [2, n_fft, f_pad]
                          const float* __restrict__ mel_fb,  // [f_pad, n_mel], zero rows past F
                          const float* __restrict__ dct,     // [n_mel, n_mfcc] (mfcc)
                          float* __restrict__ scratch,       // [B, n_frames, C]
-                         float* __restrict__ out,           // [B, bins, out_w]
+                         float* __restrict__ out,           // B * bins * out_w
                          signed char* __restrict__ out8,    // [B, out_w, bins] or null
                          unsigned int* __restrict__ arrived,  // [B], zero on entry and exit
+                         const int2* __restrict__ layout,     // [tile]
                          int T, int n_fft, int hop, int n_frames, int n_bins, int f_pad,
                          int n_mel, int n_mfcc, int out_w, int epi, float pcen_a,
-                         float pcen_b, int stage_in_smem, float inv_scale, float zp) {
+                         float pcen_b, int stage_in_smem, int tile, int frame_major,
+                         float inv_scale, float zp) {
     extern __shared__ __align__(16) float smem[];  // the strip's tiles, then the sample
     float (*As)[AS] = reinterpret_cast<float (*)[AS]>(smem);
     float (*Cs)[BN] = reinterpret_cast<float (*)[BN]>(smem + BK * AS);
@@ -510,17 +632,21 @@ frontend_features_kernel(const float* __restrict__ y,       // [B, T]
     __shared__ float s_min[WARPS], s_max[WARPS];
     __shared__ bool is_last;
 
-    const int b = blockIdx.y;
-    const int strips = (n_frames + BM - 1) / BM;
-    const int f0 = (blockIdx.x % strips) * BM;
+    const int group = blockIdx.y;
+    const int n_rows = tile * n_frames;
+    const int strips = (n_rows + BM - 1) / BM;
+    const int r0 = (blockIdx.x % strips) * BM;
+    const int chunks = gridDim.x / strips;
     const int t = threadIdx.x;
     const int tx = t % (BN / TN);
     const int ty = t / (BN / TN);
     const int C = n_mel > 0 ? n_mel : n_bins;
     const bool power = epi == EPI_MFCC;
-    float* sb = scratch + (size_t)b * n_frames * C;
+    float* sg = scratch + (size_t)group * n_rows * C;  // the group's rows
+    const float* yg = y + (size_t)group * tile * T;
+    const bool one = strip_in_one_sample(r0, n_rows, n_frames);
 
-    // Mel product: thread t owns mel m of frames fm .. fm + MEL_FRAMES.
+    // Mel product: thread t owns mel m of rows fm .. fm + MEL_FRAMES.
     const int m = (blockIdx.x / strips) * MEL_CHUNK + t % MEL_CHUNK;
     const int fm = (t / MEL_CHUNK) * MEL_FRAMES;
     float mel[MEL_FRAMES];
@@ -529,9 +655,13 @@ frontend_features_kernel(const float* __restrict__ y,       // [B, T]
 
     for (int n0 = 0; n0 < f_pad; n0 += BN) {
         float re[TM][TN], im[TM][TN];
-        dft_tile(y + (size_t)b * T, bases, As, Cs, Ss, f0, n0, T, n_fft, hop, n_frames,
-                 f_pad, re, im);
-        // |X| (mfcc: |X|^2) -> As[bin][frame]; bins past F are zero.
+        if (one)
+            dft_tile<true>(yg, bases, As, Cs, Ss, r0, n0, T, n_fft, hop, n_frames, n_rows,
+                           f_pad, re, im);
+        else
+            dft_tile<false>(yg, bases, As, Cs, Ss, r0, n0, T, n_fft, hop, n_frames, n_rows,
+                            f_pad, re, im);
+        // |X| (mfcc: |X|^2) -> As[bin][row]; bins past F are zero.
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
             float v[TM];
@@ -561,8 +691,8 @@ frontend_features_kernel(const float* __restrict__ y,       // [B, T]
         } else {
             for (int e = t; e < BM * BN; e += THREADS) {
                 const int f = e / BN, k = e % BN;
-                if (f0 + f < n_frames && n0 + k < n_bins)
-                    sb[(size_t)(f0 + f) * C + n0 + k] = As[k][f];
+                if (r0 + f < n_rows && n0 + k < n_bins)
+                    sg[(size_t)(r0 + f) * C + n0 + k] = As[k][f];
             }
         }
         __syncthreads();
@@ -570,30 +700,42 @@ frontend_features_kernel(const float* __restrict__ y,       // [B, T]
     if (n_mel > 0 && m < n_mel) {
 #pragma unroll
         for (int j = 0; j < MEL_FRAMES; ++j)
-            if (f0 + fm + j < n_frames) sb[(size_t)(f0 + fm + j) * C + m] = mel[j];
+            if (r0 + fm + j < n_rows) sg[(size_t)(r0 + fm + j) * C + m] = mel[j];
     }
 
-    if (!last_to_arrive(arrived, b, &is_last)) return;
+    // Every sample the strip touches: the last of its blocks to arrive runs
+    // its epilogue.
+    const int g_hi = (min(r0 + BM, n_rows) - 1) / n_frames;
+    for (int g = r0 / n_frames; g <= g_hi; ++g) {
+        const int b = group * tile + g;
+        if (!last_to_arrive(arrived, b, __ldg(&layout[g].y) * chunks, &is_last)) continue;
 
-    float* buf = sb;
-    int ld = C;
-    if (stage_in_smem) {
-        // __ldcg reads through L2: other blocks' writes are not in this SM's L1.
-        ld = C + 1;
-        for (int e = t; e < n_frames * C; e += THREADS)
-            smem[(e / C) * ld + e % C] = __ldcg(sb + e);
-        __syncthreads();
-        buf = smem;
+        float* sb = scratch + (size_t)b * n_frames * C;
+        float* buf = sb;
+        int ld = C;
+        if (stage_in_smem) {
+            // __ldcg reads through L2: other blocks' writes are not in this SM's L1.
+            ld = C + 1;
+            for (int e = t; e < n_frames * C; e += THREADS)
+                smem[(e / C) * ld + e % C] = __ldcg(sb + e);
+            __syncthreads();
+            buf = smem;
+        }
+        const int bins = epi == EPI_MFCC ? n_mfcc : C;
+        sample_epilogue(buf, ld, n_frames, C, out + (size_t)b * bins * out_w, out_w,
+                        frame_major != 0, epi, dct, n_mfcc, pcen_a, pcen_b, s_min, s_max,
+                        out8 ? out8 + (size_t)b * bins * out_w : nullptr, inv_scale, zp);
     }
-    const int bins = epi == EPI_MFCC ? n_mfcc : C;
-    sample_epilogue(buf, ld, n_frames, C, out + (size_t)b * bins * out_w, out_w, epi, dct,
-                    n_mfcc, pcen_a, pcen_b, s_min, s_max,
-                    out8 ? out8 + (size_t)b * bins * out_w : nullptr, inv_scale, zp);
 }
 
 }  // namespace
 
 extern "C" {
+
+// The rows of a strip and the bins of a bin tile: the host's tile_layout
+// and bin padding use these.
+int frontend_strip_rows() { return BM; }
+int frontend_bin_tile() { return BN; }
 
 // Bins padded to a whole number of block tiles: the bases' row length.
 int frontend_linear_bin_pad(int n_fft) {
@@ -601,30 +743,46 @@ int frontend_linear_bin_pad(int n_fft) {
     return (n_bins + BN - 1) / BN * BN;
 }
 
-// Output tiles (blocks) per sample: the length of a sample's min/max scratch.
-int frontend_linear_tiles(int n_fft, int n_frames) {
-    return (n_frames + BM - 1) / BM * (frontend_linear_bin_pad(n_fft) / BN);
+// The checks both launchers share: B samples in groups of `tile`, one
+// group per grid row; the freq-major layout only with tile == 1 and
+// without int8 codes.
+static bool bad_geometry(int B, int tile, int n_fft, int hop, int n_frames, int frame_major,
+                         const signed char* out8) {
+    return B <= 0 || tile <= 0 || B % tile != 0 || B / tile > 65535 || n_fft % BK != 0 ||
+           2 * hop < n_fft || n_frames <= 0 || n_frames + BM > 65535 ||
+           n_frames > (1 << 30) / tile ||
+           (!frame_major && (tile != 1 || out8));
 }
 
 // Launches the linear kernel on `stream` and returns cudaGetLastError()
-// (0 = ok). `out` holds B * bins * n_frames floats: the result [B, bins, W],
-// or with `out8` (B * n_frames * bins int8, the codes [B, W, bins]) the
-// scratch. `arrived` must hold B zeros, and holds B zeros again when the
-// kernel ends; `tile_minmax` B * tiles * 2 floats.
+// (0 = ok). Samples go in groups of `tile` (B % tile == 0; 1 is the sample
+// grid); `layout` holds, for each sample g of a group, (first strip,
+// strips) as int pairs (ops/kernels/frontend_kernel.py::tile_layout).
+// `out` holds B * bins * n_frames floats: the result, [B, bins, W] or with
+// frame_major [B, W, bins], or with `out8` (B * n_frames * bins int8, the
+// codes [B, W, bins]; needs frame_major) the scratch. `arrived` must hold B
+// zeros, and holds B zeros again when the kernel ends; `tile_minmax`
+// B * slots * 2 floats, slots >= the most strips a sample touches times
+// the bin tiles.
 int frontend_linear(const float* y, const float* bases, float* out, signed char* out8,
-                    float* tile_minmax, unsigned int* arrived, int B, int T, int n_fft,
-                    int hop, int n_frames, float inv_scale, int zp, void* stream) {
-    if (B <= 0 || B > 65535 || n_fft % BK != 0 || 2 * hop < n_fft || n_frames <= 0)
+                    float* tile_minmax, unsigned int* arrived, const int* layout, int B, int T,
+                    int n_fft, int hop, int n_frames, int tile, int slots, int frame_major,
+                    float inv_scale, int zp, void* stream) {
+    if (bad_geometry(B, tile, n_fft, hop, n_frames, frame_major, out8))
         return (int)cudaErrorInvalidValue;
-    const dim3 grid(frontend_linear_tiles(n_fft, n_frames), B);
+    const int f_pad = frontend_linear_bin_pad(n_fft);
+    const int strips = (tile * n_frames + BM - 1) / BM;
+    const dim3 grid(strips * (f_pad / BN), B / tile);
+    const int2* lay = reinterpret_cast<const int2*>(layout);
+    cudaStream_t s = (cudaStream_t)stream;
     if (out8)
-        frontend_linear_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-            y, bases, out, out8, tile_minmax, arrived, T, n_fft, hop, n_frames,
-            n_fft / 2 + 1, frontend_linear_bin_pad(n_fft), inv_scale, (float)zp);
+        frontend_linear_kernel<true><<<grid, THREADS, 0, s>>>(
+            y, bases, out, out8, tile_minmax, arrived, lay, T, n_fft, hop, n_frames,
+            n_fft / 2 + 1, f_pad, tile, slots, true, inv_scale, (float)zp);
     else
-        frontend_linear_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-            y, bases, out, nullptr, tile_minmax, arrived, T, n_fft, hop, n_frames,
-            n_fft / 2 + 1, frontend_linear_bin_pad(n_fft), 0.0f, 0.0f);
+        frontend_linear_kernel<false><<<grid, THREADS, 0, s>>>(
+            y, bases, out, nullptr, tile_minmax, arrived, lay, T, n_fft, hop, n_frames,
+            n_fft / 2 + 1, f_pad, tile, slots, frame_major != 0, 0.0f, 0.0f);
     return (int)cudaGetLastError();
 }
 
@@ -632,19 +790,21 @@ int frontend_linear(const float* y, const float* bases, float* out, signed char*
 // `epi` is an Epilogue; n_mel 0 means no mel product (linear bins). `mel_fb`
 // is [bin_pad, n_mel] with zero rows past n_fft/2+1, `dct` [n_mel, n_mfcc]
 // (mfcc only), `scratch` B * n_frames * C floats (C = n_mel, or the bins),
-// `out` B * bins * out_w floats (bins = n_mfcc for mfcc, else C); out_w ==
-// n_frames except for mfcc. With `out8` (B * out_w * bins int8) the codes
-// go there, frame-major, and `out` is scratch. `arrived` as for
-// frontend_linear.
+// `out` B * bins * out_w floats (bins = n_mfcc for mfcc, else C): the
+// result, [B, bins, out_w] or with frame_major [B, out_w, bins]; out_w ==
+// n_frames except for mfcc. With `out8` (B * out_w * bins int8; needs
+// frame_major) the codes go there, frame-major, and `out` is scratch.
+// `tile`, `layout` and `arrived` as for frontend_linear.
 int frontend_features(const float* y, const float* bases, const float* mel_fb,
                       const float* dct, float* scratch, float* out, signed char* out8,
-                      unsigned int* arrived, int B, int T, int n_fft, int hop,
-                      int n_frames, int n_mel, int n_mfcc, int out_w, int epi,
-                      float pcen_a, float pcen_b, float inv_scale, int zp, void* stream) {
+                      unsigned int* arrived, const int* layout, int B, int T, int n_fft,
+                      int hop, int n_frames, int n_mel, int n_mfcc, int out_w, int epi,
+                      float pcen_a, float pcen_b, int tile, int frame_major, float inv_scale,
+                      int zp, void* stream) {
     const int n_bins = n_fft / 2 + 1;
     const int C = n_mel > 0 ? n_mel : n_bins;
-    if (B <= 0 || B > 65535 || n_fft % BK != 0 || 2 * hop < n_fft || n_frames <= 0 ||
-        n_mel < 0 || epi < EPI_NONE || epi > EPI_MFCC ||
+    if (bad_geometry(B, tile, n_fft, hop, n_frames, frame_major, out8) || n_mel < 0 ||
+        epi < EPI_NONE || epi > EPI_MFCC ||
         (epi == EPI_MFCC ? (n_mel == 0 || n_mfcc <= 0 || out_w <= 0 || out_w > n_frames)
                          : out_w != n_frames))
         return (int)cudaErrorInvalidValue;
@@ -664,13 +824,14 @@ int frontend_features(const float* y, const float* bases, const float* mel_fb,
             frontend_features_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (rc != cudaSuccess) return (int)rc;
     }
-    const int strips = (n_frames + BM - 1) / BM;
+    const int strips = (tile * n_frames + BM - 1) / BM;
     const int chunks = n_mel > 0 ? (n_mel + MEL_CHUNK - 1) / MEL_CHUNK : 1;
-    const dim3 grid(strips * chunks, B);
+    const dim3 grid(strips * chunks, B / tile);
     frontend_features_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        y, bases, mel_fb, dct, scratch, out, out8, arrived, T, n_fft, hop, n_frames, n_bins,
+        y, bases, mel_fb, dct, scratch, out, out8, arrived,
+        reinterpret_cast<const int2*>(layout), T, n_fft, hop, n_frames, n_bins,
         frontend_linear_bin_pad(n_fft), n_mel, n_mfcc, out_w, epi, pcen_a, pcen_b,
-        stage_in_smem, inv_scale, (float)zp);
+        stage_in_smem, tile, frame_major, inv_scale, (float)zp);
     return (int)cudaGetLastError();
 }
 

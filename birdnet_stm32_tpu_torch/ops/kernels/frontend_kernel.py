@@ -1,9 +1,9 @@
 """Fused waveform -> normalized spectrogram features (port of
 ops/pallas/frontend_kernel.py).
 
-The TPU kernel `_kernel` (grid="sample") becomes two hand-written CUDA
-kernels for Hopper in ops/csrc/frontend_kernel.cu, which share one DFT
-tile loop:
+The TPU kernels `_kernel` (grid="sample") and `_kernel_tile` (grid="tile")
+become two hand-written CUDA kernels for Hopper in
+ops/csrc/frontend_kernel.cu, which share one DFT tile loop:
 
 - the linear kernel: mode="linear", mag_scale="none", the hybrid frontend;
 - the features kernel: every other float epilogue of `_sample_epilogue`,
@@ -37,7 +37,16 @@ composition only because Mosaic cannot lower its associative scan, and
 CUDA has no such limit (the kernel runs pcen's smoother one thread per
 channel, frame by frame).
 
-Not ported yet (ROADMAP.md, Queue 2, K2): the batched `_kernel_tile` grid.
+The two grids. grid="sample" gives each sample its own 64-row strips;
+grid="tile" stacks the frames of `batch_tile` samples along rows, as
+`_kernel_tile` does, and the same kernels walk the stack in strips that may
+straddle samples (`tile_layout` says which strips each sample of a group
+has; the kernel arrives at every sample it touches). Every sum keeps the
+sample grid's order, so both grids give the same values bit for bit; the
+tile grid writes its float features frame-major and returns them through a
+transposed view, as the TPU kernel's caller transposes outside the kernel.
+Only the frontend benchmark (scripts/bench_frontend.py) passes
+grid="tile"; serving uses the sample grid, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -63,8 +72,10 @@ from birdnet_stm32_tpu_torch.ops.spectrogram import (
 from birdnet_stm32_tpu_torch.ops.stft import dft_bases_tensor, stft_magnitude
 from birdnet_stm32_tpu_torch.quant.tflite_import import f32_reciprocal, quantize_f32
 
+# Rows of a strip, the kernels' BM (checked against the built library).
+STRIP_ROWS = 64
 # Kernel launches since the last clear(), by kernel_name(mode, mag_scale,
-# quant); the plain (CPU) path never counts.
+# quant, grid); the plain (CPU) path never counts.
 launches: collections.Counter[str] = collections.Counter()
 # The CUDA kernel's Epilogue codes (ops/csrc/frontend_kernel.cu).
 _EPILOGUES = {"none": 0, "pwl": 1, "db": 2, "pcen": 3, "log_mel": 4, "mfcc": 5}
@@ -72,15 +83,38 @@ FRONTEND_MODES = {"hybrid": "linear", "librosa": "mel", "mfcc": "mfcc",
                    "log_mel": "log_mel"}
 
 
-def kernel_name(mode: str, mag_scale: str, quant: bool = False) -> str:
+def kernel_name(mode: str, mag_scale: str, quant: bool = False, grid: str = "sample") -> str:
     """The specialisation a (mode, mag_scale) launches, `_int8` with the
-    int8-entry epilogue: log_mel and mfcc ignore mag_scale, as the
-    reference does."""
+    int8-entry epilogue, `_tile` on the tile grid: log_mel and mfcc ignore
+    mag_scale, as the reference does."""
     if mode in ("log_mel", "mfcc") or mag_scale == "none":
         name = f"fused_spectrogram_{mode}"
     else:
         name = f"fused_spectrogram_{mode}_{mag_scale}"
-    return f"{name}_int8" if quant else name
+    if quant:
+        name += "_int8"
+    return name + "_tile" if grid == "tile" else name
+
+
+def _check_grid(grid: str, B: int, batch_tile: int) -> None:
+    """The JAX contract: a known grid, and whole groups on the tile grid."""
+    if grid not in ("sample", "tile"):
+        raise ValueError(f"grid must be 'sample'|'tile', got {grid!r}")
+    if grid == "tile" and (batch_tile < 1 or B % batch_tile):
+        raise ValueError(f"grid='tile' requires B % batch_tile == 0, got B={B} "
+                         f"batch_tile={batch_tile}")
+
+
+def tile_layout(n_frames: int, tile: int, strip_rows: int = STRIP_ROWS) -> np.ndarray:
+    """[tile, 2] int32: for sample g of a group of `tile` samples whose
+    frames are stacked along rows (row r is frame r % n_frames of sample
+    r // n_frames), the first strip of `strip_rows` rows that holds one of
+    its rows, and how many strips do. The kernels count a sample's arriving
+    blocks against its number of strips."""
+    g = np.arange(tile)
+    first = g * n_frames // strip_rows
+    last = ((g + 1) * n_frames - 1) // strip_rows
+    return np.stack([first, last - first + 1], axis=1).astype(np.int32)
 
 
 def _geometry(mode: str, T: int, n_fft: int, spec_width: int, hop: int | None,
@@ -134,18 +168,22 @@ def _lib() -> ctypes.CDLL:
     from birdnet_stm32_tpu_torch.ops.kernels import _build
 
     lib = _build.load("frontend_kernel")
+    for fn in (lib.frontend_strip_rows, lib.frontend_bin_tile):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
     lib.frontend_linear_bin_pad.argtypes = [ctypes.c_int]
     lib.frontend_linear_bin_pad.restype = ctypes.c_int
-    lib.frontend_linear_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.frontend_linear_tiles.restype = ctypes.c_int
     lib.frontend_linear.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                                       ctypes.c_void_p])
     lib.frontend_linear.restype = ctypes.c_int
     lib.frontend_features.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
-        + [ctypes.c_int, ctypes.c_void_p])
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
+        + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.frontend_features.restype = ctypes.c_int
+    if lib.frontend_strip_rows() != STRIP_ROWS:
+        raise RuntimeError(f"frontend_kernel.cu strips {lib.frontend_strip_rows()} rows, "
+                           f"tile_layout assumes {STRIP_ROWS}")
     return lib
 
 
@@ -192,13 +230,21 @@ def _arrival_counter(B: int, device: torch.device, stream: int) -> torch.Tensor:
     return buf
 
 
-def _check_launch(y: torch.Tensor, n_fft: int) -> None:
+@functools.lru_cache(maxsize=16)
+def _kernel_layout(n_frames: int, tile: int, device: torch.device) -> tuple[torch.Tensor, int]:
+    """tile_layout on `device`, and the most strips a sample has."""
+    layout = tile_layout(n_frames, tile)
+    return torch.from_numpy(layout).to(device), int(layout[:, 1].max())
+
+
+def _check_launch(y: torch.Tensor, n_fft: int, tile: int) -> None:
     if not y.is_contiguous():
         raise ValueError("fused_spectrogram kernel needs a contiguous [B, T] tensor")
     if n_fft % 32:
         raise ValueError(f"fused_spectrogram kernel needs n_fft % 32 == 0, got {n_fft}")
-    if not 0 < y.shape[0] <= 65535:
-        raise ValueError(f"fused_spectrogram kernel takes 1..65535 samples, got {y.shape[0]}")
+    if not 0 < y.shape[0] // tile <= 65535:
+        raise ValueError(f"fused_spectrogram kernel takes 1..65535 groups of {tile} "
+                         f"samples, got {y.shape[0]} samples")
 
 
 def _int8_out(quant, B: int, out_w: int, bins: int, device) -> tuple:
@@ -210,33 +256,53 @@ def _int8_out(quant, B: int, out_w: int, bins: int, device) -> tuple:
     return out8, float(np.float32(1.0) / np.float32(scale)), int(zp)
 
 
+# On the launchers: `tile` None is the sample grid (groups of one sample,
+# float output freq-major [B, bins, W]); an int is the tile grid (float
+# output frame-major, returned as the kernel wrote it, [B, W, bins]). The
+# int8 codes are [B, 1, W, bins] on either grid.
+
+
+def _frame_major(quant, tile: int | None) -> bool:
+    """Whether a kernel stores frame-major: the tile grid's float result
+    and every int8 launch (its codes, and the float buffer behind them)."""
+    return tile is not None or quant is not None
+
+
 def _launch_linear(y: torch.Tensor, n_fft: int, hop: int, n_frames: int,
-                   quant: tuple[float, int] | None) -> torch.Tensor:
+                   quant: tuple[float, int] | None, tile: int | None) -> torch.Tensor:
     B, T = y.shape
     lib = _lib()
-    bases = _kernel_bases(n_fft, lib.frontend_linear_bin_pad(n_fft), y.device)
+    f_pad = lib.frontend_linear_bin_pad(n_fft)
+    bases = _kernel_bases(n_fft, f_pad, y.device)
     nbin = n_fft // 2 + 1
+    group = tile or 1
+    frame_major = _frame_major(quant, tile)
+    layout, most_strips = _kernel_layout(n_frames, group, y.device)
+    slots = most_strips * (f_pad // lib.frontend_bin_tile())
     # The result, or with quant the frame-major scratch the codes come from.
-    out = torch.empty(B, nbin, n_frames, dtype=torch.float32, device=y.device)
+    shape = (B, n_frames, nbin) if frame_major else (B, nbin, n_frames)
+    out = torch.empty(shape, dtype=torch.float32, device=y.device)
     out8, inv_scale, zp = _int8_out(quant, B, n_frames, nbin, y.device)
-    tile_minmax = torch.empty(B, lib.frontend_linear_tiles(n_fft, n_frames), 2,
-                              dtype=torch.float32, device=y.device)
+    tile_minmax = torch.empty(B, slots, 2, dtype=torch.float32, device=y.device)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         arrived = _arrival_counter(B, y.device, stream)
         rc = lib.frontend_linear(
             y.data_ptr(), bases.data_ptr(), out.data_ptr(),
             None if out8 is None else out8.data_ptr(), tile_minmax.data_ptr(),
-            arrived.data_ptr(), B, T, n_fft, hop, n_frames, inv_scale, zp, stream)
+            arrived.data_ptr(), layout.data_ptr(), B, T, n_fft, hop, n_frames, group, slots,
+            int(frame_major), inv_scale, zp, stream)
     if rc != 0:
         raise RuntimeError(f"frontend_linear launch failed: cudaError {rc}")
-    launches[kernel_name("linear", "none", quant is not None)] += 1
+    launches[kernel_name("linear", "none", quant is not None,
+                         "sample" if tile is None else "tile")] += 1
     return out if out8 is None else out8
 
 
 def _launch_features(y: torch.Tensor, mode: str, mag_scale: str, sample_rate: int,
                      n_fft: int, mel_bins: int, n_mfcc: int, hop: int, n_frames: int,
-                     out_w: int, quant: tuple[float, int] | None) -> torch.Tensor:
+                     out_w: int, quant: tuple[float, int] | None,
+                     tile: int | None) -> torch.Tensor:
     B, T = y.shape
     lib = _lib()
     f_pad = lib.frontend_linear_bin_pad(n_fft)
@@ -247,23 +313,29 @@ def _launch_features(y: torch.Tensor, mode: str, mag_scale: str, sample_rate: in
     channels = n_mel or n_fft // 2 + 1
     scratch = torch.empty(B, n_frames, channels, dtype=torch.float32, device=y.device)
     bins = n_mfcc if mode == "mfcc" else channels
+    group = tile or 1
+    frame_major = _frame_major(quant, tile)
     # The result, or with quant the scratch of pcen's smoother and mfcc's DCT.
-    out = torch.empty(B, bins, out_w, dtype=torch.float32, device=y.device)
+    shape = (B, out_w, bins) if frame_major else (B, bins, out_w)
+    out = torch.empty(shape, dtype=torch.float32, device=y.device)
     out8, inv_scale, zp = _int8_out(quant, B, out_w, bins, y.device)
     epi = _EPILOGUES[mode if mode in ("log_mel", "mfcc") else mag_scale]
     pcen_a, pcen_b = (pcen_coefficients(sample_rate, hop) if epi == _EPILOGUES["pcen"]
                       else (0.0, 0.0))
+    layout, _ = _kernel_layout(n_frames, group, y.device)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         arrived = _arrival_counter(B, y.device, stream)
         rc = lib.frontend_features(
             y.data_ptr(), bases.data_ptr(), None if mel_fb is None else mel_fb.data_ptr(),
             None if dct is None else dct.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            None if out8 is None else out8.data_ptr(), arrived.data_ptr(), B, T, n_fft,
-            hop, n_frames, n_mel, n_mfcc, out_w, epi, pcen_a, pcen_b, inv_scale, zp, stream)
+            None if out8 is None else out8.data_ptr(), arrived.data_ptr(), layout.data_ptr(),
+            B, T, n_fft, hop, n_frames, n_mel, n_mfcc, out_w, epi, pcen_a, pcen_b, group,
+            int(frame_major), inv_scale, zp, stream)
     if rc != 0:
         raise RuntimeError(f"frontend_features launch failed: cudaError {rc}")
-    launches[kernel_name(mode, mag_scale, quant is not None)] += 1
+    launches[kernel_name(mode, mag_scale, quant is not None,
+                         "sample" if tile is None else "tile")] += 1
     return out if out8 is None else out8
 
 
@@ -271,7 +343,8 @@ def fused_spectrogram(y: torch.Tensor, mode: str = "linear", mag_scale: str = "n
                       sample_rate: int = 22050, n_fft: int = 512, mel_bins: int = 64,
                       spec_width: int = 256, n_mfcc: int = 20,
                       quant: tuple[float, int] | None = None, hop: int | None = None,
-                      n_frames: int | None = None) -> torch.Tensor:
+                      n_frames: int | None = None, grid: str = "sample",
+                      batch_tile: int = 8) -> torch.Tensor:
     """[B, T] float32 waveforms -> [B, bins, W] normalized features, or with
     `quant=(scale, zero_point)` the INT8 executor's entry tensor
     [B, 1, W, bins] int8.
@@ -280,7 +353,10 @@ def fused_spectrogram(y: torch.Tensor, mode: str = "linear", mag_scale: str = "n
     librosa centering and hop = T // spec_width; bins = n_fft//2+1 (linear),
     mel_bins (mel, log_mel) or n_mfcc (mfcc). Requires 2*hop >= n_fft. A
     CUDA tensor goes through a CUDA kernel, a CPU tensor through the plain
-    version.
+    version. Two grids, as in the JAX package: 'sample' (any B; batch_tile
+    is ignored) and 'tile' (batch_tile samples per group, B % batch_tile ==
+    0, the same values; its float result is a transposed view of a
+    frame-major buffer).
     """
     if mode not in VALID_MODES:
         raise ValueError(f"Invalid mode: {mode!r}")
@@ -291,27 +367,33 @@ def fused_spectrogram(y: torch.Tensor, mode: str = "linear", mag_scale: str = "n
     if y.dim() != 2 or y.dtype != torch.float32:
         raise ValueError(f"expected [B, T] float32 waveforms, got "
                          f"{tuple(y.shape)} {y.dtype}")
+    _check_grid(grid, y.shape[0], batch_tile)
     hop, n_frames, out_w = _geometry(mode, y.shape[1], n_fft, spec_width, hop, n_frames)
+    tile = batch_tile if grid == "tile" else None
     if y.is_cuda:
-        _check_launch(y, n_fft)
+        _check_launch(y, n_fft, tile or 1)
         if mode == "linear" and mag_scale == "none":
-            return _launch_linear(y, n_fft, hop, n_frames, quant)
-        return _launch_features(y, mode, mag_scale, sample_rate, n_fft, mel_bins, n_mfcc,
-                                hop, n_frames, out_w, quant)
+            out = _launch_linear(y, n_fft, hop, n_frames, quant, tile)
+        else:
+            out = _launch_features(y, mode, mag_scale, sample_rate, n_fft, mel_bins, n_mfcc,
+                                   hop, n_frames, out_w, quant, tile)
+        # The tile grid's float features come frame-major, [B, W, bins].
+        return out.transpose(1, 2) if tile is not None and quant is None else out
     if y.device.type == "cpu":
-        S = fused_spectrogram_plain(y, n_fft, hop, n_frames, mode=mode,
-                                    mag_scale=mag_scale, sample_rate=sample_rate,
-                                    mel_bins=mel_bins, n_mfcc=n_mfcc, out_w=out_w)
+        # Both grids compute the same function: one plain version serves both.
+        S = fused_spectrogram_plain(y, n_fft, hop, n_frames, mode=mode, mag_scale=mag_scale,
+                                    sample_rate=sample_rate, mel_bins=mel_bins,
+                                    n_mfcc=n_mfcc, out_w=out_w)
         return S if quant is None else quantize_entry(S, quant)
     raise ValueError(f"fused_spectrogram runs on CUDA or CPU tensors, got {y.device}")
 
 
-def fused_hybrid_frontend(y: torch.Tensor, n_fft: int, hop: int,
-                          n_frames: int) -> torch.Tensor:
+def fused_hybrid_frontend(y: torch.Tensor, n_fft: int, hop: int, n_frames: int,
+                          batch_tile: int = 8, grid: str = "sample") -> torch.Tensor:
     """[B, T] -> [B, n_fft//2+1, n_frames] normalized |STFT| at an explicit
-    geometry."""
+    geometry, on either grid."""
     return fused_spectrogram(y, n_fft=n_fft, spec_width=n_frames, hop=hop,
-                             n_frames=n_frames)
+                             n_frames=n_frames, batch_tile=batch_tile, grid=grid)
 
 
 def _kernel_geometry_ok(cfg, T: int) -> bool:

@@ -48,7 +48,22 @@ It imports nothing of JAX. In order it:
    (d) one warm 64-chunk batch of each leg by part (copy, frontend,
        executor, whole), and the CUDA launches its executor makes with
        their summed device time (torch.profiler);
-6. prints the `kernels` JSON line, the card's name and power limit, and
+6. tile phase: the tile grid (grid="tile", the port of _kernel_tile) of
+   every specialisation of the kernel phase at each batch_tile of 2, 4, 8
+   and 16, on the kernel phase's input: bit-equal to the sample-grid
+   kernel, within the kernel phase's tolerance of the plain version, the
+   same again after its timing launches; times by CUDA
+   events; and grid="tile" at B=6 with batch_tile 4 raises ValueError;
+7. bench phase: the port's frontend benchmark entry
+   (birdnet_stm32_tpu_torch/scripts/bench_frontend.py) at B=256 on CUDA,
+   with the launch counts cleared just before: its numerics within 1e-5 of
+   the composition; on the B=256 input it times, the sample grid within
+   1e-5 of the composition and every tile's features finite, bit-equal to
+   the sample grid and within 1e-5; the INT8 scores finite, their entry
+   codes at most one apart on under 1 %, min cosine >= BENCH_MIN_COSINE;
+   and the tile-grid kernel launched; it prints the bench's three
+   sections;
+8. prints the `kernels` JSON line, the card's name and power limit, and
    last the `ok` JSON line.
 
 Any failed check exits non-zero before the `ok` line.
@@ -67,6 +82,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 B, T, N_FFT, SPEC_WIDTH, N_MELS, N_MFCC, SR = 64, 66150, 512, 256, 64, 20, 22050
 REQUESTS = (64, 64, 64, 37)
+TILES = (2, 4, 8, 16)
+BENCH_B = 256
+# The bench's INT8 score agreement between its two feeds on 32 chunks: an
+# H100 80GB HBM3 read a min cosine of 0.999085 here; a feature near a code
+# boundary flips one entry code, and the bit-exact executor carries it on.
+BENCH_MIN_COSINE = 0.998
+KERNEL_SOURCE = "birdnet_stm32_tpu_torch/ops/csrc/frontend_kernel.cu"
+JAX_KERNEL = "birdnet_stm32_tpu/ops/pallas/frontend_kernel.py"
 FP32_PEAK_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FLAGSHIP_TFLITE = ROOT / "artifacts/flagship/bundle/model_quantized.tflite"
@@ -112,6 +135,24 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def flagship_wave(torch):
+    """The kernel and tile phases' input: [B, T] from a seeded generator."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    return 0.5 * torch.randn(B, T, generator=g, device="cuda")
+
+
+def compare(got, ref, int8: bool, name: str, what: str | None = "plain version") -> float:
+    """Max abs difference; for codes, also fail at >= 1 % differing from
+    `what` (no check when it is None)."""
+    if not int8:
+        return (got - ref).abs().max().item()
+    diff = (got.int() - ref.int()).abs()
+    share = (diff > 0).float().mean().item()
+    if what and not share < 0.01:
+        fail(f"{name}: {share:.4%} of codes differ from the {what} (>= 1 %)")
+    return diff.max().item()
 
 
 def build_phase() -> None:
@@ -170,8 +211,7 @@ def kernel_phase(torch, np, quant: tuple[float, int]) -> list[dict]:
     from birdnet_stm32_tpu_torch.ops.spectrogram import spectrogram_epilogue
 
     hop = T // SPEC_WIDTH
-    g = torch.Generator(device="cuda").manual_seed(0)
-    y = 0.5 * torch.randn(B, T, generator=g, device="cuda")
+    y = flagship_wave(torch)
     window = torch.hann_window(N_FFT, periodic=True, device="cuda")
     entries = []
     for mode, mag, int8, served in SPECS:
@@ -199,14 +239,7 @@ def kernel_phase(torch, np, quant: tuple[float, int]) -> list[dict]:
             return S if q is None else quantize_entry(S, q)
 
         def error(got, ref, what="plain version"):
-            """Max abs difference; for codes, also fail at >= 1 % differing."""
-            if q is None:
-                return (got - ref).abs().max().item()
-            diff = (got.int() - ref.int()).abs()
-            share = (diff > 0).float().mean().item()
-            if what and not share < 0.01:
-                fail(f"{name}: {share:.4%} of codes differ from the {what} (>= 1 %)")
-            return diff.max().item()
+            return compare(got, ref, int8, name, what)
 
         tol = 1 if int8 else 1e-5 if mode == "linear" else 2e-5
         shape = (B, 1, SPEC_WIDTH, bins) if int8 else (B, bins, SPEC_WIDTH)
@@ -241,14 +274,122 @@ def kernel_phase(torch, np, quant: tuple[float, int]) -> list[dict]:
                 fail(f"{name} kernel after the timing launches: max abs {err_after} > {tol} "
                      "(arrival counters not reset?)")
         bound_ms, bound_by = bound(np, mode, mag, n_frames, bins, int8)
-        entries.append({"name": name, "route": "cuda",
-                        "source": "birdnet_stm32_tpu_torch/ops/csrc/frontend_kernel.cu",
-                        "replaces": "birdnet_stm32_tpu/ops/pallas/frontend_kernel.py:"
-                                    + ("126" if int8 else "154"),
+        entries.append({"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                        "replaces": f"{JAX_KERNEL}:" + ("126" if int8 else "154"),
                         "launches": None, "max_abs_err": max(err, err_after), "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": library_ms, "served_path": served})
     return entries
+
+
+def tile_phase(torch, np, quant: tuple[float, int], sample_entries: list[dict]) -> list[dict]:
+    """The tile grid of every specialisation of SPECS at each tile of
+    TILES, on the kernel phase's input; `sample_entries` are the kernel
+    phase's entries, in SPECS order (their bound, plain version and library
+    call are this function's too: the tile grid computes the same
+    function)."""
+    from birdnet_stm32_tpu_torch.device import full_fp32
+    from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import (
+        fused_spectrogram,
+        fused_spectrogram_plain,
+        kernel_name,
+        quantize_entry,
+    )
+
+    hop = T // SPEC_WIDTH
+    y = flagship_wave(torch)
+    entries = []
+    for (mode, mag, int8, _), sample_entry in zip(SPECS, sample_entries):
+        name = kernel_name(mode, mag, int8, "tile")
+        n_frames = 1 + T // hop if mode == "mfcc" else SPEC_WIDTH
+        q = quant if int8 else None
+        kw = dict(mode=mode, mag_scale=mag, sample_rate=SR, mel_bins=N_MELS, n_mfcc=N_MFCC)
+        tol = 1 if int8 else 1e-5 if mode == "linear" else 2e-5
+        ms, errs = {}, []
+        with full_fp32():
+            sample = fused_spectrogram(y, n_fft=N_FFT, spec_width=SPEC_WIDTH, quant=q, **kw)
+            # The plain version of both grids (they compute one function).
+            ref = fused_spectrogram_plain(y, N_FFT, hop, n_frames, out_w=SPEC_WIDTH, **kw)
+            ref = ref if q is None else quantize_entry(ref, q)
+            for tile in TILES:
+                def kernel(tile=tile):
+                    return fused_spectrogram(y, n_fft=N_FFT, spec_width=SPEC_WIDTH, quant=q,
+                                             grid="tile", batch_tile=tile, **kw)
+
+                got = kernel()
+                torch.cuda.synchronize()
+                if not torch.equal(got, sample):
+                    fail(f"{name} tile {tile} != the sample grid: max abs "
+                         f"{(got.float() - sample.float()).abs().max().item()}")
+                errs.append(compare(got, ref, int8, f"{name} tile {tile}"))
+                ms[str(tile)] = cuda_ms(torch, kernel)
+                after = kernel()
+                torch.cuda.synchronize()
+                errs.append(compare(after, ref, int8, f"{name} tile {tile}"))
+                if not torch.equal(after, sample) or not max(errs) <= tol:
+                    fail(f"{name} tile {tile}: after the timing launches equal to the sample "
+                         f"grid {torch.equal(after, sample)}, vs plain {max(errs)} (tol {tol})")
+        print(json.dumps({"kernel": name, "equals_sample_grid": True,
+                          "max_abs_vs_plain": max(errs), "ms_by_tile": ms,
+                          "sample_grid_ms": sample_entry["ms"]}))
+        served = ("frontend bench (birdnet_stm32_tpu_torch/scripts/bench_frontend.py)"
+                  if (mode, mag, int8) == ("linear", "none", False) else None)
+        entries.append({"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                        "replaces": f"{JAX_KERNEL}:185", "launches": None,
+                        "max_abs_err": max(errs), "ms": ms["8"], "ms_by_tile": ms,
+                        "plain_ms": sample_entry["plain_ms"], "bound_ms": sample_entry["bound_ms"],
+                        "bound_by": sample_entry["bound_by"],
+                        "library_ms": sample_entry["library_ms"], "served_path": served})
+    try:
+        fused_spectrogram(y[:6], grid="tile", batch_tile=4)
+    except ValueError as e:
+        print(json.dumps({"tile_grid_B6_tile4": f"ValueError: {e}"}))
+    else:
+        fail("grid='tile' at B=6, batch_tile 4 did not raise ValueError")
+    return entries
+
+
+def bench_phase(torch) -> dict[str, int]:
+    """The frontend bench entry at B=BENCH_B on CUDA; returns its kernel
+    launches, counted from zero."""
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from birdnet_stm32_tpu_torch.scripts import bench_frontend
+
+    frontend_kernel.launches.clear()
+    t0 = time.perf_counter()
+    result = bench_frontend.run(BENCH_B)
+    wall = time.perf_counter() - t0
+    counts = dict(frontend_kernel.launches)
+    for line in bench_frontend.report(result):
+        print(line)
+    print(json.dumps({"bench_frontend": result, "wall_s": wall, "kernel_launches": counts}))
+    frontend, agreement = result["frontend"], result["e2e"]["agreement"]
+    tiles = frontend["tile_grid"]
+    if not result["numerics"]["max_abs"] <= 1e-5:
+        fail(f"bench numerics: max |kernel - composition| {result['numerics']['max_abs']}")
+    if not frontend["sample_grid_max_abs_diff"] <= 1e-5:
+        fail(f"bench sample grid at B={BENCH_B}: max |diff| "
+             f"{frontend['sample_grid_max_abs_diff']}")
+    if sorted(tiles, key=int) != [str(t) for t in TILES]:
+        fail(f"bench ran tiles {sorted(tiles)}, expected {TILES}")
+    for tile, v in tiles.items():
+        if not (v["finite"] and v["equals_sample_grid"] and v["max_abs_diff"] <= 1e-5):
+            fail(f"bench tile {tile} at B={BENCH_B}: finite {v['finite']}, equal to the "
+                 f"sample grid {v['equals_sample_grid']}, max |diff| {v['max_abs_diff']}")
+    if not agreement["finite"]:
+        fail("bench e2e: non-finite INT8 scores")
+    # The repo's int8 gate (codes at most 1 apart, on under 1 %), and the
+    # scores' agreement the codes allow.
+    flips = agreement["entry_codes_differing"] / agreement["entry_codes"]
+    if not (agreement["max_entry_code_diff"] <= 1 and flips < 0.01
+            and agreement["min_cosine"] >= BENCH_MIN_COSINE):
+        fail(f"bench e2e agreement: {agreement['entry_codes_differing']} entry codes differ "
+             f"(max {agreement['max_entry_code_diff']}), min cosine "
+             f"{agreement['min_cosine']} < {BENCH_MIN_COSINE}?")
+    for grid in ("sample", "tile"):
+        if not counts.get(frontend_kernel.kernel_name("linear", "none", grid=grid)):
+            fail(f"bench: the {grid}-grid linear kernel never launched ({counts})")
+    return counts
 
 
 def requests_for(np, cfg, sizes):
@@ -471,8 +612,14 @@ def main() -> None:
     launches = slice_phase(torch, np)
     flagship = ModelConfig.load(ROOT / "artifacts/flagship/bundle/model_config.json")
     launches.update(int8_phase(torch, np, flagship))
+    tile_entries = tile_phase(torch, np, quant, entries)
+    bench_launches = bench_phase(torch)
     for entry in entries:
         entry["launches"] = launches.get(entry["name"], 0)
+    for entry in tile_entries:
+        entry["launches"] = bench_launches.get(entry["name"], 0)
+    entries += tile_entries
+    for entry in entries:
         if entry["launches"] == 0 and entry["served_path"] is not None:
             fail(f"{entry['name']} was never launched on its served path")
 

@@ -19,6 +19,9 @@ version with TF32 off) and differ in summation order. The linear mode in
 dB is outside those gates and gets 1e-4: a bin 80 dB below the peak holds
 a magnitude 1e-4 of it, so a summation-order error relative to the frame
 energy grows ~1e4-fold in that bin's dB (measured 7.6e-5 on an H100).
+
+The tile grid (grid="tile") keeps every sum in the sample grid's order, so
+it must equal the sample-grid kernel bit for bit, float32 and int8.
 """
 
 from pathlib import Path
@@ -51,6 +54,9 @@ COMBOS = [("linear", "none"), ("mel", "none"), ("mel", "pwl"), ("mel", "pcen"),
           ("linear", "db"), ("linear", "pcen")]
 TOLERANCE = {("linear", "none"): 1e-5, ("linear", "db"): 1e-4}
 FLAGSHIP = dict(sample_rate=22050, n_fft=512, mel_bins=64, spec_width=256, n_mfcc=20)
+# tests/test_pallas.py's small geometry: n_fft 256, hop 250, 32 frames (mfcc 33).
+SMALL = dict(sample_rate=8000, n_fft=256, mel_bins=32, spec_width=32, n_mfcc=13)
+TILES = (2, 4, 8, 16)
 
 
 @pytest.fixture
@@ -107,8 +113,7 @@ def test_kernel_matches_plain_at_small_geometry(cuda, mode, mag):
     """tests/test_pallas.py's small geometry (n_fft 256, hop 250, 32 mels,
     13 mfcc), three launches in a row: each kernel leaves its arrival
     counters at zero for the next."""
-    geometry = dict(sample_rate=8000, n_fft=256, mel_bins=32, spec_width=32, n_mfcc=13)
-    _check(_wave(5, 3, 8000), mode, mag, geometry, 8000, launches=3)
+    _check(_wave(5, 3, 8000), mode, mag, SMALL, 8000, launches=3)
 
 
 @pytest.mark.cuda
@@ -180,3 +185,53 @@ def test_int8_executor_matches_cpu_on_card(cuda, fused):
     ref = build_executor(graph, 6, device="cpu", prequantized_input=fused)(feats.cpu())
     assert torch.isfinite(got).all() and got.shape == (6, 100)
     np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["small", "flagship"])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("mode,mag", COMBOS)
+def test_tile_grid_equals_sample_grid_on_card(cuda, mode, mag, int8, geometry):
+    """Every tile of TILES at B=16 equals the sample-grid kernel bit for
+    bit, float32 and int8. Small geometry: a 64-row strip holds two
+    samples' 32 frames (mfcc: 33, strips straddle samples); flagship: 256
+    frames (mfcc: 257, one strip in five straddles)."""
+    geometry, T = (SMALL, 8000) if geometry == "small" else (FLAGSHIP, 66150)
+    y = _wave(12, 16, T)
+    quant = (entry_quant_params(entry_transpose_fixture(TFLiteGraph(FLAGSHIP_TFLITE)))
+             if int8 else None)
+    kw = dict(mode=mode, mag_scale=mag, quant=quant, **geometry)
+    sample = fused_spectrogram(y, **kw)
+    name = kernel_name(mode, mag, int8, "tile")
+    for tile in TILES:
+        before = frontend_kernel.launches[name]
+        got = fused_spectrogram(y, grid="tile", batch_tile=tile, **kw)
+        torch.cuda.synchronize()
+        assert frontend_kernel.launches[name] == before + 1
+        assert got.shape == sample.shape and got.dtype == sample.dtype
+        assert torch.equal(got, sample), (
+            f"{name} tile {tile}: max abs {(got.float() - sample.float()).abs().max().item()}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,mag", [("linear", "none"), ("mel", "pwl"), ("mfcc", "none"),
+                                      ("linear", "pcen")])
+def test_tile_grid_leaves_counters_at_zero(cuda, mode, mag):
+    """After a tile-grid launch whose strips straddle samples, every
+    per-sample arrival counter is back at zero (blocks that arrive at two
+    samples count once at each)."""
+    y = _wave(13, 8, 8000)
+    fused_spectrogram(y, mode=mode, mag_scale=mag, grid="tile", batch_tile=4, **SMALL)
+    torch.cuda.synchronize()
+    counters = [buf for (dev, _), buf in frontend_kernel._arrival_counters.items()
+                if dev == y.device]
+    assert counters and all(int(buf.count_nonzero()) == 0 for buf in counters)
+
+
+@pytest.mark.cuda
+def test_tile_grid_contract_on_card(cuda):
+    """B=6 does not split into groups of 4: ValueError before any launch."""
+    before = frontend_kernel.launches.total()
+    with pytest.raises(ValueError, match="batch_tile"):
+        fused_spectrogram(_wave(14, 6, 8000), grid="tile", batch_tile=4, **SMALL)
+    assert frontend_kernel.launches.total() == before
