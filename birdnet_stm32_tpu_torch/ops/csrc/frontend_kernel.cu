@@ -2,156 +2,137 @@
 // int8 out.
 //
 // Replaces birdnet_stm32_tpu/ops/pallas/frontend_kernel.py::_kernel
-// (fused_spectrogram(grid="sample")) and ::_kernel_tile (grid="tile"), in
-// two kernels that share one DFT tile loop (dft_tile); both grids are one
-// kernel each, with the samples of a block's group as a parameter (see "The
-// tile grid" below). Each has a float32 and an int8-entry specialisation
-// (quant=(scale, zp), _sample_epilogue's last step): the int8 one computes
-// the same normalized floats S in the same operations, then stores
-// q = clip(round_half_away(S * inv_scale) + zp, -128, 127) as int8 in the
-// frame-major [W, bins] layout, the INT8 executor's entry tensor. inv_scale
-// is float32(1) / float32(scale), taken on the host: jitted XLA turns the
-// reference's S / scale into that multiply. __fmul_rn / __fadd_rn keep
-// nvcc from contracting the rounding into an FMA, and the build has no
-// --use_fast_math, so the codes equal quantize(float kernel output) bit for
-// bit. The two kernels:
+// (fused_spectrogram(grid="sample"), with _frame_and_mag and
+// _sample_epilogue) and ::_kernel_tile (grid="tile"), in two kernels built
+// on one in-block real FFT (frame_fft, spectrum_bins):
 //
 // frontend_linear_kernel: mode="linear", mag_scale="none", the hybrid
-// frontend. Per sample, in one launch:
-//   1. framing straight from the waveform: frame k = ypad[k*hop, k*hop+n_fft)
-//      with ypad = n_fft/2 zeros ++ y ++ zeros (2*hop >= n_fft, so frame k
-//      never reaches past (n_frames+1)*hop, the reference's `need` cut);
-//   2. re/im = frame . windowed DFT bases, accumulated in float32 FMA (no
-//      TF32: the reference runs at HIGHEST precision and the gate is 1e-5);
-//   3. magnitude sqrt(re^2 + im^2);
-//   4. per-sample min-max over the whole [n_frames, F] block,
-//      (S - min) / (max - min + 1e-10);
-//   5. freq-major output [B, F, W] (the tile grid: frame-major [B, W, F]).
+// frontend: framing, FFT, |X|, per-sample min-max
+// (S - min) / (max - min + 1e-10), out [B, F, W] (the tile grid and the
+// int8 scratch: frame-major [B, W, F]).
 //
-// frontend_features_kernel: every other epilogue of _sample_epilogue:
-// the mel product, then mel / pwl / db / pcen, log_mel
-// (log1p), mfcc (power, mel, power_to_db over all frames, DCT, slice), and
-// the linear mode with pwl / db / pcen. Per sample, in one launch:
-//   1-2. as above, over a 64-frame strip and all bins;
-//   3. |X|, or |X|^2 for mfcc, staged per 32-bin tile in shared memory and
-//      multiplied into the mel bank (or, with no mel, written out as is);
-//   4. the strip's [64, C] rows go to a frame-major scratch [B, W, C];
-//   5. the last strip of the sample to arrive runs the per-sample
-//      epilogue, with every reduction it needs, and writes [B, bins, W']
-//      (the tile grid: [B, W', bins]).
+// frontend_features_kernel: every other epilogue of _sample_epilogue: the
+// mel product, then none / pwl / db / pcen, log_mel (log1p), mfcc (power,
+// mel, power_to_db over all frames, DCT, slice), and the linear mode with
+// pwl / db / pcen.
+//
+// Each has an int8-entry specialisation (quant=(scale, zp), the last step
+// of _sample_epilogue): the same normalized floats S in the same
+// operations, stored as q = clip(round_half_away(S * inv_scale) + zp,
+// -128, 127) in the frame-major [W, bins] layout, the INT8 executor's
+// entry tensor. inv_scale is float32(1) / float32(scale), taken on the
+// host: jitted XLA turns the reference's S / scale into that multiply.
+//
+// The FFT stage. A block owns a 64-row strip of frames (8 warps, 8 rows
+// each); a warp transforms its frames one after another. Frame k of a
+// sample is ypad[k*hop, k*hop + n_fft) with ypad = n_fft/2 zeros ++ y ++
+// zeros (2*hop >= n_fft, so no frame reaches past (n_frames+1)*hop, the
+// reference's `need` cut). The n_fft real taps, times the float32 periodic
+// Hann window (ops/stft.py::hann_window), are packed as N = n_fft/2
+// complex points z[n] = x[2n] + i x[2n+1] and transformed by a self-sorting
+// (Stockham) radix-8/4 FFT: each pass, a lane loads its butterflies'
+// points into registers, runs the radix-R DFT there, and stores them back
+// to the warp's own buffer in shared memory (indices padded by one slot in
+// 16 against bank conflicts); the first pass loads the taps straight from
+// the waveform, coalesced, zero outside [0, T). The split post-processing
+// X[k] = (Z[k] + conj Z[N-k]) / 2 - i W^k (Z[k] - conj Z[N-k]) / 2 gives
+// the n_fft/2 + 1 bins. Twiddles W^m = exp(-2 pi i m / n_fft), m < n_fft,
+// and the window come from one host table (float64, rounded once, like the
+// DFT bases of ops/stft.py), held in shared memory; each block lays the
+// passes' twiddles out again as rows a butterfly's lanes read without bank
+// conflicts. Every add, multiply and multiply-add is written out
+// (__fadd_rn, __fmul_rn, fmaf), so nvcc contracts nothing: a frame's bins
+// are the same bits in every kernel and grid that computes them. n_fft is a
+// power of two from 64 to 2048, one template per size.
 //
 // What bounds them: the bytes. The function needs each waveform sample
-// read once and each feature written once: at the flagship 66150 floats in
-// and bins x 256 floats out per sample (34 MB at B=64 for the 257 linear
-// bins, 10.1 us at 3.35 TB/s; 21.1 MB and 6.3 us for 64 mels). Its
-// arithmetic through an FFT is ~14.1 kFLOP per frame, plus 2 x the mel
-// bank's nonzeros and the DCT: ~3.8 us at the card's 67 TFLOP/s fp32,
-// below the bytes. This design does more arithmetic than the function
-// needs: it computes the DFT as a matrix product, 2 * n_frames * n_fft *
-// 2F FLOP per sample (flagship: 134.7 MFLOP, ~40x the FFT's count), so in
-// practice its fp32 FMA rate limits it, not memory. The bases
-// (2 * n_fft * F_pad * 4 B = 1.2 MB) and the mel bank stay resident in L2.
+// read once and each feature written once: at the flagship (B=64) 16.9 MB
+// in and 16.8 MB (257 linear bins) or 4.2 MB (64 mels) out, 10.1 or 6.3 us
+// at 3.35 TB/s. Its arithmetic through the FFT is ~14 kFLOP per frame plus
+// the mel bank's nonzeros, the DCT and the epilogue, ~4 us at 67 TFLOP/s
+// fp32. What keeps the kernels above that, and what the design does:
+// - the FFT stage is latency-bound: a warp's frame is a chain of dependent
+//   steps through shared memory (the passes and the post-processing; four
+//   at the flagship) with 16-24 warps per SM. The passes' twiddle rows keep
+//   its shared-memory loads free of bank conflicts; the taps are read twice
+//   (hop 258 < n_fft 512), from L2 the second time;
+// - the per-sample min-max needs every strip of a sample: the last strip to
+//   arrive (an atomic count after a __threadfence; it resets the count for
+//   the next launch) reduces the per-strip extrema and normalizes the
+//   sample in place, an L2 re-read of its output (the linear kernel), or
+//   runs the whole epilogue on the sample staged in shared memory (the
+//   features kernel). That tail runs on one block per sample, after the
+//   strips, and takes a third of the linear and mel kernels' time on an
+//   H100; pcen's smoother in it is a sequential scan over the frames, one
+//   thread per channel, and the mfcc tail (dB over all frames, DCT) two
+//   thirds of its kernel;
+// - shared memory and registers hold 2 blocks of the linear kernel per SM
+//   (its freq-major strip tile is 66.8 KB at 257 bins) and 3 of the
+//   features kernel (a staged sample is 66.5 KB).
+
+// The linear kernel. The warp writes each frame's |X| to a strip tile
+// [F][rows + 1] in shared memory (conflict-free: rows + 1 is odd), and the
+// block stores the tile freq-major, one 64-frame row per bin; frame-major
+// launches store each frame's bins straight from registers. Where a tile
+// of 64 rows does not fit (n_fft 2048), the strip is done in sub-strips of
+// 32, 16 or 8 rows. Each warp reduces its frames' extrema, and the block
+// keeps one (min, max) per sample it touches in strip_minmax.
 //
-// Design of the linear kernel. A sample's magnitudes (257 x 256 x 4 B =
-// 263 KB) exceed the 227 KB of shared memory a block may hold, so one block
-// cannot keep a whole sample the way the TPU kernel kept it in VMEM.
-// Instead each sample is cut into 64-frame x 32-bin output tiles, one
-// block per tile (flagship: 4 x 9 = 36 blocks per sample, 2304 blocks at
-// B=64, enough to fill all 132 SMs). A block runs a register-tiled SIMT
-// GEMM: 128 threads, each holding a 4 x 4 micro-tile of both re and im (32
-// accumulators, 32 FMA per three float4 shared-memory loads), over K =
-// n_fft in steps of 32 taps. The frame tile is read from global memory as
-// 4 frames x 8 taps per warp (coalesced) and stored transposed into a
-// padded shared array without bank conflicts. The epilogue stages the
-// tile's magnitudes through shared memory so each warp writes whole rows of
-// the freq-major output, and writes the tile's min and max to a scratch
-// array. The min-max normalisation across tiles needs every tile of the
-// sample, so the last block of a sample to finish (an atomic arrival count
-// after a __threadfence) reduces the per-tile extrema, normalises the
-// sample's output in place (that re-read is L2-resident) and resets the
-// sample's arrival count to zero, so the counters are ready for the next
-// launch on the stream without a memset. One launch, no second pass over
-// device memory.
+// The features kernel. After its frame's FFT a warp puts |X| (|X|^2 for
+// mfcc) in its buffer and each lane sums its mels over their nonzero bin
+// ranges (a compact bank from the host: per mel [lo, hi) and an offset into
+// its weights, in increasing bin order with fmaf, the dense product's sum
+// without its exact zeros), then writes the frame's mel row to the
+// frame-major scratch [B, W, C]; with no mel (the linear mode) the bins go
+// there as they are. The last strip of a sample to arrive loads the sample
+// from L2 into shared memory (rows padded to C+1 floats, so the freq-major
+// transpose on the way out is free of bank conflicts) and runs the
+// epilogue: the multi-pass reductions (pwl: min-max, curve, min-max; db:
+// max, dB, peak-80 clamp, min-max; mfcc: max, dB over all frames, clamp,
+// DCT, min-max) and pcen's smoother. Sums never use float atomics: each is
+// one thread's, in a fixed order, so the result does not depend on which
+// block arrives last. A sample too large for shared memory (the linear
+// mode's 257 bins) runs the same epilogue in place in the L2-resident
+// scratch. The shared memory is one dynamic buffer, the FFT's table and
+// buffers first and the sample after.
 //
-// Design of the features kernel. After the mel product a sample is small
-// (256 x 64 x 4 B = 64 KB; mfcc's 257 frames 65.8 KB), so one block can
-// hold it. A block owns a 64-frame strip of one sample and walks all bin
-// tiles with the same DFT tile loop, staging each 64 x 32 magnitude tile
-// in shared memory and accumulating the mel product in registers: thread
-// t owns mel t % 64 of its 64-mel chunk for 32 frames, and sums the bins
-// in increasing order, skipping a tile row only when the whole warp's
-// weights are zero (the sum is unchanged). More than 64 mels take more
-// blocks (grid.x = strips x mel chunks), each recomputing the DFT. The
-// strip's rows go to scratch; the last block of the sample to arrive
-// loads the sample from L2 into shared memory (rows padded to C+1 floats,
-// so the freq-major transpose on the way out is free of bank conflicts)
-// and runs the epilogue there: the multi-pass reductions (pwl: min-max,
-// curve, min-max; db: max, dB, peak-80 clamp, min-max; mfcc: max, dB over
-// all frames, clamp, DCT, min-max) and pcen's smoother, one thread per
-// channel walking the frames in order. Sums never use float atomics: each
-// is computed by one thread in a fixed order, so the result does not
-// depend on which block arrives last. A sample too large for shared
-// memory (the linear mode's 257 bins) runs the same epilogue in place in
-// the L2-resident scratch. The shared memory is one dynamic buffer, the
-// strip's tiles first and the sample after, so every block holds only the
-// larger of the two.
+// The int8 specialisations. The linear kernel then writes its magnitudes
+// frame-major into a float scratch ([B, W, F], the float output's bytes)
+// and the last block reads them back, normalizes and quantizes them in the
+// same order (float4 in, char4 out). The features kernel's last block
+// quantizes where the float one writes its normalized output; its float
+// output buffer stays the scratch that pcen (the smoother) and mfcc (the
+// DCT) use. __fmul_rn / __fadd_rn keep the rounding out of any FMA and the
+// build has no --use_fast_math, so the codes equal quantize(float kernel
+// output) bit for bit.
 //
-// The int8 specialisations. The linear kernel's tiles then write their
-// magnitudes frame-major into a float scratch ([B, W, bins], the float
-// output's bytes), and the last block reads them back, normalizes and
-// quantizes them in the same order, so both its loads and its int8 stores
-// are contiguous (float4 in, char4 out). The features kernel's last block
-// quantizes where the float one writes its normalized output, walking the
-// output frame-major; its float output buffer stays the scratch that pcen
-// (the smoother) and mfcc (the DCT) use. Bytes at the flagship B=64: the
-// waveform (16.9 MB) plus B x W x bins int8 codes (4.2 MB linear, 1.0 MB
-// for 64 mels).
-//
-// The tile grid (_kernel_tile, batch_tile samples per program). The TPU
-// kernel stacks the frames of `tile` samples along M so that one DFT and
-// one mel product run over the whole stack; its garbage boundary row per
-// sample is an artifact of framing a [tile*(W+1), hop] view inside Mosaic.
-// Here framing reads the waveform directly, so a group of `tile` samples is
-// a stack of tile * n_frames valid rows: row r is frame r % n_frames of
-// sample r / n_frames, and the 64-row strips of both kernels walk the stack
-// (grid = (strips per group x bin tiles or mel chunks, B / tile)). A strip
-// may straddle samples; one that lies in a single sample frames exactly as
-// the sample grid does, a straddling one maps each row on its own. The
-// k-loop order is unchanged, so every sum runs in the sample grid's order
-// and the tile grid equals it bit for bit. The sample grid is the case
-// tile == 1. Per sample, what used to count to gridDim.x now counts to its
-// own number of strips (first strip and count per sample of a group come
-// from the host, ops/kernels/frontend_kernel.py::tile_layout): a block
-// arrives at every sample it touches, keeps per-(sample, tile) extrema in
-// the linear kernel, and runs each epilogue it is last for. Float results
-// are written frame-major [B, W, bins], the TPU kernel's layout (the caller
-// sees them through a transposed view); the int8 codes are frame-major in
-// both grids. Stacking drops mfcc's fifth, one-frame strip per sample
-// (tile 8: 33 strips for 8 samples, not 40), but at B=64 on an H100 that
-// bought nothing: the blocks fit in one wave either way, and a straddling
-// strip (framed through dft_tile's slower path, and possibly last for two
-// samples) sits on the critical path; see PERF.md.
+// The tile grid (_kernel_tile, batch_tile samples per program). A group of
+// `tile` samples is a stack of tile * n_frames rows, row r being frame
+// r % n_frames of sample r / n_frames, and the 64-row strips of both
+// kernels walk the stack (grid = (strips per group, B / tile)); the sample
+// grid is tile == 1. A warp maps each of its rows to (sample, frame) once,
+// by one __umulhi (exact: see frame_of), so a strip that straddles two
+// samples costs nothing extra. A frame's arithmetic does not depend on the
+// block that computes it, so the two grids are equal bit for bit. What
+// used to count to gridDim.x counts to the sample's own number of strips
+// (first strip and count per sample of a group from the host,
+// ops/kernels/frontend_kernel.py::tile_layout): a block arrives at every
+// sample it touches, keeps one extrema slot per sample in the linear
+// kernel, and runs each epilogue it is last for. Float results are written
+// frame-major [B, W, bins], the TPU kernel's layout (the caller sees them
+// through a transposed view); the int8 codes are frame-major in both grids.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int BM = 64;                          // frames per block tile
-constexpr int BN = 32;                          // bins per block tile
-constexpr int BK = 32;                          // DFT taps per k-step
-constexpr int TM = 4;                           // frames per thread
-constexpr int TN = 4;                           // bins per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 128
+constexpr int BM = 64;                 // rows (frames) of a strip
+constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int AS = BM + 4;  // padded row stride: float4-aligned rows, conflict-free stores
-constexpr int MEL_CHUNK = 64;                            // mels per block
-constexpr int MEL_FRAMES = BM * MEL_CHUNK / THREADS;     // frames per thread: 32
-constexpr int TILE_FLOATS = BK * AS + 2 * BK * BN;       // As, Cs, Ss
-static_assert(BN <= BK, "the epilogue stages [BN][BM] magnitudes in the [BK][AS] frame tile");
-static_assert(BK == 32 && BM % 16 == 0, "the frame-tile load mapping assumes 32 taps, 16-frame groups");
-static_assert(THREADS % MEL_CHUNK == 0 && MEL_FRAMES % 4 == 0,
-              "mel threads own whole float4 frame runs");
+constexpr int MIN_LOG2_N = 5;          // N = n_fft / 2 complex points: n_fft 64 ..
+constexpr int MAX_LOG2_N = 10;         // .. 2048
+static_assert(BM % WARPS == 0, "a strip's rows split evenly over the warps");
 
 // The per-sample epilogues of _sample_epilogue.
 enum Epilogue { EPI_NONE = 0, EPI_PWL = 1, EPI_DB = 2, EPI_PCEN = 3, EPI_LOG1P = 4, EPI_MFCC = 5 };
@@ -164,13 +145,17 @@ __device__ __forceinline__ signed char quantize_code(float s, float inv_scale, f
     return static_cast<signed char>(fminf(fmaxf(q, -128.0f), 127.0f));
 }
 
-__device__ __forceinline__ void block_minmax(float& mn, float& mx,
-                                             float* s_min, float* s_max) {
+__device__ __forceinline__ void warp_minmax(float& mn, float& mx) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
         mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     }
+}
+
+__device__ __forceinline__ void block_minmax(float& mn, float& mx,
+                                             float* s_min, float* s_max) {
+    warp_minmax(mn, mx);
     const int warp = threadIdx.x / 32;
     if ((threadIdx.x & 31) == 0) {
         s_min[warp] = mn;
@@ -187,100 +172,250 @@ __device__ __forceinline__ void block_minmax(float& mn, float& mx,
     __syncthreads();
 }
 
-// Whether the strip of rows [r0, r0+BM) (cut at n_rows) lies in one
-// sample: always so in the sample grid, and in the tile grid unless it
-// straddles a sample boundary. Block-uniform.
-__device__ __forceinline__ bool strip_in_one_sample(int r0, int n_rows, int n_frames) {
-    return (min(r0 + BM, n_rows) - 1) / n_frames == r0 / n_frames;
+// Complex float32 arithmetic with every rounding written out (no FMA
+// contraction by the compiler).
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+    return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+    return make_float2(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y));
+}
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+    return make_float2(fmaf(a.x, b.x, -__fmul_rn(a.y, b.y)), fmaf(a.x, b.y, __fmul_rn(a.y, b.x)));
+}
+__device__ __forceinline__ float2 mul_neg_i(float2 a) { return make_float2(a.y, -a.x); }
+
+// In-register forward DFTs of 4 and 8 points, natural order in and out.
+__device__ __forceinline__ void dft(float2 (&v)[4]) {
+    const float2 t0 = cadd(v[0], v[2]), t1 = csub(v[0], v[2]);
+    const float2 t2 = cadd(v[1], v[3]), t3 = mul_neg_i(csub(v[1], v[3]));
+    v[0] = cadd(t0, t2);
+    v[1] = cadd(t1, t3);
+    v[2] = csub(t0, t2);
+    v[3] = csub(t1, t3);
+}
+__device__ __forceinline__ void dft(float2 (&v)[8]) {
+    constexpr float C = 0.70710678118654752f;  // cos(pi/4)
+    float2 e[4] = {v[0], v[2], v[4], v[6]}, o[4] = {v[1], v[3], v[5], v[7]};
+    dft(e);
+    dft(o);
+    o[1] = make_float2(__fmul_rn(C, __fadd_rn(o[1].x, o[1].y)),    // W8^1 = C (1 - i)
+                       __fmul_rn(C, __fsub_rn(o[1].y, o[1].x)));
+    o[2] = mul_neg_i(o[2]);                                         // W8^2 = -i
+    o[3] = make_float2(__fmul_rn(C, __fsub_rn(o[3].y, o[3].x)),    // W8^3 = -C (1 + i)
+                       -__fmul_rn(C, __fadd_rn(o[3].x, o[3].y)));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        v[k] = cadd(e[k], o[k]);
+        v[k + 4] = csub(e[k], o[k]);
+    }
 }
 
-// re/im of stacked rows [r0, r0+BM) x bins [n0, n0+BN) of one group of
-// samples (yg: its first sample's waveform; n_rows = samples * n_frames):
-// row r is frame r % n_frames of sample r / n_frames, rows past n_rows are
-// zero. Each thread's 4 x 4 micro-tile is at rows r0 + ty*TM.., bins
-// n0 + tx*TN... kOneSample (strip_in_one_sample): the rows are consecutive
-// frames f0.. of one sample; past that sample's end (the group's last
-// strip) they are zero. Otherwise row f is frame (f0 + f) % n_frames of
-// sample s0 + (f0 + f) / n_frames, the quotient taken as one __umulhi by
-// `magic` (ceil(2^32 / n_frames): exact for f0 + f and n_frames below
-// 2^16, which the launchers check). The flag is a template parameter, not
-// a branch per element, and the k-loop neither divides nor reads a table
-// from shared memory: on an H100 a branch and a division between the 16
-// loads of a k-step made the DFT 1.65x slower, and a per-row table in
-// shared memory (its loads not hoisted above the frame tile's stores)
-// 1.6x slower.
-template <bool kOneSample>
-__device__ __forceinline__ void dft_tile(const float* __restrict__ yg,
-                                         const float* __restrict__ bases,
-                                         float (*As)[AS], float (*Cs)[BN], float (*Ss)[BN],
-                                         int r0, int n0, int T, int n_fft, int hop,
-                                         int n_frames, int n_rows, int f_pad,
-                                         float (&re)[TM][TN], float (&im)[TM][TN]) {
-    const int t = threadIdx.x;
-    const int tx = t % (BN / TN);
-    const int ty = t / (BN / TN);
-    const int pad = n_fft / 2;
-    const float* cos_b = bases;
-    const float* sin_b = bases + (size_t)n_fft * f_pad;
-    const int s0 = r0 / n_frames;
-    const int f0 = r0 - s0 * n_frames;
-    const float* yb = yg + (size_t)s0 * T;
-    const unsigned int magic = 0xffffffffu / n_frames + 1u;  // unused when kOneSample
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) re[i][j] = im[i][j] = 0.0f;
+// A warp's buffer index: one padding slot per 16 complex points, so the
+// strided stores of the early passes spread over the banks.
+__device__ __forceinline__ int padded(int e) { return e + (e >> 4); }
 
-    for (int k0 = 0; k0 < n_fft; k0 += BK) {
-        // Frame tile As[k][f] = ypad(row r0+f)[k0 + k]. Element e maps to
-        // k = (e%8) + 8*((e/32)%4), f = ((e/8)%4) + 4*(e/128): a warp reads 4
-        // frames x 8 consecutive taps and stores them to 32 distinct banks.
-#pragma unroll
-        for (int i = 0; i < BK * BM / THREADS; ++i) {
-            const int e = i * THREADS + t;
-            const int k = (e & 7) + ((e >> 5) & 3) * 8;
-            const int f = ((e >> 3) & 3) + (e >> 7) * 4;
-            float v = 0.0f;
-            if constexpr (kOneSample) {
-                const int frame = f0 + f;
-                const int idx = frame * hop + k0 + k - pad;
-                if (frame < n_frames && idx >= 0 && idx < T) v = __ldg(yb + idx);
-            } else {
-                const unsigned int a = f0 + f;
-                const int ds = n_frames == 1 ? (int)a : (int)__umulhi(a, magic);
-                const int idx = ((int)a - ds * n_frames) * hop + k0 + k - pad;
-                if (r0 + f < n_rows && idx >= 0 && idx < T)
-                    v = __ldg(yb + (size_t)ds * T + idx);
-            }
-            As[k][f] = v;
-        }
-#pragma unroll
-        for (int i = 0; i < BK * BN / THREADS; ++i) {
-            const int e = i * THREADS + t;
-            const int k = e / BN, n = e % BN;
-            const size_t g = (size_t)(k0 + k) * f_pad + n0 + n;
-            Cs[k][n] = __ldg(cos_b + g);
-            Ss[k][n] = __ldg(sin_b + g);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < BK; ++k) {
-            const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * TM]);
-            const float4 c = *reinterpret_cast<const float4*>(&Cs[k][tx * TN]);
-            const float4 s = *reinterpret_cast<const float4*>(&Ss[k][tx * TN]);
-            const float av[TM] = {a.x, a.y, a.z, a.w};
-            const float cv[TN] = {c.x, c.y, c.z, c.w};
-            const float sv[TN] = {s.x, s.y, s.z, s.w};
-#pragma unroll
-            for (int i = 0; i < TM; ++i)
-#pragma unroll
-                for (int j = 0; j < TN; ++j) {
-                    re[i][j] = fmaf(av[i], cv[j], re[i][j]);
-                    im[i][j] = fmaf(av[i], sv[j], im[i][j]);
-                }
-        }
-        __syncthreads();
+// log2 of the radix of the pass that leaves `rem` of the FFT's log2 N bits
+// to do: radix 8, and radix 4 to finish 2 or 4 bits (8,4 for N=32; 8,8 for
+// N=64; 8,4,4 for N=128; 8,8,4 for N=256; 8,8,8 for N=512; 8,8,4,4 for
+// N=1024). No N from 2^5 to 2^10 leaves a single bit.
+__host__ __device__ constexpr int pass_log2_radix(int rem) { return rem == 2 || rem == 4 ? 2 : 3; }
+
+// Complex slots of a warp's buffer for an N-point FFT.
+__host__ __device__ constexpr int buffer_slots(int n) { return n + n / 16; }
+
+// Complex slots of the twiddle rows of the passes after the first that
+// start before bit `until` of a 2^log2n-point FFT: (R - 1) Ns per pass.
+// The pass starting at bit `done` finds its rows at offset
+// pass_twiddle_slots(log2n, done); the whole table is
+// pass_twiddle_slots(log2n, log2n).
+__host__ __device__ constexpr int pass_twiddle_slots(int log2n, int until) {
+    int slots = 0;
+    for (int done = pass_log2_radix(log2n); done < until; done += pass_log2_radix(log2n - done))
+        slots += ((1 << pass_log2_radix(log2n - done)) - 1) << done;
+    return slots;
+}
+
+// Lays out each pass's twiddles W_N^{k r} = tw[k r S] as rows
+// ptw[offset + (r - 1) Ns + k], k < Ns, so the lanes of a butterfly's
+// twiddle load read consecutive slots (strided reads of tw conflicted
+// 4-8-way on the banks). Every thread of the block takes part.
+template <int LOG2N, int DONE>
+__device__ __forceinline__ void fill_pass_twiddles(float2* ptw, const float2* tw) {
+    if constexpr (DONE < LOG2N) {
+        constexpr int LR = pass_log2_radix(LOG2N - DONE), R = 1 << LR, NS = 1 << DONE;
+        constexpr int S = 2 * (1 << LOG2N) / (NS * R), OFF = pass_twiddle_slots(LOG2N, DONE);
+        for (int i = threadIdx.x; i < (R - 1) * NS; i += THREADS)
+            ptw[OFF + i] = tw[(i % NS) * (i / NS + 1) * S];
+        fill_pass_twiddles<LOG2N, DONE + LR>(ptw, tw);
     }
+}
+
+// The Stockham passes after the first, each of the N/R radix-R butterflies
+// j = lane + 32q: twiddles W_N^{(j mod Ns) r} (from the pass's rows of
+// ptw) on the points j + r N/R, the R-point DFT, the results to
+// (j - j mod Ns) R + j mod Ns + r Ns. Every lane reads its points before
+// any lane writes, so one buffer serves in place.
+template <int LOG2N, int DONE>
+__device__ __forceinline__ void fft_passes(float2* buf, const float2* ptw, int lane) {
+    static_assert(LOG2N - DONE != 1, "no radix-2 pass");
+    if constexpr (DONE < LOG2N) {
+        constexpr int N = 1 << LOG2N, LR = pass_log2_radix(LOG2N - DONE);
+        constexpr int R = 1 << LR, NS = 1 << DONE, NB = N / R, Q = (NB + 31) / 32;
+        constexpr int OFF = pass_twiddle_slots(LOG2N, DONE);
+        float2 v[Q][R];
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+            const int j = lane + 32 * q;
+            if (NB % 32 == 0 || j < NB) {
+#pragma unroll
+                for (int r = 0; r < R; ++r) v[q][r] = buf[padded(j + r * NB)];
+            }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+            const int j = lane + 32 * q;
+            if (NB % 32 == 0 || j < NB) {
+                const int k = j & (NS - 1);
+#pragma unroll
+                for (int r = 1; r < R; ++r) v[q][r] = cmul(v[q][r], ptw[OFF + (r - 1) * NS + k]);
+                dft(v[q]);
+                const int base = (j - k) * R + k;
+#pragma unroll
+                for (int r = 0; r < R; ++r) buf[padded(base + r * NS)] = v[q][r];
+            }
+        }
+        __syncwarp();
+        fft_passes<LOG2N, DONE + LR>(buf, ptw, lane);
+    }
+}
+
+// The first pass's shape: radix R, its N/R butterflies j = lane + 32q,
+// q < Q, and so Q x R packed taps per lane.
+template <int LOG2N>
+struct FirstPass {
+    static constexpr int N = 1 << LOG2N, R = 1 << pass_log2_radix(LOG2N), NB = N / R;
+    static constexpr int Q = (NB + 31) / 32;
+    __device__ static constexpr bool active(int j) { return NB % 32 == 0 || j < NB; }
+};
+
+// The lane's packed taps of one frame, z[n] = (x[2n], x[2n+1]) for
+// n = j + r N/R: ys is the frame's sample, its tap i is ys[start + i], zero
+// outside [0, T). A warp reads 2 N/R consecutive taps per r, coalesced, as
+// scalars: a waveform row of 66150 floats starts 8-byte aligned only every
+// other row, and float2 loads where a pair was aligned ran no faster on an
+// H100.
+template <int LOG2N>
+__device__ __forceinline__ void load_taps(const float* __restrict__ ys, int start, int T,
+                                          int lane,
+                                          float2 (&z)[FirstPass<LOG2N>::Q][FirstPass<LOG2N>::R]) {
+    using P = FirstPass<LOG2N>;
+#pragma unroll
+    for (int q = 0; q < P::Q; ++q) {
+        const int j = lane + 32 * q;
+        if (P::active(j)) {
+#pragma unroll
+            for (int r = 0; r < P::R; ++r) {
+                const int i = start + 2 * (j + r * P::NB);
+                z[q][r].x = (unsigned)i < (unsigned)T ? __ldg(ys + i) : 0.0f;
+                z[q][r].y = (unsigned)(i + 1) < (unsigned)T ? __ldg(ys + i + 1) : 0.0f;
+            }
+        }
+    }
+}
+
+// The N = 2^LOG2N-point complex FFT of one frame's packed taps z (from
+// load_taps), by one warp, into buf in natural order. The first pass
+// multiplies the taps by the window pairs win[n] = (w[2n], w[2n+1]) and
+// needs no twiddles; the others read theirs from ptw (fill_pass_twiddles).
+template <int LOG2N>
+__device__ __forceinline__ void frame_fft(float2 (&z)[FirstPass<LOG2N>::Q][FirstPass<LOG2N>::R],
+                                          const float2* win, const float2* ptw, float2* buf,
+                                          int lane) {
+    using P = FirstPass<LOG2N>;
+    __syncwarp();  // the warp's previous frame is out of buf
+#pragma unroll
+    for (int q = 0; q < P::Q; ++q) {
+        const int j = lane + 32 * q;
+        if (P::active(j)) {
+            float2 v[P::R];
+#pragma unroll
+            for (int r = 0; r < P::R; ++r) {
+                const float2 w = win[j + r * P::NB];
+                v[r] = make_float2(__fmul_rn(z[q][r].x, w.x), __fmul_rn(z[q][r].y, w.y));
+            }
+            dft(v);
+#pragma unroll
+            for (int r = 0; r < P::R; ++r) buf[padded(j * P::R + r)] = v[r];
+        }
+    }
+    __syncwarp();
+    fft_passes<LOG2N, pass_log2_radix(LOG2N)>(buf, ptw, lane);
+}
+
+// Sample and frame of stacked row f0 + f of a strip (f0: the strip's first
+// frame in its first sample): ds = (f0 + f) / n_frames by one __umulhi with
+// magic = ceil(2^32 / n_frames), exact for numerators and n_frames below
+// 2^16 (the launchers check n_frames + 64 < 2^16).
+__device__ __forceinline__ int2 frame_of(int f0, int f, int n_frames, unsigned int magic) {
+    const unsigned int a = f0 + f;
+    const int ds = n_frames == 1 ? (int)a : (int)__umulhi(a, magic);
+    return make_int2(ds, (int)a - ds * n_frames);
+}
+
+// A warp's walk over strip rows f = first, first + WARPS, .. < end: calls
+// body(f, z) with row f's packed taps. Row f is frame (f0 + f) mod n_frames
+// of sample (f0 + f) / n_frames after the strip's first sample ys0
+// (frame_of). Loading the next row's taps before row f's FFT ran no faster
+// on an H100 (PERF.md), so a row's loads come just before its FFT.
+template <int LOG2N, typename Body>
+__device__ __forceinline__ void walk_rows(int first, int end, const float* ys0, int f0,
+                                         int n_frames, int T, int hop, int lane, Body body) {
+    using P = FirstPass<LOG2N>;
+    const unsigned int magic = 0xffffffffu / n_frames + 1u;
+    for (int f = first; f < end; f += WARPS) {
+        const int2 sf = frame_of(f0, f, n_frames, magic);
+        const int start = sf.y * hop - P::N;  // centre pad of n_fft / 2 = N taps
+        float2 z[P::Q][P::R];
+        load_taps<LOG2N>(ys0 + (size_t)sf.x * T, start, T, lane, z);
+        body(f, z);
+    }
+}
+
+// Bins per lane: bin k = lane + 32q, q < kBins, k <= N.
+template <int LOG2N>
+constexpr int kBins = (1 << LOG2N) / 32 + 1;
+
+// |X[k]| (power: |X[k]|^2) of the real frame from its packed FFT Z in buf,
+// for the lane's bins k = lane + 32q <= N:
+// X[k] = ((Z[k] + conj Z[N-k]) - i W^k (Z[k] - conj Z[N-k])) / 2.
+template <int LOG2N>
+__device__ __forceinline__ void spectrum_bins(const float2* buf, const float2* tw, int lane,
+                                              bool power, float (&mag)[kBins<LOG2N>]) {
+    constexpr int N = 1 << LOG2N;
+#pragma unroll
+    for (int q = 0; q < kBins<LOG2N>; ++q) {
+        const int k = lane + 32 * q;
+        if (q + 1 < kBins<LOG2N> || k <= N) {
+            const float2 a = buf[padded(k & (N - 1))];
+            const float2 b = buf[padded((N - k) & (N - 1))];
+            const float2 s = make_float2(__fadd_rn(a.x, b.x), __fsub_rn(a.y, b.y));
+            const float2 d = make_float2(__fadd_rn(a.y, b.y), __fsub_rn(b.x, a.x));
+            const float2 wd = cmul(d, tw[k]);
+            const float re = __fmul_rn(0.5f, __fadd_rn(s.x, wd.x));
+            const float im = __fmul_rn(0.5f, __fadd_rn(s.y, wd.y));
+            const float p = fmaf(re, re, __fmul_rn(im, im));
+            mag[q] = power ? p : sqrtf(p);
+        }
+    }
+}
+
+// Copies the host table (tw[2N] = W_{2N}^m, then win[N] window pairs) into
+// shared memory.
+__device__ __forceinline__ void load_table(float2* dst, const float2* __restrict__ table,
+                                           int n) {
+    for (int i = threadIdx.x; i < n; i += THREADS) dst[i] = __ldg(table + i);
 }
 
 // Counts this block's arrival at sample b, which `blocks` blocks touch,
@@ -339,126 +474,130 @@ __device__ void normalize_sample(float* __restrict__ out, signed char* __restric
     }
 }
 
-// One block per (64-row strip, 32-bin tile) of a group of `tile` samples
-// (grid.y: the group). frame_major: `out` is [B, n_frames, n_bins] (the
-// tile grid's float result, or the int8 path's scratch); else [B, n_bins,
-// n_frames] (the sample grid, tile == 1). Both kernels take the layout as
-// a runtime flag: it picks one of two store loops per block (or per
-// sample's epilogue), outside every inner loop, so a template would gain
-// nothing. kInt8: the result is out8 [B, n_frames, n_bins] int8 (needs
+// One block per 64-row strip of a group of `tile` samples (grid.y: the
+// group), all bins. frame_major: `out` is [B, n_frames, F] (the tile
+// grid's float result, or the int8 path's scratch), else [B, F, n_frames]
+// (the sample grid, tile == 1), through the strip tile in `sub_rows`-row
+// sub-strips. kInt8: the result is out8 [B, n_frames, F] int8 (needs
 // frame_major). layout[g] = (first strip, strips) of the group's sample g;
-// tile_minmax holds `slots` (min, max) pairs per sample, one per (strip,
-// bin tile) that touches it.
-// 4 blocks per SM, which holds ptxas to 128 registers: with both tile
-// loops inlined it took 138-142 and the int8 kernel ran 4-6 % slower on an
-// H100 (no spills at 128).
-template <bool kInt8>
-__global__ void __launch_bounds__(THREADS, 4)
-frontend_linear_kernel(const float* __restrict__ y,      // [B, T]
-                       const float* __restrict__ bases,  // [2, n_fft, f_pad]: cos, sin
+// strip_minmax holds `slots` (min, max) pairs per sample, one per strip
+// that touches it.
+template <int LOG2N, bool kInt8>
+__global__ void __launch_bounds__(THREADS, 2)
+frontend_linear_kernel(const float* __restrict__ y,        // [B, T]
+                       const float2* __restrict__ table,   // [3N]: tw, win
                        float* __restrict__ out,
                        signed char* __restrict__ out8,
-                       float* __restrict__ tile_minmax,  // [B, slots, 2]
+                       float* __restrict__ strip_minmax,   // [B, slots, 2]
                        unsigned int* __restrict__ arrived,  // [B], zero on entry and exit
                        const int2* __restrict__ layout,     // [tile]
-                       int T, int n_fft, int hop, int n_frames, int n_bins,
-                       int f_pad, int tile, int slots, bool frame_major, float inv_scale,
-                       float zp) {
-    __shared__ __align__(16) float As[BK][AS];  // frame tile, [tap][row]; later [bin][row]
-    __shared__ __align__(16) float Cs[BK][BN];  // cos bases tile
-    __shared__ __align__(16) float Ss[BK][BN];  // sin bases tile
+                       int T, int hop, int n_frames, int tile, int slots, int sub_rows,
+                       bool frame_major, float inv_scale, float zp) {
+    constexpr int N = 1 << LOG2N, F = N + 1, KB = kBins<LOG2N>;
+    extern __shared__ __align__(16) float2 smem2[];
+    constexpr int PT = pass_twiddle_slots(LOG2N, LOG2N);
+    float2* tw = smem2;                                  // [2N]
+    float2* win = tw + 2 * N;                            // [N]
+    float2* ptw = win + N;                               // [PT]
+    float2* buf = ptw + PT + (threadIdx.x / 32) * buffer_slots(N);  // this warp's
+    float* stile = reinterpret_cast<float*>(ptw + PT + WARPS * buffer_slots(N));  // [F][ld]
+    __shared__ float row_min[BM], row_max[BM];
     __shared__ float s_min[WARPS], s_max[WARPS];
     __shared__ bool is_last;
 
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    load_table(smem2, table, 3 * N);
+    __syncthreads();
+    fill_pass_twiddles<LOG2N, pass_log2_radix(LOG2N)>(ptw, tw);
+    __syncthreads();
+
     const int group = blockIdx.y;
     const int n_rows = tile * n_frames;
-    const int tiles_n = f_pad / BN;
-    const int strip = blockIdx.x / tiles_n;
+    const int strip = blockIdx.x;
     const int r0 = strip * BM;
-    const int n0 = (blockIdx.x % tiles_n) * BN;
-    const int t = threadIdx.x;
-    const int tx = t % (BN / TN);
-    const int ty = t / (BN / TN);
+    const int rows = min(BM, n_rows - r0);
+    const int s0 = r0 / n_frames;
+    const int f0 = r0 - s0 * n_frames;
+    const float* ys0 = y + ((size_t)group * tile + s0) * T;  // the strip's first sample
+    float* og = out + (size_t)group * n_rows * F;            // the group's rows
+    const int ld = sub_rows + 1;
 
-    float re[TM][TN], im[TM][TN];
-    const float* yg = y + (size_t)group * tile * T;
-    if (strip_in_one_sample(r0, n_rows, n_frames))
-        dft_tile<true>(yg, bases, As, Cs, Ss, r0, n0, T, n_fft, hop, n_frames, n_rows, f_pad,
-                       re, im);
-    else
-        dft_tile<false>(yg, bases, As, Cs, Ss, r0, n0, T, n_fft, hop, n_frames, n_rows, f_pad,
-                        re, im);
-
-    // Magnitudes -> shared [bin][row] staging.
+    for (int sub0 = 0; sub0 < rows; sub0 += sub_rows) {
+        const int sub_end = min(sub0 + sub_rows, rows);
+        walk_rows<LOG2N>(sub0 + warp, sub_end, ys0, f0, n_frames, T, hop, lane,
+                         [&](int f, float2 (&z)[FirstPass<LOG2N>::Q][FirstPass<LOG2N>::R]) {
+            frame_fft<LOG2N>(z, win, ptw, buf, lane);
+            float mag[KB];
+            spectrum_bins<LOG2N>(buf, tw, lane, false, mag);
+            float mn = INFINITY, mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-        float m[TM];
+            for (int q = 0; q < KB; ++q) {
+                if (q + 1 < KB || lane == 0) {
+                    mn = fminf(mn, mag[q]);
+                    mx = fmaxf(mx, mag[q]);
+                }
+            }
+            warp_minmax(mn, mx);
+            if (lane == 0) {
+                row_min[f] = mn;
+                row_max[f] = mx;
+            }
+            if (frame_major) {
+                float* orow = og + (size_t)(r0 + f) * F;
 #pragma unroll
-        for (int i = 0; i < TM; ++i) m[i] = sqrtf(re[i][j] * re[i][j] + im[i][j] * im[i][j]);
-        *reinterpret_cast<float4*>(&As[tx * TN + j][ty * TM]) =
-            make_float4(m[0], m[1], m[2], m[3]);
+                for (int q = 0; q < KB; ++q)
+                    if (q + 1 < KB || lane == 0) orow[lane + 32 * q] = mag[q];
+            } else {
+#pragma unroll
+                for (int q = 0; q < KB; ++q)
+                    if (q + 1 < KB || lane == 0) stile[(lane + 32 * q) * ld + f - sub0] = mag[q];
+            }
+        });
+        if (!frame_major) {
+            __syncthreads();
+            const int n = sub_end - sub0;
+            for (int k = warp; k < F; k += WARPS)
+                for (int f = lane; f < n; f += 32)
+                    og[(size_t)k * n_rows + r0 + sub0 + f] = stile[k * ld + f];
+            __syncthreads();
+        }
     }
     __syncthreads();
 
-    float* og = out + (size_t)group * n_rows * n_bins;  // the group's rows
-    if (frame_major) {
-        for (int e = t; e < BM * BN; e += THREADS) {
-            const int f = e / BN, n = e % BN;
-            if (n0 + n < n_bins && r0 + f < n_rows)
-                og[(size_t)(r0 + f) * n_bins + n0 + n] = As[n][f];
-        }
-    } else {
-        for (int e = t; e < BN * BM; e += THREADS) {
-            const int n = e / BM, f = e % BM;
-            if (n0 + n < n_bins && r0 + f < n_rows)
-                og[(size_t)(n0 + n) * n_rows + r0 + f] = As[n][f];
-        }
-    }
-
-    // The block's extrema over each sample it touches (the valid bins of
-    // that sample's rows [lo, hi) of the strip, read back from the staged
-    // tile), in that sample's slot.
-    const int g_lo = r0 / n_frames;
-    const int g_hi = (min(r0 + BM, n_rows) - 1) / n_frames;
-    for (int g = g_lo; g <= g_hi; ++g) {
-        const int lo = g * n_frames - r0, hi = lo + n_frames;
-        float lmin = INFINITY, lmax = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            if (n0 + tx * TN + j >= n_bins) continue;
-            const float4 v = *reinterpret_cast<const float4*>(&As[tx * TN + j][ty * TM]);
-            const float m[TM] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-            for (int i = 0; i < TM; ++i) {
-                if (ty * TM + i >= lo && ty * TM + i < hi) {
-                    lmin = fminf(lmin, m[i]);
-                    lmax = fmaxf(lmax, m[i]);
-                }
+    // The strip's extrema over each sample it touches, in that sample's slot.
+    const int g_hi = (r0 + rows - 1) / n_frames;
+    if (warp == 0) {
+        for (int g = s0; g <= g_hi; ++g) {
+            const int lo = max(g * n_frames - r0, 0), hi = min((g + 1) * n_frames - r0, rows);
+            float mn = INFINITY, mx = -INFINITY;
+            for (int f = lo + lane; f < hi; f += 32) {
+                mn = fminf(mn, row_min[f]);
+                mx = fmaxf(mx, row_max[f]);
+            }
+            warp_minmax(mn, mx);
+            if (lane == 0) {
+                float* mm = strip_minmax +
+                            ((size_t)(group * tile + g) * slots + strip - __ldg(&layout[g].x)) * 2;
+                mm[0] = mn;
+                mm[1] = mx;
             }
         }
-        block_minmax(lmin, lmax, s_min, s_max);
-        if (t == 0) {
-            const int slot = (strip - __ldg(&layout[g].x)) * tiles_n + blockIdx.x % tiles_n;
-            float* mm = tile_minmax + ((size_t)(group * tile + g) * slots + slot) * 2;
-            mm[0] = lmin;
-            mm[1] = lmax;
-        }
     }
 
-    // The last tile of a sample to arrive normalises the whole sample.
-    for (int g = g_lo; g <= g_hi; ++g) {
+    // The last strip of a sample to arrive normalises the whole sample.
+    for (int g = s0; g <= g_hi; ++g) {
         const int b = group * tile + g;
-        const int n_slots = __ldg(&layout[g].y) * tiles_n;
-        if (!last_to_arrive(arrived, b, n_slots, &is_last)) continue;
+        const int n_strips = __ldg(&layout[g].y);
+        if (!last_to_arrive(arrived, b, n_strips, &is_last)) continue;
 
         float mn = INFINITY, mx = -INFINITY;
-        for (int i = t; i < n_slots; i += THREADS) {
-            const float* mm = tile_minmax + ((size_t)b * slots + i) * 2;
+        for (int i = t; i < n_strips; i += THREADS) {
+            const float* mm = strip_minmax + ((size_t)b * slots + i) * 2;
             mn = fminf(mn, __ldcg(mm));
             mx = fmaxf(mx, __ldcg(mm + 1));
         }
         block_minmax(mn, mx, s_min, s_max);
-        normalize_sample<kInt8>(out, out8, b, (size_t)n_bins * n_frames, mn, mx - mn + 1e-10f,
+        normalize_sample<kInt8>(out, out8, b, (size_t)F * n_frames, mn, mx - mn + 1e-10f,
                                 inv_scale, zp);
     }
 }
@@ -605,113 +744,96 @@ __device__ void sample_epilogue(float* buf, int ld, int rows, int C, float* ob, 
     }
 }
 
-// One block per (64-row strip, mel chunk) of a group of `tile` samples
-// (grid.y: the group); layout as for the linear kernel. frame_major (as
-// for the linear kernel): `out` is [B, out_w, bins], else [B, bins, out_w].
-// At most 3 blocks per SM: a mel sample staged in shared memory (66.5 KB)
-// allows no more, and the bound lets ptxas use up to 170 registers (at its
-// default 128 the kernel spilled and ran 14 % slower on an H100).
+// One block per 64-row strip of a group of `tile` samples (grid.y: the
+// group), all mels; layout as for the linear kernel.
+// frame_major (as for the linear kernel): `out` is [B, out_w, bins], else
+// [B, bins, out_w]. mel_ranges[m] = (lo, hi, offset - lo) of mel m's bins
+// [lo, hi) and its weights mel_w[offset ..]. 3 blocks per SM: a staged
+// mel sample (66.5 KB) allows no more, and the bound keeps ptxas at 80
+// registers.
+template <int LOG2N>
 __global__ void __launch_bounds__(THREADS, 3)
-frontend_features_kernel(const float* __restrict__ y,       // [B, T]
-                         const float* __restrict__ bases,   // [2, n_fft, f_pad]
-                         const float* __restrict__ mel_fb,  // [f_pad, n_mel], zero rows past F
-                         const float* __restrict__ dct,     // [n_mel, n_mfcc] (mfcc)
-                         float* __restrict__ scratch,       // [B, n_frames, C]
-                         float* __restrict__ out,           // B * bins * out_w
-                         signed char* __restrict__ out8,    // [B, out_w, bins] or null
-                         unsigned int* __restrict__ arrived,  // [B], zero on entry and exit
-                         const int2* __restrict__ layout,     // [tile]
-                         int T, int n_fft, int hop, int n_frames, int n_bins, int f_pad,
-                         int n_mel, int n_mfcc, int out_w, int epi, float pcen_a,
-                         float pcen_b, int stage_in_smem, int tile, int frame_major,
-                         float inv_scale, float zp) {
-    extern __shared__ __align__(16) float smem[];  // the strip's tiles, then the sample
-    float (*As)[AS] = reinterpret_cast<float (*)[AS]>(smem);
-    float (*Cs)[BN] = reinterpret_cast<float (*)[BN]>(smem + BK * AS);
-    float (*Ss)[BN] = reinterpret_cast<float (*)[BN]>(smem + BK * AS + BK * BN);
+frontend_features_kernel(const float* __restrict__ y,         // [B, T]
+                         const float2* __restrict__ table,    // [3N]: tw, win
+                         const int4* __restrict__ mel_ranges,  // [n_mel]
+                         const float* __restrict__ mel_w,      // [n_nz]
+                         const float* __restrict__ dct,        // [n_mel, n_mfcc] (mfcc)
+                         float* __restrict__ scratch,          // [B, n_frames, C]
+                         float* __restrict__ out,              // B * bins * out_w
+                         signed char* __restrict__ out8,       // [B, out_w, bins] or null
+                         unsigned int* __restrict__ arrived,   // [B], zero on entry and exit
+                         const int2* __restrict__ layout,      // [tile]
+                         int T, int hop, int n_frames, int n_mel, int n_nz, int n_mfcc,
+                         int out_w, int epi, float pcen_a, float pcen_b, int stage_in_smem,
+                         int tile, int frame_major, float inv_scale, float zp) {
+    constexpr int N = 1 << LOG2N, KB = kBins<LOG2N>;
+    extern __shared__ __align__(16) float2 smem2[];  // the FFT's table and buffers, then the sample
+    float* smem = reinterpret_cast<float*>(smem2);
+    constexpr int PT = pass_twiddle_slots(LOG2N, LOG2N);
+    float2* tw = smem2;                                             // [2N]
+    float2* win = tw + 2 * N;                                       // [N]
+    float2* ptw = win + N;                                          // [PT]
+    float2* buf = ptw + PT + (threadIdx.x / 32) * buffer_slots(N);  // this warp's
+    int4* mr = reinterpret_cast<int4*>(ptw + PT + WARPS * buffer_slots(N));  // [n_mel]
+    float* mw = reinterpret_cast<float*>(mr + n_mel);                       // [n_nz]
     __shared__ float s_min[WARPS], s_max[WARPS];
     __shared__ bool is_last;
 
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    load_table(smem2, table, 3 * N);
+    for (int i = t; i < n_mel; i += THREADS) mr[i] = __ldg(mel_ranges + i);
+    for (int i = t; i < n_nz; i += THREADS) mw[i] = __ldg(mel_w + i);
+    __syncthreads();
+    fill_pass_twiddles<LOG2N, pass_log2_radix(LOG2N)>(ptw, tw);
+    __syncthreads();
+
     const int group = blockIdx.y;
     const int n_rows = tile * n_frames;
-    const int strips = (n_rows + BM - 1) / BM;
-    const int r0 = (blockIdx.x % strips) * BM;
-    const int chunks = gridDim.x / strips;
-    const int t = threadIdx.x;
-    const int tx = t % (BN / TN);
-    const int ty = t / (BN / TN);
-    const int C = n_mel > 0 ? n_mel : n_bins;
+    const int r0 = blockIdx.x * BM;
+    const int rows = min(BM, n_rows - r0);
+    const int s0 = r0 / n_frames;
+    const int f0 = r0 - s0 * n_frames;
+    const int C = n_mel > 0 ? n_mel : N + 1;
     const bool power = epi == EPI_MFCC;
+    const float* ys0 = y + ((size_t)group * tile + s0) * T;
     float* sg = scratch + (size_t)group * n_rows * C;  // the group's rows
-    const float* yg = y + (size_t)group * tile * T;
-    const bool one = strip_in_one_sample(r0, n_rows, n_frames);
 
-    // Mel product: thread t owns mel m of rows fm .. fm + MEL_FRAMES.
-    const int m = (blockIdx.x / strips) * MEL_CHUNK + t % MEL_CHUNK;
-    const int fm = (t / MEL_CHUNK) * MEL_FRAMES;
-    float mel[MEL_FRAMES];
+    walk_rows<LOG2N>(warp, rows, ys0, f0, n_frames, T, hop, lane,
+                     [&](int f, float2 (&z)[FirstPass<LOG2N>::Q][FirstPass<LOG2N>::R]) {
+        frame_fft<LOG2N>(z, win, ptw, buf, lane);
+        float mag[KB];
+        spectrum_bins<LOG2N>(buf, tw, lane, power, mag);
+        float* srow = sg + (size_t)(r0 + f) * C;
+        if (n_mel == 0) {
 #pragma unroll
-    for (int j = 0; j < MEL_FRAMES; ++j) mel[j] = 0.0f;
-
-    for (int n0 = 0; n0 < f_pad; n0 += BN) {
-        float re[TM][TN], im[TM][TN];
-        if (one)
-            dft_tile<true>(yg, bases, As, Cs, Ss, r0, n0, T, n_fft, hop, n_frames, n_rows,
-                           f_pad, re, im);
-        else
-            dft_tile<false>(yg, bases, As, Cs, Ss, r0, n0, T, n_fft, hop, n_frames, n_rows,
-                            f_pad, re, im);
-        // |X| (mfcc: |X|^2) -> As[bin][row]; bins past F are zero.
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            float v[TM];
-#pragma unroll
-            for (int i = 0; i < TM; ++i) {
-                v[i] = re[i][j] * re[i][j] + im[i][j] * im[i][j];
-                if (!power) v[i] = sqrtf(v[i]);
-            }
-            *reinterpret_cast<float4*>(&As[tx * TN + j][ty * TM]) =
-                make_float4(v[0], v[1], v[2], v[3]);
+            for (int q = 0; q < KB; ++q)
+                if (q + 1 < KB || lane == 0) srow[lane + 32 * q] = mag[q];
+            return;
         }
-        __syncthreads();
-        if (n_mel > 0) {
-            for (int kk = 0; kk < BN; ++kk) {
-                const float w = m < n_mel ? __ldg(mel_fb + (size_t)(n0 + kk) * n_mel + m) : 0.0f;
-                if (!__any_sync(0xffffffffu, w != 0.0f)) continue;  // adds exact zeros only
-                const float4* row = reinterpret_cast<const float4*>(&As[kk][fm]);
+        // Mel product from the frame's bins, staged in the warp's buffer.
+        float* bins = reinterpret_cast<float*>(buf);
+        __syncwarp();  // every lane has read the FFT
 #pragma unroll
-                for (int q = 0; q < MEL_FRAMES / 4; ++q) {
-                    const float4 a = row[q];
-                    mel[4 * q + 0] = fmaf(a.x, w, mel[4 * q + 0]);
-                    mel[4 * q + 1] = fmaf(a.y, w, mel[4 * q + 1]);
-                    mel[4 * q + 2] = fmaf(a.z, w, mel[4 * q + 2]);
-                    mel[4 * q + 3] = fmaf(a.w, w, mel[4 * q + 3]);
-                }
-            }
-        } else {
-            for (int e = t; e < BM * BN; e += THREADS) {
-                const int f = e / BN, k = e % BN;
-                if (r0 + f < n_rows && n0 + k < n_bins)
-                    sg[(size_t)(r0 + f) * C + n0 + k] = As[k][f];
-            }
+        for (int q = 0; q < KB; ++q)
+            if (q + 1 < KB || lane == 0) bins[lane + 32 * q] = mag[q];
+        __syncwarp();
+        for (int m = lane; m < n_mel; m += 32) {
+            const int4 r = mr[m];
+            float acc = 0.0f;
+            for (int k = r.x; k < r.y; ++k) acc = fmaf(bins[k], mw[r.z + k], acc);
+            srow[m] = acc;
         }
-        __syncthreads();
-    }
-    if (n_mel > 0 && m < n_mel) {
-#pragma unroll
-        for (int j = 0; j < MEL_FRAMES; ++j)
-            if (r0 + fm + j < n_rows) sg[(size_t)(r0 + fm + j) * C + m] = mel[j];
-    }
+    });
 
-    // Every sample the strip touches: the last of its blocks to arrive runs
-    // its epilogue.
-    const int g_hi = (min(r0 + BM, n_rows) - 1) / n_frames;
-    for (int g = r0 / n_frames; g <= g_hi; ++g) {
+    // Every sample the strip touches: the last of its strips to arrive
+    // runs its epilogue.
+    const int g_hi = (r0 + rows - 1) / n_frames;
+    for (int g = s0; g <= g_hi; ++g) {
         const int b = group * tile + g;
-        if (!last_to_arrive(arrived, b, __ldg(&layout[g].y) * chunks, &is_last)) continue;
+        if (!last_to_arrive(arrived, b, __ldg(&layout[g].y), &is_last)) continue;
 
         float* sb = scratch + (size_t)b * n_frames * C;
-        float* buf = sb;
+        float* sbuf = sb;
         int ld = C;
         if (stage_in_smem) {
             // __ldcg reads through L2: other blocks' writes are not in this SM's L1.
@@ -719,10 +841,10 @@ frontend_features_kernel(const float* __restrict__ y,       // [B, T]
             for (int e = t; e < n_frames * C; e += THREADS)
                 smem[(e / C) * ld + e % C] = __ldcg(sb + e);
             __syncthreads();
-            buf = smem;
+            sbuf = smem;
         }
         const int bins = epi == EPI_MFCC ? n_mfcc : C;
-        sample_epilogue(buf, ld, n_frames, C, out + (size_t)b * bins * out_w, out_w,
+        sample_epilogue(sbuf, ld, n_frames, C, out + (size_t)b * bins * out_w, out_w,
                         frame_major != 0, epi, dct, n_mfcc, pcen_a, pcen_b, s_min, s_max,
                         out8 ? out8 + (size_t)b * bins * out_w : nullptr, inv_scale, zp);
     }
@@ -730,109 +852,254 @@ frontend_features_kernel(const float* __restrict__ y,       // [B, T]
 
 }  // namespace
 
-extern "C" {
+namespace {
 
-// The rows of a strip and the bins of a bin tile: the host's tile_layout
-// and bin padding use these.
-int frontend_strip_rows() { return BM; }
-int frontend_bin_tile() { return BN; }
-
-// Bins padded to a whole number of block tiles: the bases' row length.
-int frontend_linear_bin_pad(int n_fft) {
-    const int n_bins = n_fft / 2 + 1;
-    return (n_bins + BN - 1) / BN * BN;
+// log2 N (N = n_fft / 2) for a power-of-two n_fft in 64..2048, else -1.
+int log2_points(int n_fft) {
+    if (n_fft < 2 << MIN_LOG2_N || n_fft > 2 << MAX_LOG2_N || (n_fft & (n_fft - 1))) return -1;
+    int lg = MIN_LOG2_N;
+    while ((2 << lg) < n_fft) ++lg;
+    return lg;
 }
 
 // The checks both launchers share: B samples in groups of `tile`, one
 // group per grid row; the freq-major layout only with tile == 1 and
 // without int8 codes.
-static bool bad_geometry(int B, int tile, int n_fft, int hop, int n_frames, int frame_major,
-                         const signed char* out8) {
-    return B <= 0 || tile <= 0 || B % tile != 0 || B / tile > 65535 || n_fft % BK != 0 ||
+bool bad_geometry(int B, int tile, int n_fft, int hop, int n_frames, int frame_major,
+                  const signed char* out8) {
+    return B <= 0 || tile <= 0 || B % tile != 0 || B / tile > 65535 || log2_points(n_fft) < 0 ||
            2 * hop < n_fft || n_frames <= 0 || n_frames + BM > 65535 ||
-           n_frames > (1 << 30) / tile ||
-           (!frame_major && (tile != 1 || out8));
+           n_frames > (1 << 30) / tile || (!frame_major && (tile != 1 || out8));
 }
 
+// The kernel's opt-in shared memory less its static shared memory.
+template <typename Kernel>
+cudaError_t dynamic_smem_limit(Kernel kernel, size_t* limit) {
+    int dev = 0, optin = 0;
+    cudaFuncAttributes attr;
+    cudaError_t rc = cudaGetDevice(&dev);
+    if (rc == cudaSuccess)
+        rc = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (rc == cudaSuccess) rc = cudaFuncGetAttributes(&attr, kernel);
+    *limit = rc == cudaSuccess && (size_t)optin > attr.sharedSizeBytes
+                 ? (size_t)optin - attr.sharedSizeBytes : 0;
+    return rc;
+}
+
+// Sets `kernel`'s dynamic shared memory to `smem` bytes; with `occupancy`
+// (*query: the caller stops there), stores (smem, blocks per SM) in it.
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem, int* occupancy, bool* query) {
+    *query = occupancy != nullptr;
+    cudaError_t rc = cudaSuccess;
+    if (smem > 48 * 1024)
+        rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc == cudaSuccess && occupancy) {
+        occupancy[0] = (int)smem;
+        rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy + 1, kernel, THREADS, smem);
+    }
+    return rc;
+}
+
+// Dynamic shared memory of the FFT stage: the table, the passes' twiddle
+// rows and the warps' buffers.
+size_t fft_smem(int lg) {
+    const size_t n = (size_t)1 << lg;
+    return sizeof(float2) * (3 * n + pass_twiddle_slots(lg, lg) + WARPS * buffer_slots((int)n));
+}
+
+struct LinearArgs {
+    const float* y;
+    const float2* table;
+    float* out;
+    signed char* out8;
+    float* strip_minmax;
+    unsigned int* arrived;
+    const int2* layout;
+    int B, T, hop, n_frames, tile, slots, frame_major;
+    float inv_scale, zp;
+    cudaStream_t stream;
+};
+
+// Launches the linear kernel, or with `occupancy` reports its shared
+// memory and blocks per SM. Freq-major launches take the largest strip
+// tile of 64, 32, 16 or 8 rows that fits.
+template <int LOG2N, bool kInt8>
+int linear_run(const LinearArgs& a, int* occupancy) {
+    const auto kernel = frontend_linear_kernel<LOG2N, kInt8>;
+    size_t limit = 0;
+    cudaError_t rc = dynamic_smem_limit(kernel, &limit);
+    if (rc != cudaSuccess) return (int)rc;
+    int sub_rows = BM;
+    size_t smem = fft_smem(LOG2N);
+    if (!a.frame_major) {
+        const size_t row_bytes = sizeof(float) * ((1 << LOG2N) + 1);
+        while (sub_rows >= WARPS && fft_smem(LOG2N) + row_bytes * (sub_rows + 1) > limit)
+            sub_rows /= 2;
+        smem += row_bytes * (sub_rows + 1);
+    }
+    if (sub_rows < WARPS || smem > limit) return (int)cudaErrorInvalidValue;
+    bool query = false;
+    rc = prepare(kernel, smem, occupancy, &query);
+    if (rc != cudaSuccess || query) return (int)rc;
+    const dim3 grid((a.tile * a.n_frames + BM - 1) / BM, a.B / a.tile);
+    kernel<<<grid, THREADS, smem, a.stream>>>(
+        a.y, a.table, a.out, a.out8, a.strip_minmax, a.arrived, a.layout, a.T, a.hop,
+        a.n_frames, a.tile, a.slots, sub_rows, a.frame_major != 0, a.inv_scale, a.zp);
+    return (int)cudaGetLastError();
+}
+
+template <bool kInt8>
+int linear_dispatch(int lg, const LinearArgs& a, int* occupancy) {
+    switch (lg) {
+        case 5: return linear_run<5, kInt8>(a, occupancy);
+        case 6: return linear_run<6, kInt8>(a, occupancy);
+        case 7: return linear_run<7, kInt8>(a, occupancy);
+        case 8: return linear_run<8, kInt8>(a, occupancy);
+        case 9: return linear_run<9, kInt8>(a, occupancy);
+        case 10: return linear_run<10, kInt8>(a, occupancy);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+struct FeaturesArgs {
+    const float* y;
+    const float2* table;
+    const int4* mel_ranges;
+    const float* mel_w;
+    const float* dct;
+    float* scratch;
+    float* out;
+    signed char* out8;
+    unsigned int* arrived;
+    const int2* layout;
+    int B, T, hop, n_frames, n_mel, n_nz, n_mfcc, out_w, epi;
+    float pcen_a, pcen_b;
+    int tile, frame_major;
+    float inv_scale, zp;
+    cudaStream_t stream;
+};
+
+// Launches the features kernel, or with `occupancy` reports its shared
+// memory and blocks per SM. The sample is staged in shared memory when it
+// fits, after the FFT stage in the same buffer.
+template <int LOG2N>
+int features_run(const FeaturesArgs& a, int* occupancy) {
+    const auto kernel = frontend_features_kernel<LOG2N>;
+    size_t limit = 0;
+    cudaError_t rc = dynamic_smem_limit(kernel, &limit);
+    if (rc != cudaSuccess) return (int)rc;
+    const int C = a.n_mel > 0 ? a.n_mel : (1 << LOG2N) + 1;
+    const size_t strip_bytes =
+        fft_smem(LOG2N) + sizeof(int4) * a.n_mel + sizeof(float) * a.n_nz;
+    const size_t sample_bytes = sizeof(float) * (size_t)a.n_frames * (C + 1);
+    const int stage_in_smem = sample_bytes <= limit;
+    const size_t smem = stage_in_smem && sample_bytes > strip_bytes ? sample_bytes : strip_bytes;
+    if (smem > limit) return (int)cudaErrorInvalidValue;
+    bool query = false;
+    rc = prepare(kernel, smem, occupancy, &query);
+    if (rc != cudaSuccess || query) return (int)rc;
+    const dim3 grid((a.tile * a.n_frames + BM - 1) / BM, a.B / a.tile);
+    kernel<<<grid, THREADS, smem, a.stream>>>(
+        a.y, a.table, a.mel_ranges, a.mel_w, a.dct, a.scratch, a.out, a.out8, a.arrived,
+        a.layout, a.T, a.hop, a.n_frames, a.n_mel, a.n_nz, a.n_mfcc, a.out_w, a.epi, a.pcen_a,
+        a.pcen_b, stage_in_smem, a.tile, a.frame_major, a.inv_scale, a.zp);
+    return (int)cudaGetLastError();
+}
+
+int features_dispatch(int lg, const FeaturesArgs& a, int* occupancy) {
+    switch (lg) {
+        case 5: return features_run<5>(a, occupancy);
+        case 6: return features_run<6>(a, occupancy);
+        case 7: return features_run<7>(a, occupancy);
+        case 8: return features_run<8>(a, occupancy);
+        case 9: return features_run<9>(a, occupancy);
+        case 10: return features_run<10>(a, occupancy);
+    }
+    return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The rows of a strip: the host's tile_layout uses it.
+int frontend_strip_rows() { return BM; }
+
 // Launches the linear kernel on `stream` and returns cudaGetLastError()
-// (0 = ok). Samples go in groups of `tile` (B % tile == 0; 1 is the sample
-// grid); `layout` holds, for each sample g of a group, (first strip,
-// strips) as int pairs (ops/kernels/frontend_kernel.py::tile_layout).
+// (0 = ok). `table` is the FFT table of n_fft (a power of two in 64..2048:
+// W^m = exp(-2 pi i m / n_fft) for m < n_fft as (re, im) pairs, then the
+// Hann window). Samples go in groups of `tile` (B % tile == 0; 1 is the
+// sample grid); `layout` holds, for each sample g of a group, (first
+// strip, strips) as int pairs (ops/kernels/frontend_kernel.py::tile_layout).
 // `out` holds B * bins * n_frames floats: the result, [B, bins, W] or with
 // frame_major [B, W, bins], or with `out8` (B * n_frames * bins int8, the
 // codes [B, W, bins]; needs frame_major) the scratch. `arrived` must hold B
-// zeros, and holds B zeros again when the kernel ends; `tile_minmax`
-// B * slots * 2 floats, slots >= the most strips a sample touches times
-// the bin tiles.
-int frontend_linear(const float* y, const float* bases, float* out, signed char* out8,
-                    float* tile_minmax, unsigned int* arrived, const int* layout, int B, int T,
+// zeros, and holds B zeros again when the kernel ends; `strip_minmax`
+// B * slots * 2 floats, slots >= the most strips a sample touches.
+int frontend_linear(const float* y, const float* table, float* out, signed char* out8,
+                    float* strip_minmax, unsigned int* arrived, const int* layout, int B, int T,
                     int n_fft, int hop, int n_frames, int tile, int slots, int frame_major,
                     float inv_scale, int zp, void* stream) {
-    if (bad_geometry(B, tile, n_fft, hop, n_frames, frame_major, out8))
+    if (bad_geometry(B, tile, n_fft, hop, n_frames, frame_major, out8) || slots <= 0)
         return (int)cudaErrorInvalidValue;
-    const int f_pad = frontend_linear_bin_pad(n_fft);
-    const int strips = (tile * n_frames + BM - 1) / BM;
-    const dim3 grid(strips * (f_pad / BN), B / tile);
-    const int2* lay = reinterpret_cast<const int2*>(layout);
-    cudaStream_t s = (cudaStream_t)stream;
-    if (out8)
-        frontend_linear_kernel<true><<<grid, THREADS, 0, s>>>(
-            y, bases, out, out8, tile_minmax, arrived, lay, T, n_fft, hop, n_frames,
-            n_fft / 2 + 1, f_pad, tile, slots, true, inv_scale, (float)zp);
-    else
-        frontend_linear_kernel<false><<<grid, THREADS, 0, s>>>(
-            y, bases, out, nullptr, tile_minmax, arrived, lay, T, n_fft, hop, n_frames,
-            n_fft / 2 + 1, f_pad, tile, slots, frame_major != 0, 0.0f, 0.0f);
-    return (int)cudaGetLastError();
+    const LinearArgs a{y, reinterpret_cast<const float2*>(table), out, out8, strip_minmax,
+                       arrived, reinterpret_cast<const int2*>(layout), B, T, hop, n_frames,
+                       tile, slots, out8 ? 1 : frame_major, out8 ? inv_scale : 0.0f,
+                       out8 ? (float)zp : 0.0f, (cudaStream_t)stream};
+    const int lg = log2_points(n_fft);
+    return out8 ? linear_dispatch<true>(lg, a, nullptr) : linear_dispatch<false>(lg, a, nullptr);
 }
 
 // Launches the features kernel on `stream`; returns a cudaError_t (0 = ok).
-// `epi` is an Epilogue; n_mel 0 means no mel product (linear bins). `mel_fb`
-// is [bin_pad, n_mel] with zero rows past n_fft/2+1, `dct` [n_mel, n_mfcc]
-// (mfcc only), `scratch` B * n_frames * C floats (C = n_mel, or the bins),
-// `out` B * bins * out_w floats (bins = n_mfcc for mfcc, else C): the
-// result, [B, bins, out_w] or with frame_major [B, out_w, bins]; out_w ==
-// n_frames except for mfcc. With `out8` (B * out_w * bins int8; needs
-// frame_major) the codes go there, frame-major, and `out` is scratch.
-// `tile`, `layout` and `arrived` as for frontend_linear.
-int frontend_features(const float* y, const float* bases, const float* mel_fb,
-                      const float* dct, float* scratch, float* out, signed char* out8,
-                      unsigned int* arrived, const int* layout, int B, int T, int n_fft,
-                      int hop, int n_frames, int n_mel, int n_mfcc, int out_w, int epi,
-                      float pcen_a, float pcen_b, int tile, int frame_major, float inv_scale,
-                      int zp, void* stream) {
-    const int n_bins = n_fft / 2 + 1;
-    const int C = n_mel > 0 ? n_mel : n_bins;
+// `epi` is an Epilogue; n_mel 0 means no mel product (linear bins). The
+// mel bank is compact: `mel_ranges` [n_mel, 4] ints, mel m's nonzero bins
+// [lo, hi) and its weights' offset less lo (the third int; the fourth is
+// unused), `mel_w` its n_nz weights. `dct` is [n_mel, n_mfcc] (mfcc only),
+// `scratch` B * n_frames * C floats (C = n_mel, or the bins), `out`
+// B * bins * out_w floats (bins = n_mfcc for mfcc, else C): the result,
+// [B, bins, out_w] or with frame_major [B, out_w, bins]; out_w == n_frames
+// except for mfcc. With `out8` (B * out_w * bins int8; needs frame_major)
+// the codes go there, frame-major, and `out` is scratch. `table`, `tile`,
+// `layout` and `arrived` as for frontend_linear.
+int frontend_features(const float* y, const float* table, const int* mel_ranges,
+                      const float* mel_w, const float* dct, float* scratch, float* out,
+                      signed char* out8, unsigned int* arrived, const int* layout, int B, int T,
+                      int n_fft, int hop, int n_frames, int n_mel, int n_nz, int n_mfcc,
+                      int out_w, int epi, float pcen_a, float pcen_b, int tile, int frame_major,
+                      float inv_scale, int zp, void* stream) {
     if (bad_geometry(B, tile, n_fft, hop, n_frames, frame_major, out8) || n_mel < 0 ||
-        epi < EPI_NONE || epi > EPI_MFCC ||
-        (epi == EPI_MFCC ? (n_mel == 0 || n_mfcc <= 0 || out_w <= 0 || out_w > n_frames)
+        n_nz < 0 || (n_mel > 0 && (!mel_ranges || (n_nz > 0 && !mel_w))) || epi < EPI_NONE ||
+        epi > EPI_MFCC ||
+        (epi == EPI_MFCC ? (n_mel == 0 || n_mfcc <= 0 || out_w <= 0 || out_w > n_frames || !dct)
                          : out_w != n_frames))
         return (int)cudaErrorInvalidValue;
-    int dev = 0, optin = 0;
-    cudaFuncAttributes attr;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-            cudaSuccess ||
-        cudaFuncGetAttributes(&attr, frontend_features_kernel) != cudaSuccess)
-        return (int)cudaGetLastError();
-    const size_t tile_bytes = sizeof(float) * TILE_FLOATS;
-    const size_t sample_bytes = sizeof(float) * (size_t)n_frames * (C + 1);
-    const int stage_in_smem = sample_bytes + attr.sharedSizeBytes <= (size_t)optin;
-    const size_t smem = stage_in_smem && sample_bytes > tile_bytes ? sample_bytes : tile_bytes;
-    if (smem > 48 * 1024) {
-        const cudaError_t rc = cudaFuncSetAttribute(
-            frontend_features_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (rc != cudaSuccess) return (int)rc;
-    }
-    const int strips = (tile * n_frames + BM - 1) / BM;
-    const int chunks = n_mel > 0 ? (n_mel + MEL_CHUNK - 1) / MEL_CHUNK : 1;
-    const dim3 grid(strips * chunks, B / tile);
-    frontend_features_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        y, bases, mel_fb, dct, scratch, out, out8, arrived,
-        reinterpret_cast<const int2*>(layout), T, n_fft, hop, n_frames, n_bins,
-        frontend_linear_bin_pad(n_fft), n_mel, n_mfcc, out_w, epi, pcen_a, pcen_b,
-        stage_in_smem, tile, frame_major, inv_scale, (float)zp);
-    return (int)cudaGetLastError();
+    const FeaturesArgs a{y, reinterpret_cast<const float2*>(table),
+                         reinterpret_cast<const int4*>(mel_ranges), mel_w, dct, scratch, out,
+                         out8, arrived, reinterpret_cast<const int2*>(layout), B, T, hop,
+                         n_frames, n_mel, n_nz, n_mfcc, out_w, epi, pcen_a, pcen_b, tile,
+                         frame_major, inv_scale, (float)zp, (cudaStream_t)stream};
+    return features_dispatch(log2_points(n_fft), a, nullptr);
+}
+
+// The dynamic shared memory (bytes) and the blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the linear kernel for
+// n_fft, into out[0] and out[1]; returns a cudaError_t.
+int frontend_linear_occupancy(int n_fft, int frame_major, int int8, int* out) {
+    LinearArgs a{};
+    a.frame_major = int8 ? 1 : frame_major;
+    const int lg = log2_points(n_fft);
+    return int8 ? linear_dispatch<true>(lg, a, out) : linear_dispatch<false>(lg, a, out);
+}
+
+// The same for the features kernel at n_frames frames, n_mel mels (0: the
+// linear bins) and n_nz mel weights.
+int frontend_features_occupancy(int n_fft, int n_frames, int n_mel, int n_nz, int* out) {
+    FeaturesArgs a{};
+    a.n_frames = n_frames;
+    a.n_mel = n_mel;
+    a.n_nz = n_nz;
+    return features_dispatch(log2_points(n_fft), a, out);
 }
 
 }  // extern "C"

@@ -3,7 +3,10 @@ ops/pallas/frontend_kernel.py).
 
 The TPU kernels `_kernel` (grid="sample") and `_kernel_tile` (grid="tile")
 become two hand-written CUDA kernels for Hopper in
-ops/csrc/frontend_kernel.cu, which share one DFT tile loop:
+ops/csrc/frontend_kernel.cu, built on one in-block real FFT (a warp per
+frame: the n_fft taps packed as n_fft/2 complex points, radix-8/4
+Stockham passes in registers and the warp's shared memory, the split
+post-processing to n_fft/2 + 1 bins):
 
 - the linear kernel: mode="linear", mag_scale="none", the hybrid frontend;
 - the features kernel: every other float epilogue of `_sample_epilogue`,
@@ -18,8 +21,16 @@ into the INT8 executor's entry tensor [B, 1, W, bins] (the graph's entry
 QUANTIZE -> TRANSPOSE folded in). Its codes equal the executor's quantize
 of the float kernel's output, bit for bit.
 
-The source note says what bounds them (bytes; in practice their fp32 FMA
-DFT) and how the design handles a sample larger than shared memory.
+The source note says what bounds them (bytes; then the per-sample tail:
+the min-max normalisation pass, pcen's scan) and what the design does
+about it. The host builds the FFT's table (`fft_table`: twiddles in
+float64 rounded once, and the float32 Hann window) and the mel bank's
+compact form (`mel_ranges`: each mel's nonzero bin range and weights).
+
+The kernels take n_fft as a power of two from 64 to 2048 (`fft_size_ok`);
+`frontend_input` sends any other n_fft to the composition, as it does a
+geometry with 2*hop < n_fft, and a CUDA call of `fused_spectrogram` with
+one raises ValueError.
 
 `fused_spectrogram` dispatches on the tensor's device and nothing else:
 
@@ -41,8 +52,9 @@ The two grids. grid="sample" gives each sample its own 64-row strips;
 grid="tile" stacks the frames of `batch_tile` samples along rows, as
 `_kernel_tile` does, and the same kernels walk the stack in strips that may
 straddle samples (`tile_layout` says which strips each sample of a group
-has; the kernel arrives at every sample it touches). Every sum keeps the
-sample grid's order, so both grids give the same values bit for bit; the
+has; the kernel arrives at every sample it touches). A frame's FFT and
+every sum are computed the same way whichever block does them, so both
+grids give the same values bit for bit; the
 tile grid writes its float features frame-major and returns them through a
 transposed view, as the TPU kernel's caller transposes outside the kernel.
 Only the frontend benchmark (scripts/bench_frontend.py) passes
@@ -69,11 +81,13 @@ from birdnet_stm32_tpu_torch.ops.spectrogram import (
     spectrogram_batch,
     spectrogram_epilogue,
 )
-from birdnet_stm32_tpu_torch.ops.stft import dft_bases_tensor, stft_magnitude
+from birdnet_stm32_tpu_torch.ops.stft import hann_window, stft_magnitude
 from birdnet_stm32_tpu_torch.quant.tflite_import import f32_reciprocal, quantize_f32
 
 # Rows of a strip, the kernels' BM (checked against the built library).
 STRIP_ROWS = 64
+# The n_fft the kernels' FFT takes: powers of two in this range.
+MIN_N_FFT, MAX_N_FFT = 64, 2048
 # Kernel launches since the last clear(), by kernel_name(mode, mag_scale,
 # quant, grid); the plain (CPU) path never counts.
 launches: collections.Counter[str] = collections.Counter()
@@ -163,24 +177,60 @@ def quantize_entry(S: torch.Tensor, quant: tuple[float, int]) -> torch.Tensor:
     return quantize_f32(S.transpose(1, 2), f32_reciprocal(scale, S.device), int(zp))[:, None]
 
 
+def fft_size_ok(n_fft: int) -> bool:
+    """Whether the kernels' FFT takes n_fft: a power of two in 64..2048."""
+    return MIN_N_FFT <= n_fft <= MAX_N_FFT and n_fft & (n_fft - 1) == 0
+
+
+def fft_table(n_fft: int) -> np.ndarray:
+    """[3 * n_fft] float32, the kernels' FFT table: W^m = exp(-2 pi i m /
+    n_fft) for m < n_fft as (re, im) pairs, built in float64 and rounded
+    once (as ops/stft.py's DFT bases are), then the periodic Hann window
+    `hann_window(n_fft)`."""
+    ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    tw = np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+    return np.concatenate([tw.ravel(), hann_window(n_fft)])
+
+
+def mel_ranges(sample_rate: int, n_fft: int, mel_bins: int) -> tuple[np.ndarray, np.ndarray]:
+    """The Slaney mel bank (fmin 150, fmax sr//2) in the kernels' compact
+    form: ([mel_bins, 4] int32 rows (lo, hi, offset - lo, 0), [n_nz]
+    float32 weights). Mel m's nonzero bins are [lo, hi) and its weights
+    weights[offset : offset + hi - lo], zeros inside the range kept, so
+    summing them in increasing bin order adds what the dense product does
+    but its exact zeros. A mel with no nonzero weight has lo == hi == 0."""
+    fb = mel_filterbank(sample_rate, n_fft, mel_bins, fmin=150.0, fmax=float(sample_rate // 2))
+    ranges = np.zeros((mel_bins, 4), dtype=np.int32)
+    weights, offset = [], 0
+    for m in range(mel_bins):
+        nz = np.flatnonzero(fb[:, m])
+        if nz.size == 0:
+            continue
+        lo, hi = int(nz[0]), int(nz[-1]) + 1
+        ranges[m, :3] = (lo, hi, offset - lo)
+        weights.append(fb[lo:hi, m])
+        offset += hi - lo
+    return ranges, (np.concatenate(weights) if weights else np.zeros(0, np.float32))
+
+
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     from birdnet_stm32_tpu_torch.ops.kernels import _build
 
     lib = _build.load("frontend_kernel")
-    for fn in (lib.frontend_strip_rows, lib.frontend_bin_tile):
-        fn.argtypes = []
-        fn.restype = ctypes.c_int
-    lib.frontend_linear_bin_pad.argtypes = [ctypes.c_int]
-    lib.frontend_linear_bin_pad.restype = ctypes.c_int
+    lib.frontend_strip_rows.argtypes = []
+    lib.frontend_strip_rows.restype = ctypes.c_int
     lib.frontend_linear.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                                       ctypes.c_void_p])
-    lib.frontend_linear.restype = ctypes.c_int
     lib.frontend_features.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float] * 2
         + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    lib.frontend_features.restype = ctypes.c_int
+    lib.frontend_linear_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.frontend_features_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    for fn in (lib.frontend_linear, lib.frontend_features, lib.frontend_linear_occupancy,
+               lib.frontend_features_occupancy):
+        fn.restype = ctypes.c_int
     if lib.frontend_strip_rows() != STRIP_ROWS:
         raise RuntimeError(f"frontend_kernel.cu strips {lib.frontend_strip_rows()} rows, "
                            f"tile_layout assumes {STRIP_ROWS}")
@@ -188,26 +238,17 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=16)
-def _kernel_bases(n_fft: int, f_pad: int, device: torch.device) -> torch.Tensor:
-    """[2, n_fft, f_pad] windowed cos/sin bases, zero past F; built once
-    per geometry and device."""
-    nbin = n_fft // 2 + 1
-    wcs = dft_bases_tensor(n_fft, device)
-    bases = torch.zeros(2, n_fft, f_pad, dtype=torch.float32, device=device)
-    bases[0, :, :nbin] = wcs[:, :nbin]
-    bases[1, :, :nbin] = wcs[:, nbin:]
-    return bases
+def _kernel_table(n_fft: int, device: torch.device) -> torch.Tensor:
+    """fft_table(n_fft) on `device`, built once per size and device."""
+    return torch.from_numpy(fft_table(n_fft)).to(device)
 
 
 @functools.lru_cache(maxsize=16)
-def _kernel_mel_bank(sample_rate: int, n_fft: int, mel_bins: int, f_pad: int,
-                     device: torch.device) -> torch.Tensor:
-    """[f_pad, mel_bins] Slaney mel bank (fmin 150, fmax sr//2), zero rows
-    past F."""
-    fb = torch.zeros(f_pad, mel_bins, dtype=torch.float32)
-    fb[: n_fft // 2 + 1] = torch.from_numpy(
-        mel_filterbank(sample_rate, n_fft, mel_bins, fmin=150.0, fmax=float(sample_rate // 2)))
-    return fb.to(device)
+def _kernel_mel(sample_rate: int, n_fft: int, mel_bins: int,
+                device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """mel_ranges(...) on `device`, built once per geometry and device."""
+    ranges, weights = mel_ranges(sample_rate, n_fft, mel_bins)
+    return torch.from_numpy(ranges).to(device), torch.from_numpy(weights).to(device)
 
 
 @functools.lru_cache(maxsize=16)
@@ -232,7 +273,8 @@ def _arrival_counter(B: int, device: torch.device, stream: int) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=16)
 def _kernel_layout(n_frames: int, tile: int, device: torch.device) -> tuple[torch.Tensor, int]:
-    """tile_layout on `device`, and the most strips a sample has."""
+    """tile_layout on `device`, and the most strips a sample has (the
+    linear kernel's extrema slots per sample)."""
     layout = tile_layout(n_frames, tile)
     return torch.from_numpy(layout).to(device), int(layout[:, 1].max())
 
@@ -240,8 +282,9 @@ def _kernel_layout(n_frames: int, tile: int, device: torch.device) -> tuple[torc
 def _check_launch(y: torch.Tensor, n_fft: int, tile: int) -> None:
     if not y.is_contiguous():
         raise ValueError("fused_spectrogram kernel needs a contiguous [B, T] tensor")
-    if n_fft % 32:
-        raise ValueError(f"fused_spectrogram kernel needs n_fft % 32 == 0, got {n_fft}")
+    if not fft_size_ok(n_fft):
+        raise ValueError(f"fused_spectrogram kernel needs n_fft a power of two in "
+                         f"{MIN_N_FFT}..{MAX_N_FFT}, got {n_fft}")
     if not 0 < y.shape[0] // tile <= 65535:
         raise ValueError(f"fused_spectrogram kernel takes 1..65535 groups of {tile} "
                          f"samples, got {y.shape[0]} samples")
@@ -272,24 +315,22 @@ def _launch_linear(y: torch.Tensor, n_fft: int, hop: int, n_frames: int,
                    quant: tuple[float, int] | None, tile: int | None) -> torch.Tensor:
     B, T = y.shape
     lib = _lib()
-    f_pad = lib.frontend_linear_bin_pad(n_fft)
-    bases = _kernel_bases(n_fft, f_pad, y.device)
+    table = _kernel_table(n_fft, y.device)
     nbin = n_fft // 2 + 1
     group = tile or 1
     frame_major = _frame_major(quant, tile)
-    layout, most_strips = _kernel_layout(n_frames, group, y.device)
-    slots = most_strips * (f_pad // lib.frontend_bin_tile())
+    layout, slots = _kernel_layout(n_frames, group, y.device)
     # The result, or with quant the frame-major scratch the codes come from.
     shape = (B, n_frames, nbin) if frame_major else (B, nbin, n_frames)
     out = torch.empty(shape, dtype=torch.float32, device=y.device)
     out8, inv_scale, zp = _int8_out(quant, B, n_frames, nbin, y.device)
-    tile_minmax = torch.empty(B, slots, 2, dtype=torch.float32, device=y.device)
+    strip_minmax = torch.empty(B, slots, 2, dtype=torch.float32, device=y.device)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         arrived = _arrival_counter(B, y.device, stream)
         rc = lib.frontend_linear(
-            y.data_ptr(), bases.data_ptr(), out.data_ptr(),
-            None if out8 is None else out8.data_ptr(), tile_minmax.data_ptr(),
+            y.data_ptr(), table.data_ptr(), out.data_ptr(),
+            None if out8 is None else out8.data_ptr(), strip_minmax.data_ptr(),
             arrived.data_ptr(), layout.data_ptr(), B, T, n_fft, hop, n_frames, group, slots,
             int(frame_major), inv_scale, zp, stream)
     if rc != 0:
@@ -305,10 +346,9 @@ def _launch_features(y: torch.Tensor, mode: str, mag_scale: str, sample_rate: in
                      tile: int | None) -> torch.Tensor:
     B, T = y.shape
     lib = _lib()
-    f_pad = lib.frontend_linear_bin_pad(n_fft)
-    bases = _kernel_bases(n_fft, f_pad, y.device)
+    table = _kernel_table(n_fft, y.device)
     n_mel = 0 if mode == "linear" else mel_bins
-    mel_fb = _kernel_mel_bank(sample_rate, n_fft, n_mel, f_pad, y.device) if n_mel else None
+    ranges, weights = _kernel_mel(sample_rate, n_fft, n_mel, y.device) if n_mel else (None, None)
     dct = _kernel_dct(n_mel, n_mfcc, y.device) if mode == "mfcc" else None
     channels = n_mel or n_fft // 2 + 1
     scratch = torch.empty(B, n_frames, channels, dtype=torch.float32, device=y.device)
@@ -327,11 +367,12 @@ def _launch_features(y: torch.Tensor, mode: str, mag_scale: str, sample_rate: in
         stream = torch.cuda.current_stream(y.device).cuda_stream
         arrived = _arrival_counter(B, y.device, stream)
         rc = lib.frontend_features(
-            y.data_ptr(), bases.data_ptr(), None if mel_fb is None else mel_fb.data_ptr(),
+            y.data_ptr(), table.data_ptr(), None if ranges is None else ranges.data_ptr(),
+            None if weights is None else weights.data_ptr(),
             None if dct is None else dct.data_ptr(), scratch.data_ptr(), out.data_ptr(),
             None if out8 is None else out8.data_ptr(), arrived.data_ptr(), layout.data_ptr(),
-            B, T, n_fft, hop, n_frames, n_mel, n_mfcc, out_w, epi, pcen_a, pcen_b, group,
-            int(frame_major), inv_scale, zp, stream)
+            B, T, n_fft, hop, n_frames, n_mel, 0 if weights is None else weights.numel(),
+            n_mfcc, out_w, epi, pcen_a, pcen_b, group, int(frame_major), inv_scale, zp, stream)
     if rc != 0:
         raise RuntimeError(f"frontend_features launch failed: cudaError {rc}")
     launches[kernel_name(mode, mag_scale, quant is not None,
@@ -388,6 +429,29 @@ def fused_spectrogram(y: torch.Tensor, mode: str = "linear", mag_scale: str = "n
     raise ValueError(f"fused_spectrogram runs on CUDA or CPU tensors, got {y.device}")
 
 
+def kernel_occupancy(mode: str, mag_scale: str = "none", quant: bool = False,
+                     grid: str = "sample", n_fft: int = 512, n_frames: int = 256,
+                     sample_rate: int = 22050, mel_bins: int = 64,
+                     device: torch.device | str = "cuda") -> dict[str, int]:
+    """The dynamic shared memory (bytes) and the blocks per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the kernel that
+    fused_spectrogram launches for this specialisation and geometry, on
+    the CUDA `device`."""
+    out = (ctypes.c_int * 2)()
+    lib = _lib()
+    with torch.cuda.device(device):
+        if mode == "linear" and mag_scale == "none":
+            rc = lib.frontend_linear_occupancy(n_fft, int(grid == "tile" or quant), int(quant),
+                                               out)
+        else:
+            n_mel = 0 if mode == "linear" else mel_bins
+            n_nz = mel_ranges(sample_rate, n_fft, n_mel)[1].size if n_mel else 0
+            rc = lib.frontend_features_occupancy(n_fft, n_frames, n_mel, n_nz, out)
+    if rc != 0:
+        raise RuntimeError(f"frontend kernel occupancy query failed: cudaError {rc}")
+    return {"dynamic_smem_bytes": out[0], "blocks_per_sm": out[1]}
+
+
 def fused_hybrid_frontend(y: torch.Tensor, n_fft: int, hop: int, n_frames: int,
                           batch_tile: int = 8, grid: str = "sample") -> torch.Tensor:
     """[B, T] -> [B, n_fft//2+1, n_frames] normalized |STFT| at an explicit
@@ -397,8 +461,10 @@ def fused_hybrid_frontend(y: torch.Tensor, n_fft: int, hop: int, n_frames: int,
 
 
 def _kernel_geometry_ok(cfg, T: int) -> bool:
+    """Whether the kernels take cfg's geometry: 2*hop >= n_fft and an n_fft
+    their FFT takes."""
     hop = max(1, T // cfg.spec_width)
-    return 2 * hop >= cfg.fft_length
+    return 2 * hop >= cfg.fft_length and fft_size_ok(cfg.fft_length)
 
 
 def frontend_input(y: torch.Tensor, cfg,
@@ -410,8 +476,9 @@ def frontend_input(y: torch.Tensor, cfg,
     (feed build_executor(prequantized_input=True)).
 
     As in the JAX dispatch, mag_scale is passed on only in mode 'mel', and
-    the composition (ops/frontend.inputs_for_config) serves only the 'raw'
-    frontend and geometries with 2*hop < n_fft. Its matmuls run with TF32
+    the composition (ops/frontend.inputs_for_config) serves the 'raw'
+    frontend and geometries with 2*hop < n_fft; here also an n_fft the
+    kernels' FFT does not take (not a power of two in 64..2048). Its matmuls run with TF32
     off; the kernels never use TF32. The composition has no int8 epilogue:
     `quant` there raises ValueError.
     """
@@ -420,7 +487,8 @@ def frontend_input(y: torch.Tensor, cfg,
         if quant is not None:
             raise ValueError(
                 "in-kernel quantization has no composition fallback (frontend "
-                f"{cfg.audio_frontend!r}, 2*hop >= n_fft required); callers gate "
+                f"{cfg.audio_frontend!r}; 2*hop >= n_fft and n_fft a power of two in "
+                f"{MIN_N_FFT}..{MAX_N_FFT} required); callers gate "
                 "on the kernel geometry and quantize in the executor")
         with full_fp32():
             return inputs_for_config(y, cfg)
@@ -433,7 +501,7 @@ def frontend_input(y: torch.Tensor, cfg,
 
 def hybrid_frontend_input(y: torch.Tensor, cfg) -> torch.Tensor:
     """[B, T] -> [B, F, W, 1] hybrid model input whatever cfg.audio_frontend
-    says; the composition serves geometries with 2*hop < n_fft."""
+    says; the composition serves the geometries the kernels do not take."""
     if _kernel_geometry_ok(cfg, y.shape[1]):
         return fused_spectrogram(y, n_fft=cfg.fft_length, spec_width=cfg.spec_width)[..., None]
     with full_fp32():

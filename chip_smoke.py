@@ -8,17 +8,23 @@ It imports nothing of JAX. In order it:
 
 1. turns TF32 off for matmuls and cuDNN;
 2. builds every CUDA kernel of the port from ops/csrc/ with nvcc and
-   prints the build seconds and the compiler's register/spill report;
+   prints the build seconds and the compiler's register/spill report, then
+   each kernel-phase specialisation's dynamic shared memory and blocks per
+   SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at the flagship
+   geometry;
 3. kernel phase: at the flagship geometry (B=64, T=66150, n_fft 512, hop
    258, 256 frames, 64 mels, 20 mfcc) holds each specialisation of the
    fused frontend kernels against its plain PyTorch version on the card
    (max abs <= 1e-5 for linear, 2e-5 for the others), times kernel, plain
    version and a torch.stft yardstick with CUDA events, and checks the
-   kernel again after the timing launches. The int8-entry specialisations
+   kernel again after the timing launches; each entry carries
+   fraction_of_bound = bound_ms / ms. The int8-entry specialisations
    (linear; mel + pwl), quantizing with the entry (scale, zero point) of
    the INT8 graph, must equal quantize(the float kernel's output) bit for
    bit, and quantize(the plain version) within one code on fewer than 1 %
-   of codes;
+   of codes. Then the FFT sizes: the linear and mel + pwl kernels at
+   n_fft 64, 128, 256, 1024 and 2048 (hop n_fft / 2, B=16, T=66150)
+   against their plain versions, within the same tolerances;
 4. slice phase: loads artifacts/flagship/bundle/model_config.json and
    derives one config per served frontend with dataclasses.replace:
    hybrid (the flagship) and librosa + pwl get three requests of 64 chunks
@@ -83,6 +89,10 @@ ROOT = Path(__file__).resolve().parent
 B, T, N_FFT, SPEC_WIDTH, N_MELS, N_MFCC, SR = 64, 66150, 512, 256, 64, 20, 22050
 REQUESTS = (64, 64, 64, 37)
 TILES = (2, 4, 8, 16)
+# The other n_fft the kernels' FFT takes (the flagship's 512 is the kernel
+# phase's), each at hop n_fft / 2 on SWEEP_B waveforms of T samples.
+SWEEP_N_FFT = (64, 128, 256, 1024, 2048)
+SWEEP_B = 16
 BENCH_B = 256
 # The bench's INT8 score agreement between its two feeds on 32 chunks: an
 # H100 80GB HBM3 read a min cosine of 0.999085 here; a feature near a code
@@ -167,6 +177,22 @@ def build_phase() -> None:
         for line in log.read_text().splitlines() if log.exists() else []:
             if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"ptxas {name}: {line.strip()}")
+
+
+def occupancy_phase() -> None:
+    """Each kernel-phase specialisation's dynamic shared memory and blocks
+    per SM at the flagship geometry."""
+    from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import kernel_name, kernel_occupancy
+
+    hop = T // SPEC_WIDTH
+    report = {}
+    for mode, mag, int8, _ in SPECS:
+        for grid in ("sample", "tile"):
+            n_frames = 1 + T // hop if mode == "mfcc" else SPEC_WIDTH
+            report[kernel_name(mode, mag, int8, grid)] = kernel_occupancy(
+                mode, mag, int8, grid, n_fft=N_FFT, n_frames=n_frames, sample_rate=SR,
+                mel_bins=N_MELS)
+    print(json.dumps({"occupancy": report}))
 
 
 def bound(np, mode: str, mag: str, n_frames: int, bins: int,
@@ -278,8 +304,38 @@ def kernel_phase(torch, np, quant: tuple[float, int]) -> list[dict]:
                         "replaces": f"{JAX_KERNEL}:" + ("126" if int8 else "154"),
                         "launches": None, "max_abs_err": max(err, err_after), "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": library_ms, "served_path": served})
+                        "fraction_of_bound": bound_ms / ms, "library_ms": library_ms,
+                        "served_path": served})
     return entries
+
+
+def sweep_phase(torch) -> None:
+    """The linear and mel + pwl kernels at every n_fft of SWEEP_N_FFT
+    against their plain versions (max abs 1e-5 / 2e-5)."""
+    from birdnet_stm32_tpu_torch.device import full_fp32
+    from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import (
+        fused_spectrogram,
+        fused_spectrogram_plain,
+    )
+
+    y = flagship_wave(torch)[:SWEEP_B].contiguous()
+    errs = {}
+    for n_fft in SWEEP_N_FFT:
+        hop = n_fft // 2
+        n_frames = T // hop
+        for mode, mag, tol in (("linear", "none", 1e-5), ("mel", "pwl", 2e-5)):
+            kw = dict(mode=mode, mag_scale=mag, sample_rate=SR, mel_bins=N_MELS)
+            with full_fp32():
+                got = fused_spectrogram(y, n_fft=n_fft, spec_width=n_frames, hop=hop,
+                                        n_frames=n_frames, **kw)
+                ref = fused_spectrogram_plain(y, n_fft, hop, n_frames, **kw)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item() if got.shape == ref.shape else math.inf
+            errs[f"{mode}_{mag}_n_fft_{n_fft}"] = err
+            if not (err <= tol and torch.isfinite(got).all()):
+                fail(f"{mode} + {mag} at n_fft {n_fft}: {tuple(got.shape)} vs "
+                     f"{tuple(ref.shape)}, max abs {err} > {tol}")
+    print(json.dumps({"fft_sizes_max_abs_vs_plain": errs}))
 
 
 def tile_phase(torch, np, quant: tuple[float, int], sample_entries: list[dict]) -> list[dict]:
@@ -339,6 +395,7 @@ def tile_phase(torch, np, quant: tuple[float, int], sample_entries: list[dict]) 
                         "max_abs_err": max(errs), "ms": ms["8"], "ms_by_tile": ms,
                         "plain_ms": sample_entry["plain_ms"], "bound_ms": sample_entry["bound_ms"],
                         "bound_by": sample_entry["bound_by"],
+                        "fraction_of_bound": sample_entry["bound_ms"] / ms["8"],
                         "library_ms": sample_entry["library_ms"], "served_path": served})
     try:
         fused_spectrogram(y[:6], grid="tile", batch_tile=4)
@@ -607,8 +664,10 @@ def main() -> None:
     from tests.int8_fixture import entry_transpose_fixture
 
     build_phase()
+    occupancy_phase()
     quant = entry_quant_params(entry_transpose_fixture(TFLiteGraph(FLAGSHIP_TFLITE)))
     entries = kernel_phase(torch, np, quant)
+    sweep_phase(torch)
     launches = slice_phase(torch, np)
     flagship = ModelConfig.load(ROOT / "artifacts/flagship/bundle/model_config.json")
     launches.update(int8_phase(torch, np, flagship))

@@ -20,8 +20,13 @@ dB is outside those gates and gets 1e-4: a bin 80 dB below the peak holds
 a magnitude 1e-4 of it, so a summation-order error relative to the frame
 energy grows ~1e4-fold in that bin's dB (measured 7.6e-5 on an H100).
 
-The tile grid (grid="tile") keeps every sum in the sample grid's order, so
-it must equal the sample-grid kernel bit for bit, float32 and int8.
+The tile grid (grid="tile") computes each frame and every sum as the sample
+grid does, so it must equal the sample-grid kernel bit for bit, float32
+and int8.
+
+The kernels' FFT takes n_fft as a power of two from 64 to 2048; each size
+is held against the plain version, and any other n_fft raises ValueError
+on a CUDA tensor.
 """
 
 from pathlib import Path
@@ -119,7 +124,7 @@ def test_kernel_matches_plain_at_small_geometry(cuda, mode, mag):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["mel", "mfcc"])
 def test_more_than_64_mels_on_card(cuda, mode):
-    """96 mels take two mel chunks per strip, each recomputing the DFT."""
+    """96 mels: each lane of a warp sums three mels of every frame."""
     geometry = {**FLAGSHIP, "mel_bins": 96}
     _check(_wave(6, 4, 66150), mode, "pwl" if mode == "mel" else "none", geometry, 66150)
 
@@ -235,3 +240,57 @@ def test_tile_grid_contract_on_card(cuda):
     with pytest.raises(ValueError, match="batch_tile"):
         fused_spectrogram(_wave(14, 6, 8000), grid="tile", batch_tile=4, **SMALL)
     assert frontend_kernel.launches.total() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft", [64, 128, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("mode,mag", [("linear", "none"), ("mel", "pwl"), ("mfcc", "none")])
+def test_fft_sizes_on_card(cuda, n_fft, mode, mag):
+    """Every n_fft the FFT takes (one template per size; 2048's strip tile
+    takes sub-strips), at hop n_fft // 2 on 16000 samples, against the
+    plain version, twice in a row."""
+    hop, T = n_fft // 2, 16000
+    n_frames = 1 + T // hop if mode == "mfcc" else T // hop
+    out_w = T // hop
+    kw = dict(sample_rate=16000, mel_bins=32, n_mfcc=13)
+    y = _wave(15, 3, T)
+    name = kernel_name(mode, mag)
+    before = frontend_kernel.launches[name]
+    got = [fused_spectrogram(y, mode=mode, mag_scale=mag, n_fft=n_fft, spec_width=out_w, hop=hop,
+                             n_frames=n_frames, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert frontend_kernel.launches[name] == before + 2
+    with full_fp32():
+        ref = fused_spectrogram_plain(y, n_fft, hop, n_frames, mode=mode, mag_scale=mag,
+                                      out_w=out_w, **kw)
+    for g in got:
+        assert g.shape == ref.shape and torch.isfinite(g).all()
+        err = (g - ref).abs().max().item()
+        assert err <= TOLERANCE.get((mode, mag), 2e-5), f"{name} n_fft {n_fft}: max abs {err}"
+    assert torch.equal(got[0], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft", [384, 96, 4096])
+def test_fft_size_contract_on_card(cuda, n_fft):
+    """An n_fft the FFT does not take: ValueError before any launch."""
+    before = frontend_kernel.launches.total()
+    with pytest.raises(ValueError, match="power of two"):
+        fused_spectrogram(_wave(16, 2, 16000), n_fft=n_fft, spec_width=16000 // n_fft)
+    assert frontend_kernel.launches.total() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mel_bins", [96, 128])
+@pytest.mark.parametrize("mode,mag", [("mel", "none"), ("mel", "pcen"), ("mfcc", "none")])
+def test_mel_counts_on_card(cuda, mode, mag, mel_bins):
+    """96 and 128 mels (more than one 32-lane round of mels per frame) at
+    the flagship geometry: the float kernel against the plain version, and
+    the int8 one bit-equal to quantize(the float kernel's output)."""
+    geometry = {**FLAGSHIP, "mel_bins": mel_bins}
+    y = _wave(17, 4, 66150)
+    _check(y, mode, mag, geometry, 66150)
+    quant = entry_quant_params(entry_transpose_fixture(TFLiteGraph(FLAGSHIP_TFLITE)))
+    kw = dict(mode=mode, mag_scale=mag, **geometry)
+    got = fused_spectrogram(y, quant=quant, **kw)
+    assert torch.equal(got, quantize_entry(fused_spectrogram(y, **kw), quant))

@@ -214,7 +214,7 @@ def test_tile_layout_boundaries(n_frames, tile, expected):
 def test_straddling_strip_division_is_exact():
     """A strip that straddles samples maps its row f to sample
     s0 + (f0 + f) / n_frames with one __umulhi by ceil(2^32 / n_frames)
-    (ops/csrc/frontend_kernel.cu::dft_tile); the launchers keep
+    (ops/csrc/frontend_kernel.cu::frame_of); the launchers keep
     n_frames + 64 below 2^16. Exact for every frame count up to 2048 and
     for 1000 larger ones, over every numerator a strip can give."""
     rng = np.random.default_rng(0)
