@@ -1,8 +1,9 @@
-"""Model runners: one predict() API over the float model and the INT8
-integer graph (port of models/runners.py::FlaxRunner and TFLiteSimRunner).
+"""Model runners: one predict() API over the float model, the INT8
+integer graph and the TFLite interpreter (port of models/runners.py), and
+load_model_runner, which picks one from a model file.
 
-Not ported yet (ROADMAP.md, Queue 1): the bf16 runner, meshes,
-TFLiteInterpreterRunner and load_model_runner.
+Not ported yet (ROADMAP.md, Queue 1): the bf16 runner, meshes, and loading
+float checkpoints (run directories, .keras files).
 """
 
 from __future__ import annotations
@@ -69,3 +70,82 @@ class TFLiteSimRunner:
     def predict(self, x_batch: np.ndarray) -> np.ndarray:
         x = torch.as_tensor(np.asarray(x_batch, np.float32), device=self.device)
         return self.forward(x).cpu().numpy()
+
+
+class TFLiteInterpreterRunner:
+    """The TFLite interpreter on the host, for graphs the integer executor
+    does not run (dynamic-range or float exports): builtin ops, no
+    delegates, dynamic batch resize. Needs TensorFlow, which it imports
+    itself; without it (the port's card machine has none) it raises
+    ImportError."""
+
+    def __init__(self, tflite_path: str | Path):
+        import tensorflow as tf
+
+        self._path = str(tflite_path)
+        self._tf = tf
+        self._interp = self._make_interp()
+        self._interp.allocate_tensors()
+
+    def _make_interp(self):
+        # No delegates: XNNPack refuses to prepare some quantized graphs
+        # (REDUCE_MAX / DIV chains) entirely.
+        return self._tf.lite.Interpreter(
+            model_path=self._path,
+            experimental_op_resolver_type=self._tf.lite.experimental.OpResolverType
+            .BUILTIN_WITHOUT_DEFAULT_DELEGATES)
+
+    def _invoke(self, x: np.ndarray) -> np.ndarray:
+        inp = self._interp.get_input_details()[0]
+        if inp["shape"][0] != x.shape[0]:
+            self._interp.resize_tensor_input(inp["index"], (x.shape[0], *inp["shape"][1:]))
+            self._interp.allocate_tensors()
+            inp = self._interp.get_input_details()[0]
+        self._interp.set_tensor(inp["index"], x)
+        self._interp.invoke()
+        return np.asarray(self._interp.get_tensor(self._interp.get_output_details()[0]["index"]))
+
+    def predict(self, x_batch: np.ndarray) -> np.ndarray:
+        x = np.asarray(x_batch, np.float32)
+        try:
+            return self._invoke(x)
+        except RuntimeError:
+            # Some graphs refuse a dynamic batch resize, and a failed
+            # AllocateTensors leaves the interpreter unusable: rebuild it,
+            # then invoke per sample.
+            self._interp = self._make_interp()
+            self._interp.allocate_tensors()
+            return np.concatenate([self._invoke(x[i : i + 1]) for i in range(x.shape[0])])
+
+
+def _is_full_int8(graph: TFLiteGraph) -> bool:
+    """True when every conv / FC in the graph carries int8 quantization."""
+    for op in graph.ops:
+        if op.name in ("CONV_2D", "DEPTHWISE_CONV_2D", "FULLY_CONNECTED"):
+            for idx in op.inputs[:2]:
+                t = graph.tensors[idx]
+                if t.dtype != "int8" or t.scale is None:
+                    return False
+    return True
+
+
+def load_model_runner(model_path: str | Path, device: str | torch.device = "cuda"):
+    """The runner for a model file: a .tflite gives TFLiteSimRunner on
+    `device` when the graph is full-int8, else TFLiteInterpreterRunner (host).
+
+    Run directories and .keras files (float checkpoints) raise
+    NotImplementedError: their loaders come with ROADMAP.md Queue 1 items 9
+    (checkpoints) and 11 (.keras transplant).
+    """
+    p = Path(model_path)
+    if p.suffix == ".tflite":
+        sim = TFLiteSimRunner(p, device=device)
+        if _is_full_int8(sim.graph):
+            return sim
+        return TFLiteInterpreterRunner(p)
+    if p.suffix == ".keras" or p.is_dir():
+        raise NotImplementedError(
+            f"{model_path}: float checkpoints are not loadable in the port yet "
+            "(ROADMAP.md Queue 1: item 9 brings run-directory checkpoints, item 11 "
+            ".keras files); serve a .tflite, or a TorchRunner through the API")
+    raise ValueError(f"Cannot infer runner type from {model_path}")

@@ -54,13 +54,41 @@ It imports nothing of JAX. In order it:
    (d) one warm 64-chunk batch of each leg by part (copy, frontend,
        executor, whole), and the CUDA launches its executor makes with
        their summed device time (torch.profiler);
-6. tile phase: the tile grid (grid="tile", the port of _kernel_tile) of
+6. serve phase: the port's `serve` entry point
+   (birdnet_stm32_tpu_torch/cli/serve.py) and its waveform ingress:
+   (a) writes seeded WAVs (PCM16 mono at 22.05 kHz, 10 s and 31 s; PCM16
+       stereo at 44.1 kHz; PCM16 mono at 48 and 16 kHz; float32 mono at
+       22.05 kHz) and runs `__main__.main(["serve", ..., "--once"])` in
+       this process on CUDA (the default device) with the committed bundle,
+       with float ingress, --int16_io, --ulaw_io and --device_resample,
+       the launch counts cleared before each run: one TSV row per file,
+       100 finite scores each, the linear float kernel launched once per
+       batch and nothing else; --int16_io rows equal to the float rows for
+       the mono PCM16 files at 22.05 kHz (raw codes), --ulaw_io within the
+       JAX gate (cosine > 0.995, |diff| <= 0.1), --device_resample per-file
+       cosine >= 0.999 against host resampling; a second run of each mode
+       serves no file (resume);
+   (b) through make_fused_classifier: on the float leg (hybrid, full
+       width, seeded weights) int16 ingress of raw-code batches bit-equal
+       to float ingress, and input_sample_rate 48000 and 16000 within atol
+       1e-5 / rtol 1e-4 of the host-resampled batch; int16 ingress through
+       the fixture's fused int8-entry leg bit-equal to its float ingress;
+   (c) on the card: _dequantize_int16 over every int16 code against every
+       scale code (1..32767, -32768, 0), 2^31 quotients, each equal to the
+       float64 quotient rounded to float32; the mu-law decoder on all 256
+       codes within 2e-7 of the CPU; the resampler 48 / 44.1 / 16 kHz ->
+       22.05 kHz at B=64 within 2e-5 of the CPU;
+   (d) one warm 64-chunk batch per ingress mode (float32, int16, mu-law,
+       float32 at 48 kHz resampled on the card) on both legs, by part
+       (CUDA events): host-to-device copy, ingress, frontend, model, whole;
+       the modes in turns, three rounds, the median of each part;
+7. tile phase: the tile grid (grid="tile", the port of _kernel_tile) of
    every specialisation of the kernel phase at each batch_tile of 2, 4, 8
    and 16, on the kernel phase's input: bit-equal to the sample-grid
    kernel, within the kernel phase's tolerance of the plain version, the
    same again after its timing launches; times by CUDA
    events; and grid="tile" at B=6 with batch_tile 4 raises ValueError;
-7. bench phase: the port's frontend benchmark entry
+8. bench phase: the port's frontend benchmark entry
    (birdnet_stm32_tpu_torch/scripts/bench_frontend.py) at B=256 on CUDA,
    with the launch counts cleared just before: its numerics within 1e-5 of
    the composition; on the B=256 input it times, the sample grid within
@@ -69,7 +97,7 @@ It imports nothing of JAX. In order it:
    codes at most one apart on under 1 %, min cosine >= BENCH_MIN_COSINE;
    and the tile-grid kernel launched; it prints the bench's three
    sections;
-8. prints the `kernels` JSON line, the card's name and power limit, and
+9. prints the `kernels` JSON line, the card's name and power limit, and
    last the `ok` JSON line.
 
 Any failed check exits non-zero before the `ok` line.
@@ -648,6 +676,309 @@ def int8_phase(torch, np, flagship_cfg) -> dict[str, int]:
     return {name: legs["fixture"][3]}
 
 
+# The serve phase's files: (name, rate, seconds, channels, sample format).
+SERVE_FILES = (("pcm16_22k_10s.wav", 22050, 10.0, 1, "pcm16"),
+               ("pcm16_22k_31s.wav", 22050, 31.0, 1, "pcm16"),
+               ("pcm16_44k_stereo.wav", 44100, 6.0, 2, "pcm16"),
+               ("pcm16_48k.wav", 48000, 6.0, 1, "pcm16"),
+               ("pcm16_16k.wav", 16000, 6.0, 1, "pcm16"),
+               ("float32_22k.wav", 22050, 6.0, 1, "float32"))
+SERVE_MODES = {"float": [], "int16": ["--int16_io"], "ulaw": ["--ulaw_io"],
+               "device_resample": ["--device_resample"]}
+# The JAX gate of the mu-law ingress (tests/test_ulaw_feed.py): score
+# cosine > 0.995 and |diff| <= 0.1 against float ingress.
+ULAW_MIN_COSINE, ULAW_MAX_ABS = 0.995, 0.1
+# The gate the port applies to INT8 feeds that may move an entry code.
+FEED_MIN_COSINE = 0.999
+RESAMPLE_RATES = (48000, 44100, 16000)
+
+
+def cosine(np, a, b) -> float:
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def write_serve_files(np, root: Path) -> None:
+    """SERVE_FILES from seeded chirps: PCM16 mono through the port's
+    save_wav, stereo and float32 through `wave` and a RIFF header."""
+    import struct
+    import wave
+
+    from birdnet_stm32_tpu_torch.audio.io import save_wav
+
+    rng = np.random.default_rng(1)
+    for name, sr, seconds, channels, fmt in SERVE_FILES:
+        t = np.arange(int(sr * seconds)) / sr
+        f0 = rng.uniform(800.0, 5000.0, (channels, 1))
+        x = 0.5 * np.sin(2 * np.pi * f0 * t * (1.0 + 0.03 * t)) + rng.normal(0, 0.05, (channels, t.size))
+        x = np.clip(x, -1.0, 1.0).astype(np.float32).T  # [T, C]
+        path = root / name
+        if fmt == "float32":
+            data = x.astype("<f4").tobytes()
+            fmt_chunk = struct.pack("<HHIIHH", 3, channels, sr, sr * 4 * channels, 4 * channels, 32)
+            body = (b"WAVEfmt " + struct.pack("<I", len(fmt_chunk)) + fmt_chunk + b"data"
+                    + struct.pack("<I", len(data)) + data)
+            path.write_bytes(b"RIFF" + struct.pack("<I", len(body)) + body)
+        elif channels == 1:
+            save_wav(x[:, 0], path, sr)
+        else:
+            with wave.open(str(path), "wb") as w:
+                w.setnchannels(channels)
+                w.setsampwidth(2)
+                w.setframerate(sr)
+                w.writeframes((x * 32767.0).astype("<i2").tobytes())
+
+
+def run_serve(args: list[str]) -> str:
+    """`python -m birdnet_stm32_tpu_torch serve ...` in this process; its
+    standard output."""
+    import contextlib
+    import io
+
+    from birdnet_stm32_tpu_torch.__main__ import main as port_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = port_main(["serve", *args])
+    if rc != 0:
+        fail(f"serve {args} exited {rc}")
+    return out.getvalue()
+
+
+def tsv_rows(np, path: Path) -> dict:
+    rows = {}
+    for line in path.read_text().splitlines():
+        if line:
+            name, *vals = line.split("\t")
+            rows[name] = (line, np.array([float(v) for v in vals]))
+    return rows
+
+
+def raw_pcm16_batch(np, cfg, n: int):
+    """(int16 [n, T+1] raw codes + peak column, the host's float32 [n, T])
+    from seeded chirps: what load_chunks_int16 and load_audio_window make of
+    a mono PCM16 file at the model rate. Even rows peak at 32768."""
+    wave = requests_for(np, cfg, (n,))[0]
+    codes = np.clip(np.round(wave / np.abs(wave).max() * 32767.0), -32768, 32767).astype(np.int16)
+    codes[::2, 0] = -32768
+    peak = np.abs(codes.astype(np.int32)).max(axis=1)
+    scale = np.where(peak < 32768, peak, -32768).astype(np.int16)[:, None]
+    floats = (codes.astype(np.float32) / np.float32(32768.0)
+              / (peak.astype(np.float32)[:, None] / np.float32(32768.0)))
+    return np.concatenate([codes, scale], axis=1), floats
+
+
+def serve_cli_checks(np, root: Path, launches: dict) -> None:
+    """The CLI in the four SERVE_MODES on CUDA with the committed bundle:
+    rows, launches, the int16 / mu-law / device-resample gates, resume."""
+    from birdnet_stm32_tpu_torch.config import ModelConfig
+    from birdnet_stm32_tpu_torch.models.serving import decode_for_classify
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+
+    audio = root / "audio"
+    audio.mkdir()
+    write_serve_files(np, audio)
+    cfg = ModelConfig.load(FLAGSHIP_TFLITE.parent / "model_config.json")
+    linear = frontend_kernel.kernel_name("linear", "none")
+    rows = {}
+    for mode, extra in SERVE_MODES.items():
+        # One 64-chunk batch per file (each file is under 64 chunks).
+        n_batches = sum(-(-len(decode_for_classify(
+            audio / f[0], cfg, device_resample=mode == "device_resample")[0]) // B)
+            for f in SERVE_FILES)
+        results = root / f"{mode}.tsv"
+        args = ["--model_path", str(FLAGSHIP_TFLITE), "--audio_dir", str(audio),
+                "--results_file", str(results), "--once", *extra]
+        frontend_kernel.launches.clear()
+        t0 = time.perf_counter()
+        out = run_serve(args)
+        wall = time.perf_counter() - t0
+        counts = dict(frontend_kernel.launches)
+        launches[f"serve --{mode}"] = counts.get(linear, 0)
+        rows[mode] = tsv_rows(np, results)
+        again = run_serve(args)
+        print(json.dumps({"serve_mode": mode, "files": len(rows[mode]), "batches": n_batches,
+                          "kernel_launches": counts, "serve_wall_s": wall,
+                          "second_run": again.strip().splitlines()[-1]}))
+        if counts != {linear: n_batches}:
+            fail(f"serve {mode}: launches {counts}, expected {linear} x {n_batches} only")
+        if sorted(rows[mode]) != sorted(f[0] for f in SERVE_FILES):
+            fail(f"serve {mode}: rows for {sorted(rows[mode])}")
+        for name, (_, v) in rows[mode].items():
+            if v.shape != (cfg.num_classes,) or not np.isfinite(v).all():
+                fail(f"serve {mode}: {name} has {v.shape} scores, finite {np.isfinite(v).all()}")
+        if "files served: 0" not in again:
+            fail(f"serve {mode}: the second run did not resume: {again[-300:]}")
+    f = rows["float"]
+    report = {}
+    for name, _, _, channels, fmt in SERVE_FILES:
+        a = f[name][1]
+        u, d = rows["ulaw"][name][1], rows["device_resample"][name][1]
+        report[name] = {"int16_line_equal": rows["int16"][name][0] == f[name][0],
+                        "ulaw_cosine": cosine(np, u, a), "ulaw_max_abs": float(np.abs(u - a).max()),
+                        "device_resample_cosine": cosine(np, d, a)}
+    print(json.dumps({"serve_vs_float_ingress": report}))
+    for name, sr, _, channels, fmt in SERVE_FILES:
+        r = report[name]
+        if sr == cfg.sample_rate and channels == 1 and fmt == "pcm16" and not r["int16_line_equal"]:
+            fail(f"serve --int16_io: {name} (raw PCM16 codes) differs from float ingress")
+        if not (r["ulaw_cosine"] > ULAW_MIN_COSINE and r["ulaw_max_abs"] <= ULAW_MAX_ABS):
+            fail(f"serve --ulaw_io: {name} outside the JAX gate: {r}")
+        if not r["device_resample_cosine"] >= FEED_MIN_COSINE:
+            fail(f"serve --device_resample: {name} cosine {r['device_resample_cosine']}")
+
+
+def serve_api_checks(torch, np, launches: dict) -> None:
+    """The float leg (hybrid, full width, seeded weights) and the fixture's
+    fused int8-entry leg through make_fused_classifier on CUDA."""
+    from birdnet_stm32_tpu_torch.audio.io import fast_resample
+    from birdnet_stm32_tpu_torch.config import ModelConfig
+    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn, init_model
+    from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner, TorchRunner
+    from birdnet_stm32_tpu_torch.models.serving import make_fused_classifier
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from tests.int8_fixture import entry_transpose_fixture
+
+    cfg = ModelConfig.load(FLAGSHIP_TFLITE.parent / "model_config.json")
+    runner = TorchRunner(init_model(build_dscnn(cfg, device="cuda"), seed=0), cfg, device="cuda")
+    w16, floats = raw_pcm16_batch(np, cfg, 8)
+    checks = {}
+    f = make_fused_classifier(runner, cfg, device="cuda")(floats)
+    i = make_fused_classifier(runner, cfg, input_dtype="int16", device="cuda")(w16)
+    checks["float_leg_int16_bit_equal"] = bool(np.array_equal(i, f))
+    errs = {}
+    for sr in (48000, 16000):
+        wave = np.random.default_rng(sr).normal(0, 0.2, (4, int(cfg.chunk_duration * sr)))
+        wave = wave.astype(np.float32)
+        native = make_fused_classifier(runner, cfg, input_sample_rate=sr, device="cuda")(wave)
+        host = np.stack([fast_resample(w, sr, cfg.sample_rate) for w in wave])
+        host = make_fused_classifier(runner, cfg, device="cuda")(host[:, :cfg.chunk_samples])
+        errs[sr] = float(np.abs(native - host).max())
+        checks[f"float_leg_resample_{sr}"] = bool(np.allclose(native, host, atol=1e-5, rtol=1e-4))
+    fixture = TFLiteSimRunner(entry_transpose_fixture(TFLiteSimRunner(
+        FLAGSHIP_TFLITE, device="cuda").graph), device="cuda")
+    frontend_kernel.launches.clear()
+    i = make_fused_classifier(fixture, cfg, input_dtype="int16", device="cuda")(w16)
+    int8_name = frontend_kernel.kernel_name("linear", "none", quant=True)
+    launches["serve API, int16 ingress, fused int8 entry"] = frontend_kernel.launches[int8_name]
+    f = make_fused_classifier(fixture, cfg, device="cuda")(floats)
+    checks["fused_int8_leg_int16_bit_equal"] = bool(np.array_equal(i, f))
+    print(json.dumps({"serve_api_checks": checks, "resample_vs_host_max_abs": errs}))
+    for check, ok in checks.items():
+        if not ok:
+            fail(f"serve API check {check} failed")
+
+
+def serve_card_checks(torch, np) -> None:
+    """On the card: _dequantize_int16 over the whole int16 code x scale
+    domain, the mu-law decoder on all codes, the resampler against the CPU."""
+    from birdnet_stm32_tpu_torch.config import ModelConfig
+    from birdnet_stm32_tpu_torch.models.serving import _dequantize_int16, _dequantize_ulaw
+    from birdnet_stm32_tpu_torch.ops.resample import resample_chunk_batch
+
+    t0 = time.perf_counter()
+    codes = torch.arange(-32768, 32768, device="cuda", dtype=torch.int32).to(torch.int16)
+    scales = torch.cat([torch.arange(1, 32768, device="cuda", dtype=torch.int32),
+                        torch.tensor([-32768, 0], device="cuda", dtype=torch.int32)])
+    w = torch.empty(512, codes.numel() + 1, dtype=torch.int16, device="cuda")
+    w[:, :-1] = codes
+    n = 0
+    for lo in range(0, scales.numel(), 512):
+        s = scales[lo : lo + 512]
+        ws = w[: s.numel()]
+        ws[:, -1] = s.to(torch.int16)
+        # float64 division rounded to float32 is the correctly rounded
+        # float32 quotient for these operands (no double-rounding tie).
+        ref = (codes.double()[None] / s.double().abs().clamp_min(1.0)[:, None]).float()
+        if not torch.equal(_dequantize_int16(ws).view(torch.int32), ref.view(torch.int32)):
+            fail(f"_dequantize_int16 on the card differs from IEEE division at scales {lo}..")
+        n += ws[:, :-1].numel()
+    domain_s = time.perf_counter() - t0
+    q = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)[None]
+    ulaw_err = (_dequantize_ulaw(q.cuda()).cpu() - _dequantize_ulaw(q)).abs().max().item()
+    cfg = ModelConfig.load(FLAGSHIP_TFLITE.parent / "model_config.json")
+    resample_errs = {}
+    for sr in RESAMPLE_RATES:
+        x = torch.from_numpy(np.random.default_rng(sr).normal(0, 0.3, (B, 3 * sr)).astype(np.float32))
+        got = resample_chunk_batch(x.cuda(), sr, cfg)
+        torch.cuda.synchronize()
+        resample_errs[sr] = (got.cpu() - resample_chunk_batch(x, sr, cfg)).abs().max().item()
+    print(json.dumps({"int16_dequant_quotients_bit_equal": n, "int16_domain_s": domain_s,
+                      "ulaw_card_vs_cpu_max_abs": ulaw_err,
+                      "resample_card_vs_cpu_max_abs": resample_errs}))
+    if n != 65536 * 32769:
+        fail(f"int16 domain: {n} quotients checked, expected {65536 * 32769}")
+    if not ulaw_err <= 2e-7:
+        fail(f"mu-law decoder: card vs CPU {ulaw_err} > 2e-7")
+    for sr, err in resample_errs.items():
+        if not err <= 2e-5:
+            fail(f"resampler {sr} -> {cfg.sample_rate}: card vs CPU {err} > 2e-5")
+
+
+def serve_breakdown(torch, np, rounds: int = 3) -> None:
+    """One warm 64-chunk batch per ingress mode on both legs, by part (CUDA
+    events): host-to-device copy, dequant (+ resample), frontend, model,
+    whole classify call; the modes in turns, `rounds` times, and the median
+    of each part."""
+    from birdnet_stm32_tpu_torch.config import ModelConfig
+    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn, init_model
+    from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner, TorchRunner
+    from birdnet_stm32_tpu_torch.models.serving import (
+        make_fused_classifier,
+        make_ingress,
+        quantize_waveform_ulaw,
+    )
+    from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import frontend_input
+
+    cfg = ModelConfig.load(FLAGSHIP_TFLITE.parent / "model_config.json")
+    w16, floats = raw_pcm16_batch(np, cfg, B)
+    wave48 = np.random.default_rng(48).normal(0, 0.2, (B, 3 * 48000)).astype(np.float32)
+    batches = {"float32": (None, None, floats), "int16": ("int16", None, w16),
+               "ulaw": ("ulaw", None, quantize_waveform_ulaw(floats)),
+               "float32_48k_resample": (None, 48000, wave48)}
+    legs = {"float": TorchRunner(init_model(build_dscnn(cfg, device="cuda"), seed=0), cfg,
+                                 device="cuda"),
+            "int8": TFLiteSimRunner(FLAGSHIP_TFLITE, device="cuda")}
+    for leg, runner in legs.items():
+        model = runner.forward if leg == "float" else runner.executor(B)
+        runs = {mode: [] for mode in batches}
+        for _ in range(rounds):
+            for mode, (dtype, rate, host) in batches.items():
+                ingress = make_ingress(cfg, rate, dtype)
+                classify = make_fused_classifier(runner, cfg, input_sample_rate=rate,
+                                                 input_dtype=dtype, device="cuda")
+                with torch.no_grad():
+                    x = torch.as_tensor(host).cuda()
+                    w = ingress(x)
+                    feats = frontend_input(w, cfg)
+                    runs[mode].append({
+                        "h2d_copy": cuda_ms(torch, lambda: torch.as_tensor(host).cuda()),
+                        "ingress": cuda_ms(torch, lambda: ingress(x)) if dtype or rate else 0.0,
+                        "frontend_kernel": cuda_ms(torch, lambda: frontend_input(w, cfg)),
+                        "model": cuda_ms(torch, lambda: model(feats)),
+                        "classify_total": cuda_ms(torch, lambda: classify(host)),
+                    })
+        report = {mode: {"h2d_bytes": batches[mode][2].nbytes,
+                         **{part: float(np.median([r[part] for r in rs])) for part in rs[0]},
+                         "classify_total_by_round": [r["classify_total"] for r in rs]}
+                  for mode, rs in runs.items()}
+        print(json.dumps({"serve_leg": leg, "rounds": rounds,
+                          "batch_breakdown_median_ms": report}))
+
+
+def serve_phase(torch, np) -> dict:
+    """The port's `serve` entry point and its ingress; returns the linear
+    kernels' launches by path."""
+    import tempfile
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_cli_checks(np, Path(tmp), launches)
+    serve_api_checks(torch, np, launches)
+    serve_card_checks(torch, np)
+    serve_breakdown(torch, np)
+    return launches
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -660,6 +991,7 @@ def main() -> None:
                       "device": torch.cuda.get_device_name(0)}))
 
     from birdnet_stm32_tpu_torch.config import ModelConfig
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
     from birdnet_stm32_tpu_torch.quant.tflite_import import TFLiteGraph, entry_quant_params
     from tests.int8_fixture import entry_transpose_fixture
 
@@ -671,10 +1003,18 @@ def main() -> None:
     launches = slice_phase(torch, np)
     flagship = ModelConfig.load(ROOT / "artifacts/flagship/bundle/model_config.json")
     launches.update(int8_phase(torch, np, flagship))
+    serve_launches = serve_phase(torch, np)
     tile_entries = tile_phase(torch, np, quant, entries)
     bench_launches = bench_phase(torch)
+    linear, linear_int8 = (frontend_kernel.kernel_name("linear", "none", quant=q)
+                           for q in (False, True))
     for entry in entries:
         entry["launches"] = launches.get(entry["name"], 0)
+        # The serve path's own launches, each run counted from zero.
+        for path, n in serve_launches.items():
+            if entry["name"] == (linear_int8 if "int8" in path else linear):
+                entry["launches"] += n
+                entry.setdefault("serve_launches", {})[path] = n
     for entry in tile_entries:
         entry["launches"] = bench_launches.get(entry["name"], 0)
     entries += tile_entries

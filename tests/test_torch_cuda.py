@@ -294,3 +294,113 @@ def test_mel_counts_on_card(cuda, mode, mag, mel_bins):
     kw = dict(mode=mode, mag_scale=mag, **geometry)
     got = fused_spectrogram(y, quant=quant, **kw)
     assert torch.equal(got, quantize_entry(fused_spectrogram(y, **kw), quant))
+
+
+# --- The serve path: ingress, resampler, CLI (no new kernel) -----------------
+
+FLAGSHIP_CONFIG = Path(__file__).resolve().parents[1] / "artifacts/flagship/bundle/model_config.json"
+
+
+@pytest.mark.cuda
+def test_dequantize_int16_whole_domain_on_card(cuda):
+    """Every int16 code against every scale code 1..32767, -32768 (a peak of
+    32768) and 0 (divides by 1): 2^31 quotients, each equal to the float64
+    quotient rounded to float32 (for 16-bit integer operands that double
+    rounding is exact), so CUDA's division is IEEE-correct here."""
+    from birdnet_stm32_tpu_torch.models.serving import _dequantize_int16
+
+    codes = torch.arange(-32768, 32768, device="cuda", dtype=torch.int32).to(torch.int16)
+    scales = torch.cat([torch.arange(1, 32768, device="cuda", dtype=torch.int32),
+                        torch.tensor([-32768, 0], device="cuda", dtype=torch.int32)])
+    w = torch.empty(512, codes.numel() + 1, dtype=torch.int16, device="cuda")
+    w[:, :-1] = codes
+    for lo in range(0, scales.numel(), 512):
+        s = scales[lo : lo + 512]
+        ws = w[: s.numel()]
+        ws[:, -1] = s.to(torch.int16)
+        got = _dequantize_int16(ws)
+        den = s.double().abs().clamp_min(1.0)[:, None]
+        ref = (codes.double()[None] / den).float()
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), f"scales {lo}.."
+
+
+@pytest.mark.cuda
+def test_dequantize_ulaw_on_card(cuda):
+    from birdnet_stm32_tpu_torch.models.serving import _dequantize_ulaw
+
+    q = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)[None]
+    got = _dequantize_ulaw(q.cuda()).cpu()
+    assert (got - _dequantize_ulaw(q)).abs().max().item() <= 2e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr_in", [48000, 44100, 16000])
+def test_resampler_on_card(cuda, sr_in):
+    """The polyphase conv1d on the card against the CPU, B=64 chunks of 3 s
+    to 22.05 kHz: within 2e-5."""
+    from birdnet_stm32_tpu_torch.ops.resample import resample_chunk_batch
+
+    cfg = ModelConfig.load(FLAGSHIP_CONFIG)
+    x = torch.from_numpy(np.random.default_rng(12).normal(0, 0.3, (64, 3 * sr_in))
+                         .astype(np.float32))
+    got = resample_chunk_batch(x.cuda(), sr_in, cfg)
+    ref = resample_chunk_batch(x, sr_in, cfg)
+    assert got.shape == ref.shape == (64, cfg.chunk_samples)
+    assert (got.cpu() - ref).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_int16_ingress_bit_equal_on_card(cuda, fused):
+    """Raw PCM16 codes + peak through the int16 ingress score exactly as the
+    host's peak-normalised floats, on both INT8 legs on the card."""
+    from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner
+    from birdnet_stm32_tpu_torch.models.serving import make_fused_classifier
+
+    cfg = ModelConfig.load(FLAGSHIP_CONFIG)
+    graph = TFLiteGraph(FLAGSHIP_TFLITE)
+    runner = TFLiteSimRunner(entry_transpose_fixture(graph) if fused else graph, device="cuda")
+    rng = np.random.default_rng(13)
+    peaks = np.array([900, 20000, 32767, 32768])
+    codes = np.clip(np.round(rng.normal(0, 1, (4, cfg.chunk_samples)) * peaks[:, None] / 3),
+                    -peaks[:, None], np.minimum(peaks, 32767)[:, None]).astype(np.int32)
+    codes[:, 7] = np.where(peaks == 32768, -32768, peaks)
+    scale = np.where(peaks == 32768, -32768, peaks)[:, None]
+    w16 = np.concatenate([codes, scale], axis=1).astype(np.int16)
+    floats = (codes.astype(np.float32) / np.float32(32768.0)
+              / (peaks.astype(np.float32)[:, None] / np.float32(32768.0)))
+    f = make_fused_classifier(runner, cfg, device="cuda")
+    i = make_fused_classifier(runner, cfg, input_dtype="int16", device="cuda")
+    assert (f.entry_quant is not None) == fused
+    np.testing.assert_array_equal(i(w16), f(floats))
+
+
+@pytest.mark.cuda
+def test_serve_once_on_card_matches_cpu(cuda, tmp_path):
+    """`serve --once` on CUDA against --device cpu on the same files: the
+    same files in the same order, pooled scores at cosine >= 0.999 (the
+    kernel and its plain version can move an INT8 entry code)."""
+    from birdnet_stm32_tpu_torch.__main__ import main
+    from birdnet_stm32_tpu_torch.audio.io import save_wav
+
+    audio_dir = tmp_path / "audio"
+    rng = np.random.default_rng(14)
+    for name, sr, seconds in (("a.wav", 22050, 4.5), ("b.wav", 48000, 3.0), ("c.wav", 22050, 3.0)):
+        t = np.arange(int(sr * seconds)) / sr
+        save_wav(0.5 * np.sin(2 * np.pi * rng.uniform(800, 5000) * t * (1 + 0.3 * t))
+                 + rng.normal(0, 0.05, t.size), audio_dir / name, sr)
+    rows = {}
+    for device in ("cuda", "cpu"):
+        for extra in ([], ["--int16_io"], ["--device_resample"]):
+            results = tmp_path / f"{device}{''.join(extra)}.txt"
+            assert main(["serve", "--model_path", str(FLAGSHIP_TFLITE), "--audio_dir",
+                         str(audio_dir), "--results_file", str(results), "--once",
+                         "--batch_size", "4", "--device", device, *extra]) == 0
+            rows[device, tuple(extra)] = [line.split("\t") for line in
+                                          results.read_text().splitlines()]
+    for extra in ([], ["--int16_io"], ["--device_resample"]):
+        got, ref = rows["cuda", tuple(extra)], rows["cpu", tuple(extra)]
+        assert [r[0] for r in got] == [r[0] for r in ref] == ["a.wav", "b.wav", "c.wav"]
+        for g, r in zip(got, ref):
+            a, b = np.array(g[1:], float), np.array(r[1:], float)
+            assert a.shape == (100,) and a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) >= 0.999
