@@ -10,7 +10,10 @@ restart, so the service resumes where it stopped.
 The port adds `--device` (default cuda; nothing falls back to the CPU on
 its own). It serves .tflite models: run directories and .keras files
 raise NotImplementedError (models/runners.py::load_model_runner), and the
-float leg is served through the API (a TorchRunner).
+float leg, float32 or bf16, is served through the API (a TorchRunner).
+`--bf16` asks for bf16 serving of a float checkpoint; with a .tflite it
+is accepted and ignored, as in the JAX package, and the lines served are
+the same as without it.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ def get_args(argv=None):
                         "absent from the file use --score_threshold")
     p.add_argument("--chunk_overlap", type=float, default=0.0)
     p.add_argument("--bf16", action="store_true",
-                   help="serve float checkpoints in bfloat16 (not ported yet: raises)")
+                   help="serve float checkpoints in bfloat16 (a .tflite ignores it)")
     p.add_argument("--device_resample", action="store_true",
                    help="decode at native rate, resample on the device")
     p.add_argument("--int16_io", action="store_true",
@@ -217,6 +220,8 @@ def serve_loop(runner, cfg, classes, audio_dir: Path, results_file: Path,
 def main(argv=None) -> int:
     args = get_args(argv)
 
+    import torch
+
     from birdnet_stm32_tpu_torch.cli.deploy import resolve_config_path
     from birdnet_stm32_tpu_torch.config import ModelConfig
     from birdnet_stm32_tpu_torch.data.species import open_species_list
@@ -225,13 +230,12 @@ def main(argv=None) -> int:
 
     if args.int16_io and args.ulaw_io:
         raise SystemExit("--int16_io and --ulaw_io are mutually exclusive")
-    if args.bf16:
-        raise SystemExit("--bf16 serves float checkpoints in bfloat16: the port's bf16 "
-                         "leg and float checkpoint loading are not ported yet "
-                         "(ROADMAP.md Queue 1), and a .tflite model is int8")
+    # --bf16 serves a float checkpoint in bfloat16; a .tflite ignores it
+    # (load_model_runner), as in the JAX package.
+    dtype = torch.bfloat16 if args.bf16 else None
     device = resolve_device(args.device)
     config_path = resolve_config_path(args.model_path, args.config_path)
-    runner = load_model_runner(Path(args.model_path), device=device)
+    runner = load_model_runner(Path(args.model_path), dtype=dtype, device=device)
     if config_path is None:
         raise SystemExit("--config_path required for .tflite models (no "
                          f"model_config.json sidecar found next to {args.model_path})")

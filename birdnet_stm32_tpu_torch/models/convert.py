@@ -5,10 +5,14 @@ rename plus the layout changes:
 
 - conv kernel [kh, kw, in, out] -> weight [out, in, kh, kw]
   (a depthwise kernel [3, 3, 1, C] becomes [C, 1, 3, 3] by the same rule);
+- the raw frontend's conv1d kernel audio_frontend/raw_fb [k, in, out] ->
+  weight [out, in, k];
 - dense kernel [in, out] -> weight [out, in];
 - BN scale / bias / mean / var -> weight / bias / running_mean / running_var;
-- everything else (audio_frontend/mel_mixer [F, M], the per-channel
-  audio_frontend/mag/pwl_* vectors, dense biases) is copied as it is.
+- everything else (audio_frontend/mel_mixer [F, M] or
+  audio_frontend/mel_seg_logits [M+1], the per-channel
+  audio_frontend/mag/pwl_* and pcen_* vectors, dense biases) is copied as
+  it is.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ def flax_to_state_dict(variables: dict) -> dict[str, torch.Tensor]:
         *module, leaf = path
         if leaf == "kernel":
             leaf = "weight"
-            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+            a = a.transpose({4: (3, 2, 0, 1), 3: (2, 1, 0), 2: (1, 0)}[a.ndim])
         elif leaf == "scale":
             leaf = "weight"
             out[".".join((*module, "num_batches_tracked"))] = torch.tensor(0)

@@ -4,12 +4,12 @@ frontend -> stem 3x3 s(1,2) -> 4 stages of plain DS (or inverted-residual)
 blocks with optional SE, base filters [32, 64, 128, 256] x alpha, repeats
 [2, 3, 4, 2] x depth_multiplier (stride (2,2) on each stage's first block)
 -> 1x1 embeddings conv_bn (skipped when the channels already match) -> GAP
-or attention pooling -> dense head -> softmax. (The JAX model's sigmoid
-and logit heads serve training, which a later slice ports.)
+or attention pooling -> dense head -> softmax, sigmoid or none (logits),
+as `class_activation` says.
 
 Inference only: dropout is inert and BN runs on its running statistics.
-Public layout as the JAX model: input [B, bins, W, 1], scores [B, C];
-NCHW inside.
+Public layout as the JAX model: input [B, bins, W, 1] (or [B, T, 1] for
+the raw frontend), scores [B, C]; NCHW inside.
 """
 
 from __future__ import annotations
@@ -39,6 +39,8 @@ from birdnet_stm32_tpu_torch.models.frontend_layer import AudioFrontend
 
 BASE_FILTERS: Sequence[int] = (32, 64, 128, 256)
 BASE_REPEATS: Sequence[int] = (2, 3, 4, 2)
+RAW_MAX_SAMPLES = 1 << 16  # N6 NPU constraint kept for config parity
+CLASS_ACTIVATIONS = ("softmax", "sigmoid", "none")
 
 # Canonical frontend -> in-graph frontend mode (the JAX registry's built-ins).
 _FRONTEND_MODES = {"librosa": "precomputed", "mfcc": "precomputed",
@@ -46,30 +48,37 @@ _FRONTEND_MODES = {"librosa": "precomputed", "mfcc": "precomputed",
 
 
 class DSCNN(nn.Module):
-    """DS-CNN with the in-graph hybrid (or precomputed) audio frontend.
+    """DS-CNN with a selectable in-graph audio frontend.
 
     Layers carry the Keras names of the JAX model; `self.blocks` lists the
     (kind, name) of each block in order, and forward applies them.
     """
 
     def __init__(self, num_mels: int = 64, spec_width: int = 256,
-                 sample_rate: int = 24000, embeddings_size: int = 256,
+                 sample_rate: int = 24000, chunk_duration: float = 3.0,
+                 embeddings_size: int = 256,
                  num_classes: int = 100, audio_frontend: str = "hybrid",
                  alpha: float = 1.0, depth_multiplier: int = 1,
                  fft_length: int = 512, mag_scale: str = "pwl", n_mfcc: int = 20,
                  use_se: bool = True, se_reduction: int = 8,
                  use_inverted_residual: bool = True, expansion_factor: int = 2,
-                 use_attention_pooling: bool = False):
+                 use_attention_pooling: bool = False, class_activation: str = "softmax",
+                 learn_mel_scale: bool = False):
         super().__init__()
         if audio_frontend not in _FRONTEND_MODES:
             raise ValueError(f"Invalid audio frontend: {audio_frontend!r}")
+        if class_activation not in CLASS_ACTIVATIONS:
+            raise ValueError(f"Invalid class_activation: {class_activation!r}")
         mode = _FRONTEND_MODES[audio_frontend]
         input_bins = n_mfcc if audio_frontend == "mfcc" else num_mels
         self.audio_frontend = AudioFrontend(
             mode, mel_bins=input_bins if mode == "precomputed" else num_mels,
-            spec_width=spec_width, sample_rate=sample_rate, fft_length=fft_length,
-            mag_scale=mag_scale if mode != "precomputed" else "none")
+            spec_width=spec_width, sample_rate=sample_rate,
+            chunk_duration=chunk_duration, fft_length=fft_length,
+            mag_scale=mag_scale if mode != "precomputed" else "none",
+            learn_mel_scale=learn_mel_scale)
         self.use_attention_pooling = use_attention_pooling
+        self.class_activation = class_activation
 
         blocks = []
         ch = add_conv_bn(self, "stem", 1, make_divisible(16 * alpha, 8), (3, 3), (1, 2))
@@ -102,7 +111,8 @@ class DSCNN(nn.Module):
         self.blocks = tuple(blocks)
 
     def forward(self, x: torch.Tensor, return_embeddings: bool = False):
-        """[B, bins, W, 1] -> [B, num_classes] scores (and [B, emb] if asked)."""
+        """[B, bins, W, 1] (raw: [B, T, 1]) -> [B, num_classes] scores (and
+        [B, emb] if asked)."""
         x = self.audio_frontend(x).permute(0, 3, 1, 2)  # NHWC -> NCHW
         for kind, name in self.blocks:
             if kind == "conv_bn":
@@ -117,19 +127,31 @@ class DSCNN(nn.Module):
             emb = attention_pooling(self, x, "attn_pool")
         else:
             emb = x.mean(dim=(2, 3))  # GAP
-        y = torch.softmax(self.pred(emb), dim=-1)
+        y = self.pred(emb)
+        if self.class_activation == "softmax":
+            y = torch.softmax(y, dim=-1)
+        elif self.class_activation == "sigmoid":
+            y = torch.sigmoid(y)
         return (y, emb) if return_embeddings else y
 
 
-def build_dscnn(cfg: ModelConfig, device: str | torch.device = "cuda") -> DSCNN:
+def build_dscnn(cfg: ModelConfig, class_activation: str = "softmax",
+                learn_mel_scale: bool = False,
+                device: str | torch.device = "cuda") -> DSCNN:
     """A DSCNN for `cfg`, in eval mode on `device` (default CUDA; raises if
     there is none). Its weights are the constructor's: load a state_dict
-    (models/convert.py) or call init_model."""
+    (models/convert.py) or call init_model. The raw frontend takes fewer
+    than RAW_MAX_SAMPLES samples, as the reference's deployment does."""
+    if cfg.audio_frontend == "raw" and cfg.chunk_samples >= RAW_MAX_SAMPLES:
+        raise ValueError(
+            f"raw frontend input length ({cfg.chunk_samples}) must be < {RAW_MAX_SAMPLES} "
+            "for reference deployment parity; lower sample_rate or chunk_duration.")
     dev = resolve_device(device)
     model = DSCNN(
         num_mels=cfg.num_mels,
         spec_width=cfg.spec_width,
         sample_rate=cfg.sample_rate,
+        chunk_duration=cfg.chunk_duration,
         embeddings_size=cfg.embeddings_size,
         num_classes=cfg.num_classes,
         audio_frontend=cfg.audio_frontend,
@@ -143,6 +165,8 @@ def build_dscnn(cfg: ModelConfig, device: str | torch.device = "cuda") -> DSCNN:
         use_inverted_residual=cfg.use_inverted_residual,
         expansion_factor=cfg.expansion_factor,
         use_attention_pooling=cfg.use_attention_pooling,
+        class_activation=class_activation,
+        learn_mel_scale=learn_mel_scale,
     )
     return model.to(dev).eval()
 
@@ -152,17 +176,18 @@ def init_model(model: DSCNN, seed: int = 0) -> DSCNN:
     """Seeded random weights, the same on every device.
 
     Conv and dense weights are drawn on the CPU from one torch.Generator:
-    He-normal for convolutions (so activations keep their scale through the
-    ReLU6 stack and the scores are not all equal), LeCun-normal for dense
-    layers. Biases are zero; BN, the mel mixer and pwl keep their
-    constructor values (identity BN, Slaney mixer, default pwl curve).
+    He-normal for convolutions (the raw filterbank's too, so activations
+    keep their scale through the ReLU6 stack and the scores are not all
+    equal), LeCun-normal for dense layers. Biases are zero; BN, the mel
+    mixer or segment logits and the magnitude scaling keep their
+    constructor values (identity BN, Slaney mixer, default curves).
     """
     g = torch.Generator().manual_seed(seed)
     for module in model.modules():
-        if isinstance(module, (nn.Conv2d, nn.Linear)):
+        if isinstance(module, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             w = module.weight
             fan_in = w[0].numel()
-            gain = 2.0 if isinstance(module, nn.Conv2d) else 1.0
+            gain = 1.0 if isinstance(module, nn.Linear) else 2.0
             w.copy_(torch.randn(w.shape, generator=g) * math.sqrt(gain / fan_in))
             if module.bias is not None:
                 module.bias.zero_()

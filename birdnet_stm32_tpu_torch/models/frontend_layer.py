@@ -2,40 +2,54 @@
 
 Modes:
 - precomputed: [B, bins, T, 1] -> slice to spec_width.
-- hybrid: [B, fft_bins, W, 1] linear |STFT| -> mel mixer matmul -> ReLU ->
+- hybrid: [B, fft_bins, W, 1] linear |STFT| -> mel mixer matmul (the
+  Slaney-seeded `mel_mixer`, or with learn_mel_scale the triangles of
+  `tri_mel_matrix` over the learnable `mel_seg_logits`) -> ReLU ->
   per-sample max-normalize -> magnitude scaling -> [B, mel_bins, W, 1].
+- raw: [B, T, 1] -> symmetric pad -> strided conv1d filterbank `raw_fb`
+  (k=16, stride=ceil(T/W), no bias) -> BN `raw_fb_bn` -> ReLU6 ->
+  magnitude scaling -> [B, mel_bins, W, 1].
 
-The 'raw' learned filterbank, the learnable mel breakpoints and the 'pcen'
-scaling wait for a later slice (ROADMAP.md, Queue 1 item 5).
+Inference only: BN runs on its running statistics.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
+from birdnet_stm32_tpu_torch.models.blocks import BN_EPS, BN_MOMENTUM, relu6
 from birdnet_stm32_tpu_torch.ops.magnitude import db_compress
-from birdnet_stm32_tpu_torch.ops.mel import mel_filterbank
+from birdnet_stm32_tpu_torch.ops.mel import hz_to_mel, mel_filterbank
 
-# Default pwl constants (reference magnitude.py:53-134).
+# Default pwl / pcen constants (reference magnitude.py:53-134).
 _PWL_K0 = 0.40
 _PWL_THRESHOLDS = (0.10, 0.35, 0.65)
 _PWL_SLOPES = (0.25, 0.15, 0.08)
+_PCEN_AGC = 0.6
+_PCEN_K1 = 0.15
+_PCEN_SHIFT = -0.2
+_PCEN_K2MK1 = 0.45
+RAW_KERNEL = 16
 
 
 class MagnitudeScaling(nn.Module):
-    """Per-channel magnitude compression over [..., C]: 'none' | 'pwl' | 'db'.
+    """Per-channel magnitude compression over [..., C]: 'none' | 'pwl' |
+    'pcen' | 'db'.
 
     Parameters are per-channel vectors named as the Flax module names them
-    (pwl_k0, pwl_shift{i}_w, pwl_shift{i}_b, pwl_k{i}).
+    (pwl_k0, pwl_shift{i}_w, pwl_shift{i}_b, pwl_k{i}; pcen_agc, pcen_k1,
+    pcen_shift_w, pcen_shift_b, pcen_k2mk1).
     """
 
     def __init__(self, method: str = "pwl", channels: int = 64):
         super().__init__()
-        if method not in ("none", "pwl", "db"):
-            raise NotImplementedError(
-                f"MagnitudeScaling({method!r}) is not ported yet (ROADMAP.md, "
-                "Queue 1 item 5)")
+        if method not in ("none", "pwl", "pcen", "db"):
+            raise ValueError(f"Invalid mag_scale: {method!r}")
         self.method = method
         if method == "pwl":
             self.pwl_k0 = nn.Parameter(torch.full((channels,), _PWL_K0))
@@ -43,12 +57,24 @@ class MagnitudeScaling(nn.Module):
                 setattr(self, f"pwl_shift{i}_w", nn.Parameter(torch.ones(channels)))
                 setattr(self, f"pwl_shift{i}_b", nn.Parameter(torch.full((channels,), -t)))
                 setattr(self, f"pwl_k{i}", nn.Parameter(torch.full((channels,), slope)))
+        elif method == "pcen":
+            # The reference's pcen approximation (magnitude.py:166-177): its
+            # "EMA" pools are 1x1 identity average-pools, so the smoother is x.
+            self.pcen_agc = nn.Parameter(torch.full((channels,), _PCEN_AGC))
+            self.pcen_k1 = nn.Parameter(torch.full((channels,), _PCEN_K1))
+            self.pcen_shift_w = nn.Parameter(torch.ones(channels))
+            self.pcen_shift_b = nn.Parameter(torch.full((channels,), _PCEN_SHIFT))
+            self.pcen_k2mk1 = nn.Parameter(torch.full((channels,), _PCEN_K2MK1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.method == "none":
             return x
         if self.method == "db":
             return db_compress(x)
+        if self.method == "pcen":
+            y0 = torch.relu(x - self.pcen_agc * x)
+            b2 = self.pcen_k2mk1 * torch.relu(self.pcen_shift_w * y0 + self.pcen_shift_b)
+            return torch.relu(self.pcen_k1 * y0 + b2)
         y = self.pwl_k0 * x
         for i in range(1, len(_PWL_THRESHOLDS) + 1):
             w = getattr(self, f"pwl_shift{i}_w")
@@ -57,35 +83,104 @@ class MagnitudeScaling(nn.Module):
         return y
 
 
+def tri_mel_matrix(seg_logits: torch.Tensor, sample_rate: int, fft_length: int,
+                   mel_bins: int) -> torch.Tensor:
+    """[F, M] float32 triangular mel weights from learnable segment logits
+    [M+1] (the JAX package's tri_mel_matrix).
+
+    Softplus segment widths normalized over the [150 Hz, sr//2] Slaney-mel
+    range, cumsum to M+2 breakpoints, triangles evaluated at the FFT bins'
+    mel positions, column-normalized. Zero logits give near-uniform mel
+    spacing. Computed in float32 whatever the dtype of `seg_logits`.
+    """
+    eps = 1e-6
+    freqs = np.linspace(0.0, sample_rate / 2.0, fft_length // 2 + 1)
+    bins_mel = torch.as_tensor(hz_to_mel(freqs), dtype=torch.float32,
+                               device=seg_logits.device)  # [F]
+    mel_fmin = float(hz_to_mel(150.0))
+    mel_fmax = float(hz_to_mel(float(sample_rate // 2)))  # floors, as the reference
+
+    seg = F.softplus(seg_logits.float()) + 1e-3  # [M+1]
+    # Float32 running sums in index order: XLA's CPU reduce and cumsum add
+    # up to 17 values so (torch's CPU cumsum accumulates in float64); past
+    # that XLA vectorizes them, and one ulp of a breakpoint (~50 mel) moves
+    # the triangles by up to ~2e-5.
+    run = [seg.new_zeros(())]
+    for k in range(seg.shape[0]):
+        run.append(run[-1] + seg[k])
+    seg = seg / (run[-1] + eps) * (mel_fmax - mel_fmin)
+    run = [seg.new_zeros(())]
+    for k in range(seg.shape[0]):
+        run.append(run[-1] + seg[k])
+    p_full = mel_fmin + torch.stack(run)  # [M+2]
+    M = mel_bins
+    left, center, right = p_full[:M], p_full[1: M + 1], p_full[2: M + 2]
+    up = (bins_mel[:, None] - left[None, :]) / torch.clamp(center - left, min=eps)
+    down = (right[None, :] - bins_mel[:, None]) / torch.clamp(right - center, min=eps)
+    tri = torch.clamp(torch.minimum(up, down), min=0.0)  # [F, M]
+    return tri / (tri.sum(dim=0, keepdim=True) + eps)
+
+
 class AudioFrontend(nn.Module):
-    """In-graph frontend producing [B, mel_bins, W, 1]: 'precomputed' | 'hybrid'."""
+    """In-graph frontend producing [B, mel_bins, W, 1]: 'precomputed' |
+    'hybrid' | 'raw'."""
 
     def __init__(self, mode: str, mel_bins: int = 64, spec_width: int = 256,
-                 sample_rate: int = 24000, fft_length: int = 512,
-                 mag_scale: str = "pwl"):
+                 sample_rate: int = 24000, chunk_duration: float = 3.0,
+                 fft_length: int = 512, mag_scale: str = "pwl",
+                 learn_mel_scale: bool = False):
         super().__init__()
-        if mode not in ("precomputed", "hybrid"):
-            raise NotImplementedError(
-                f"AudioFrontend mode {mode!r} is not ported yet (ROADMAP.md, "
-                "Queue 1 item 5)")
+        if mode not in ("precomputed", "hybrid", "raw"):
+            raise ValueError(f"Invalid frontend mode: {mode!r}")
         self.mode = mode
+        self.mel_bins = mel_bins
         self.spec_width = spec_width
+        self.sample_rate = sample_rate
+        self.fft_length = fft_length
         self.fft_bins = fft_length // 2 + 1
+        self.learn_mel_scale = learn_mel_scale and mode == "hybrid"
         if mode == "hybrid":
-            # Slaney mel basis seed (reference frontend.py:257-276).
-            fb = mel_filterbank(sample_rate, fft_length, mel_bins, fmin=150.0,
-                                fmax=float(sample_rate // 2))
-            self.mel_mixer = nn.Parameter(torch.from_numpy(fb))  # [F, M]
+            if self.learn_mel_scale:
+                self.mel_seg_logits = nn.Parameter(torch.zeros(mel_bins + 1))
+            else:
+                # Slaney mel basis seed (reference frontend.py:257-276).
+                fb = mel_filterbank(sample_rate, fft_length, mel_bins, fmin=150.0,
+                                    fmax=float(sample_rate // 2))
+                self.mel_mixer = nn.Parameter(torch.from_numpy(fb))  # [F, M]
+        elif mode == "raw":
+            T = int(sample_rate * chunk_duration)
+            self.raw_samples = T
+            self.raw_stride = int(math.ceil(T / float(spec_width)))
+            total = max(0, self.raw_stride * (spec_width - 1) + RAW_KERNEL - T)
+            self.raw_pad = (total // 2, total - total // 2)
+            self.raw_fb = nn.Conv1d(1, mel_bins, RAW_KERNEL, stride=self.raw_stride,
+                                    bias=False)
+            self.raw_fb_bn = nn.BatchNorm1d(mel_bins, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+        if mode != "precomputed":
             self.mag = MagnitudeScaling(mag_scale, mel_bins)
+
+    def mixer(self) -> torch.Tensor:
+        """The hybrid mel mixer [F, M] in the parameters' dtype."""
+        if self.learn_mel_scale:
+            tri = tri_mel_matrix(self.mel_seg_logits, self.sample_rate, self.fft_length,
+                                 self.mel_bins)
+            return tri.to(self.mel_seg_logits.dtype)
+        return self.mel_mixer
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "precomputed":
             return x[:, :, : self.spec_width, :]
-        if x.dim() != 4 or x.shape[1] != self.fft_bins:
-            raise ValueError(f"Hybrid expects [B,{self.fft_bins},W,1], got {tuple(x.shape)}")
-        y = x[:, :, : self.spec_width, 0].transpose(1, 2)  # [B, W, F]
-        # Full float32 (callers hold TF32 off), as the reference's HIGHEST.
-        y = torch.relu(y @ self.mel_mixer)  # [B, W, M]
-        y = y / (y.amax(dim=(1, 2), keepdim=True) + 1e-6)
+        if self.mode == "hybrid":
+            if x.dim() != 4 or x.shape[1] != self.fft_bins:
+                raise ValueError(f"Hybrid expects [B,{self.fft_bins},W,1], got "
+                                 f"{tuple(x.shape)}")
+            y = x[:, :, : self.spec_width, 0].transpose(1, 2)  # [B, W, F]
+            # Full-precision accumulation (callers hold TF32 and bf16
+            # reduced-precision reductions off), as the reference's HIGHEST.
+            y = torch.relu(y @ self.mixer())  # [B, W, M]
+            y = y / (y.amax(dim=(1, 2), keepdim=True) + 1e-6)
+        else:  # raw: [B, T, 1] -> [B, W, M]
+            y = F.pad(x[:, : self.raw_samples, 0], self.raw_pad)[:, None]  # [B, 1, T']
+            y = relu6(self.raw_fb_bn(self.raw_fb(y))).transpose(1, 2)
         y = self.mag(y)
         return y.transpose(1, 2)[..., None]  # [B, M, W, 1]

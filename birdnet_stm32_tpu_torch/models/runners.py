@@ -1,37 +1,55 @@
-"""Model runners: one predict() API over the float model, the INT8
-integer graph and the TFLite interpreter (port of models/runners.py), and
-load_model_runner, which picks one from a model file.
+"""Model runners: one predict() API over the float model (float32 or
+bf16), the INT8 integer graph and the TFLite interpreter (port of
+models/runners.py), and load_model_runner, which picks one from a model
+file.
 
-Not ported yet (ROADMAP.md, Queue 1): the bf16 runner, meshes, and loading
-float checkpoints (run directories, .keras files).
+Not ported yet (ROADMAP.md, Queue 1): meshes, and loading float
+checkpoints (run directories: item 9; .keras files: item 11).
 """
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from birdnet_stm32_tpu_torch.device import full_fp32, resolve_device
-from birdnet_stm32_tpu_torch.quant.tflite_import import TFLiteGraph, build_executor
+from birdnet_stm32_tpu_torch.quant.tflite_import import (
+    REQUANT_MODES,
+    TFLiteGraph,
+    build_executor,
+)
 
 
 class TorchRunner:
-    """Float32 forward of a DSCNN on one device (default CUDA; raises if
-    there is none). The model is moved there and put in eval mode."""
+    """Float forward of a DSCNN on one device (default CUDA; raises if
+    there is none). The model is moved there and put in eval mode.
+
+    dtype=torch.bfloat16 serves in bf16, as the JAX FlaxRunner(dtype=...):
+    a copy of the model gets every floating parameter and buffer (the BN
+    running statistics too) in bf16, features go in as bf16 and the scores
+    come out float32. The model passed in is left as it is. A device that
+    refuses a bf16 op raises; nothing falls back to float32.
+    """
 
     def __init__(self, model: torch.nn.Module, cfg=None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", dtype: torch.dtype | None = None):
         self.device = resolve_device(device)
+        if dtype is not None:
+            model = copy.deepcopy(model).to(dtype)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
+        self.dtype = dtype
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, bins, W, 1] features on self.device -> [B, C] scores."""
+        """[B, bins, W, 1] features on self.device -> [B, C] float32 scores."""
         with full_fp32():
-            return self.model(x)
+            if self.dtype is None:
+                return self.model(x)
+            return self.model(x.to(self.dtype)).float()
 
     def predict(self, x_batch: np.ndarray) -> np.ndarray:
         x = torch.as_tensor(np.asarray(x_batch, np.float32), device=self.device)
@@ -46,11 +64,11 @@ class TFLiteSimRunner:
 
     def __init__(self, tflite: str | Path | bytes | TFLiteGraph,
                  device: str | torch.device = "cuda", requant: str = "exact"):
-        if requant != "exact":
-            raise NotImplementedError(f"requant={requant!r} is not ported yet "
-                                      "(ROADMAP.md, Queue 1: requant='fast')")
+        if requant not in REQUANT_MODES:
+            raise ValueError(f"Invalid requant: {requant!r} (expected one of {REQUANT_MODES})")
         self.device = resolve_device(device)
         self.graph = tflite if isinstance(tflite, TFLiteGraph) else TFLiteGraph(tflite)
+        self.requant = requant
         self._executors: dict[tuple[int, bool], callable] = {}
 
     def executor(self, batch_size: int, prequantized_input: bool = False):
@@ -59,7 +77,7 @@ class TFLiteSimRunner:
         key = (batch_size, prequantized_input)
         if key not in self._executors:
             self._executors[key] = build_executor(
-                self.graph, batch_size, device=self.device,
+                self.graph, batch_size, device=self.device, requant=self.requant,
                 prequantized_input=prequantized_input)
         return self._executors[key]
 
@@ -129,9 +147,12 @@ def _is_full_int8(graph: TFLiteGraph) -> bool:
     return True
 
 
-def load_model_runner(model_path: str | Path, device: str | torch.device = "cuda"):
+def load_model_runner(model_path: str | Path, dtype: torch.dtype | None = None,
+                      device: str | torch.device = "cuda"):
     """The runner for a model file: a .tflite gives TFLiteSimRunner on
     `device` when the graph is full-int8, else TFLiteInterpreterRunner (host).
+    `dtype` (torch.bfloat16 for bf16 serving) applies to float checkpoints
+    only; a .tflite ignores it, as in the JAX package.
 
     Run directories and .keras files (float checkpoints) raise
     NotImplementedError: their loaders come with ROADMAP.md Queue 1 items 9

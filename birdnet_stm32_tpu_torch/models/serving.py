@@ -21,11 +21,17 @@ the same scores, bit for bit. A TFLiteInterpreterRunner (graphs that are
 not full-int8) runs the frontend on the device and the interpreter on the
 host.
 
+A TorchRunner with dtype=torch.bfloat16 is the bf16 leg: on CUDA its
+features are the cast of the kernel's float32 output (the kernels serve
+every stft_precision), on the CPU the cast of the plain version's; the
+composition (raw, or a geometry the kernels do not take) emits bf16
+features itself through the bf16-I/O STFT, as the JAX package does.
+
 decode_for_classify and chunks_for_classify_int16 turn one WAV into the
 chunk batch each ingress takes (audio/io.py).
 
-Not ported yet (ROADMAP.md): bf16 runners, meshes, the decoded-waveform
-cache (cache_dir=).
+Not ported yet (ROADMAP.md): meshes, the decoded-waveform cache
+(cache_dir=).
 """
 
 from __future__ import annotations
@@ -124,14 +130,24 @@ def make_ingress(cfg, input_sample_rate: int | None = None, input_dtype: str | N
     return ingress
 
 
+def _precision_and_dtype(runner, stft_precision: str | None):
+    """The JAX default rule: 'high' for a runner with a dtype (bf16), else
+    'highest'; bf16 features only off 'highest'."""
+    dtype = getattr(runner, "dtype", None)
+    if stft_precision is None:
+        stft_precision = "high" if dtype is not None else "highest"
+    return stft_precision, (dtype if stft_precision != "highest" else None)
+
+
 def make_fused_classifier(runner, cfg, input_sample_rate: int | None = None,
                           as_numpy: bool = True, input_dtype: str | None = None,
+                          stft_precision: str | None = None,
                           device: str | torch.device = "cuda"):
     """waveform batch -> scores [B, C] on `device`.
 
     Args:
-        runner: TorchRunner or TFLiteSimRunner on `device`, or a
-            TFLiteInterpreterRunner (host).
+        runner: TorchRunner (float32 or bf16) or TFLiteSimRunner on
+            `device`, or a TFLiteInterpreterRunner (host).
         cfg: ModelConfig (audio + model geometry).
         input_sample_rate: When set and != cfg.sample_rate, batches arrive
             at this rate ([B, chunk_duration * input_sample_rate]) and are
@@ -144,9 +160,14 @@ def make_fused_classifier(runner, cfg, input_sample_rate: int | None = None,
             raw PCM codes, bit-exact against the float path, or
             quantize_waveform_int16). 'ulaw': [B, T] int8 mu-law codes
             (quantize_waveform_ulaw; not bit-exact).
+        stft_precision: 'highest' | 'high' | 'default' (ops/stft.py). None
+            picks 'high' for a runner with a dtype (bf16), else 'highest',
+            as the JAX package does; off 'highest' a bf16 runner gets bf16
+            features. The kernels compute the same float32 for each.
         device: Where ingress, frontend and model run; default CUDA (raises
             if there is none).
     """
+    stft_precision, feat_dtype = _precision_and_dtype(runner, stft_precision)
     dev = resolve_device(device)
     runner_dev = getattr(runner, "device", None)
     if runner_dev is not None and runner_dev != dev:
@@ -159,12 +180,15 @@ def make_fused_classifier(runner, cfg, input_sample_rate: int | None = None,
 
     out = (lambda s: s.cpu().numpy()) if as_numpy else (lambda s: s)
     if hasattr(runner, "graph"):
-        return _int8_classifier(runner, cfg, wave_in, out)
+        return _int8_classifier(runner, cfg, wave_in, out, stft_precision)
     if hasattr(runner, "model"):
         @torch.no_grad()
         def classify(wave):
-            # frontend_input and runner.forward each hold TF32 off where it matters.
-            return out(runner.forward(frontend_input(wave_in(wave), cfg)))
+            # frontend_input and runner.forward each hold TF32 off where it
+            # matters; a bf16 runner casts whatever features it is given.
+            feats = frontend_input(wave_in(wave), cfg, stft_precision=stft_precision,
+                                   feature_dtype=feat_dtype)
+            return out(runner.forward(feats))
 
         return classify
     if not as_numpy:
@@ -173,13 +197,13 @@ def make_fused_classifier(runner, cfg, input_sample_rate: int | None = None,
 
     @torch.no_grad()
     def classify(wave) -> np.ndarray:
-        feats = frontend_input(wave_in(wave), cfg).cpu().numpy()
-        return np.asarray(runner.predict(feats))
+        feats = frontend_input(wave_in(wave), cfg, stft_precision=stft_precision)
+        return np.asarray(runner.predict(feats.cpu().numpy()))
 
     return classify
 
 
-def _int8_classifier(runner, cfg, wave_in, out):
+def _int8_classifier(runner, cfg, wave_in, out, stft_precision: str):
     """The INT8 leg: ingress -> frontend kernel -> integer executor, one
     executor per batch size (the runner keeps them)."""
     # Deepest fusion: the kernel quantizes into the executor's entry tensor
@@ -195,30 +219,37 @@ def _int8_classifier(runner, cfg, wave_in, out):
     def classify(wave):
         w = wave_in(wave)
         fwd = runner.executor(w.shape[0], prequantized_input=entry_q is not None)
-        return out(fwd(frontend_input(w, cfg, quant=entry_q)))
+        return out(fwd(frontend_input(w, cfg, quant=entry_q, stft_precision=stft_precision)))
 
     classify.entry_quant = entry_q
     return classify
 
 
-def make_embedder(runner, cfg, device: str | torch.device = "cuda"):
-    """waveform batch [B, T] float32 -> embeddings [B, emb] (float runner
-    only): the DS-CNN's pooled pre-head vector. INT8 and interpreter
-    artifacts expose only class scores."""
+def make_embedder(runner, cfg, stft_precision: str | None = None,
+                  device: str | torch.device = "cuda"):
+    """waveform batch [B, T] float32 -> embeddings [B, emb] float32 (float
+    runner only, float32 or bf16): the DS-CNN's pooled pre-head vector.
+    INT8 and interpreter artifacts expose only class scores. stft_precision
+    follows make_fused_classifier's rule."""
     if not hasattr(runner, "model"):
         raise TypeError("embeddings need a float (Torch) runner; "
                         ".tflite artifacts expose only class scores")
+    stft_precision, feat_dtype = _precision_and_dtype(runner, stft_precision)
     dev = resolve_device(device)
     if runner.device != dev:
         raise ValueError(f"runner is on {runner.device}, embedder on {dev}")
+    dtype = getattr(runner, "dtype", None)
 
     @torch.no_grad()
     def embed(wave) -> np.ndarray:
         w = torch.as_tensor(np.asarray(wave, np.float32)).to(dev).contiguous()
-        feats = frontend_input(w, cfg)
+        feats = frontend_input(w, cfg, stft_precision=stft_precision,
+                               feature_dtype=feat_dtype)
+        if dtype is not None:
+            feats = feats.to(dtype)  # a no-op when the frontend emitted bf16
         with full_fp32():
             _, emb = runner.model(feats, return_embeddings=True)
-        return emb.cpu().numpy()
+        return emb.float().cpu().numpy()
 
     return embed
 

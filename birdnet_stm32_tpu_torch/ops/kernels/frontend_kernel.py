@@ -467,8 +467,9 @@ def _kernel_geometry_ok(cfg, T: int) -> bool:
     return 2 * hop >= cfg.fft_length and fft_size_ok(cfg.fft_length)
 
 
-def frontend_input(y: torch.Tensor, cfg,
-                   quant: tuple[float, int] | None = None) -> torch.Tensor:
+def frontend_input(y: torch.Tensor, cfg, quant: tuple[float, int] | None = None,
+                   stft_precision: str = "highest",
+                   feature_dtype: torch.dtype | None = None) -> torch.Tensor:
     """[B, T] -> model input [B, bins, W, 1] through the fused kernels, for
     the hybrid, librosa (any mag_scale, pcen included), log_mel and mfcc
     frontends; with `quant=(scale, zero_point)` (entry_quant_params of the
@@ -476,11 +477,19 @@ def frontend_input(y: torch.Tensor, cfg,
     (feed build_executor(prequantized_input=True)).
 
     As in the JAX dispatch, mag_scale is passed on only in mode 'mel', and
-    the composition (ops/frontend.inputs_for_config) serves the 'raw'
-    frontend and geometries with 2*hop < n_fft; here also an n_fft the
-    kernels' FFT does not take (not a power of two in 64..2048). Its matmuls run with TF32
-    off; the kernels never use TF32. The composition has no int8 epilogue:
-    `quant` there raises ValueError.
+    the composition (ops/frontend.inputs_for_config, with stft_precision
+    and feature_dtype) serves the 'raw' frontend and geometries with
+    2*hop < n_fft; here also an n_fft the kernels' FFT does not take (not
+    a power of two in 64..2048). Its matmuls run with TF32 off; the
+    kernels never use TF32. The composition has no int8 epilogue: `quant`
+    there raises ValueError.
+
+    The kernels serve every stft_precision. They compute in float32 with
+    every rounding written out, which is at least as exact as the JAX
+    package's 'highest'; the JAX dispatch keeps its kernel to 'highest'
+    only because the TPU's MXU pass count is what 'high' trades, and an
+    H100 has no such trade. With feature_dtype (torch.bfloat16 for bf16
+    serving) the features are the cast of the kernel's float32 output.
     """
     mode = FRONTEND_MODES.get(cfg.audio_frontend)
     if mode is None or not _kernel_geometry_ok(cfg, y.shape[1]):
@@ -491,12 +500,15 @@ def frontend_input(y: torch.Tensor, cfg,
                 f"{MIN_N_FFT}..{MAX_N_FFT} required); callers gate "
                 "on the kernel geometry and quantize in the executor")
         with full_fp32():
-            return inputs_for_config(y, cfg)
+            return inputs_for_config(y, cfg, stft_precision=stft_precision,
+                                     feature_dtype=feature_dtype)
     out = fused_spectrogram(
         y, mode=mode, mag_scale=cfg.mag_scale if mode == "mel" else "none",
         sample_rate=cfg.sample_rate, n_fft=cfg.fft_length, mel_bins=cfg.num_mels,
         spec_width=cfg.spec_width, n_mfcc=cfg.n_mfcc, quant=quant)
-    return out if quant is not None else out[..., None]
+    if quant is not None:
+        return out
+    return (out if feature_dtype is None else out.to(feature_dtype))[..., None]
 
 
 def hybrid_frontend_input(y: torch.Tensor, cfg) -> torch.Tensor:

@@ -1,10 +1,13 @@
 """Batched spectrogram features (port of ops/spectrogram.py::spectrogram_batch).
 
 Maps [B, T] waveforms to [B, bins, W] features with the reference's mode x
-mag_scale behaviour matrix and normalization placement, in float32: modes
-'linear', 'mel', 'log_mel' and 'mfcc', mag_scale 'none' | 'pwl' | 'db' |
-'pcen'. `spectrogram_epilogue` is everything after the |STFT|; the fused
-kernel's plain version (ops/kernels/frontend_kernel.py) shares it.
+mag_scale behaviour matrix and normalization placement: modes 'linear',
+'mel', 'log_mel' and 'mfcc', mag_scale 'none' | 'pwl' | 'db' | 'pcen'.
+`spectrogram_epilogue` is everything after the |STFT|; the fused kernel's
+plain version (ops/kernels/frontend_kernel.py) shares it. With
+feature_dtype=torch.bfloat16 the |STFT| (and the mel product) come in
+bf16, the epilogue computes in float32 and the features are bf16, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -40,13 +43,14 @@ def spectrogram_epilogue(S: torch.Tensor, mode: str, mag_scale: str,
     mfcc squares the magnitude before the mel product, takes power_to_db's
     ref and top_db over all W frames and keeps the first out_w frames after
     the DCT; every other mode expects W == out_w. log_mel and mfcc ignore
-    mag_scale, as in the reference.
+    mag_scale, as in the reference. A bf16 S takes the mel product in bf16
+    and the rest in float32; the result is float32.
     """
     if not (mel_bins <= 0 or mode == "linear"):
         if mode == "mfcc":
             S = torch.square(S)
-        S = S @ _mel_fb(sample_rate, n_fft, mel_bins, S.device)  # [B, W, M]
-    S = S.transpose(1, 2)  # [B, bins, W] freq-major
+        S = S @ _mel_fb(sample_rate, n_fft, mel_bins, S.device).to(S.dtype)  # [B, W, M]
+    S = S.transpose(1, 2).float()  # [B, bins, W] freq-major
 
     if mode == "mfcc":
         ref = S.amax(dim=_SAMPLE_DIMS, keepdim=True)
@@ -71,7 +75,8 @@ def spectrogram_epilogue(S: torch.Tensor, mode: str, mag_scale: str,
 def spectrogram_batch(audio: torch.Tensor, sample_rate: int = 24000,
                       n_fft: int = 512, mel_bins: int = 64, spec_width: int = 256,
                       mag_scale: str = "none", mode: str = "mel",
-                      n_mfcc: int = 20) -> torch.Tensor:
+                      n_mfcc: int = 20, stft_precision: str = "highest",
+                      feature_dtype: torch.dtype | None = None) -> torch.Tensor:
     """[B, T] float32 waveforms -> [B, bins, spec_width] features in [0, 1].
 
     Args:
@@ -83,6 +88,11 @@ def spectrogram_batch(audio: torch.Tensor, sample_rate: int = 24000,
         mag_scale: 'none' | 'pcen' | 'pwl' | 'db' (mel/linear modes only).
         mode: 'mel' | 'mfcc' | 'log_mel' | 'linear'.
         n_mfcc: Coefficients kept in mfcc mode.
+        stft_precision: ops/stft.py's precision ('highest' | 'high' |
+            'default').
+        feature_dtype: None keeps float32. torch.bfloat16 emits bf16
+            features through the bf16-I/O STFT (with precision 'high' or
+            'default'); mfcc keeps the float32 pipeline and only casts.
     """
     if mode not in VALID_MODES:
         raise ValueError(f"Invalid mode: {mode!r}")
@@ -102,6 +112,9 @@ def spectrogram_batch(audio: torch.Tensor, sample_rate: int = 24000,
         n_frames = min(spec_width, n_frames_full)
     out_w = min(spec_width, n_frames) if spec_width > 0 else n_frames
 
-    S = stft_magnitude(audio, n_fft=n_fft, hop=hop, n_frames=n_frames)  # [B, W, F]
-    return spectrogram_epilogue(S, mode, mag_scale, sample_rate, n_fft, hop,
-                                mel_bins, n_mfcc, out_w)
+    S = stft_magnitude(audio, n_fft=n_fft, hop=hop, n_frames=n_frames,
+                       precision=stft_precision,
+                       out_dtype=None if mode == "mfcc" else feature_dtype)  # [B, W, F]
+    S = spectrogram_epilogue(S, mode, mag_scale, sample_rate, n_fft, hop,
+                             mel_bins, n_mfcc, out_w)
+    return S if feature_dtype is None else S.to(feature_dtype)

@@ -19,19 +19,34 @@ package's jitted executor:
   (2^30 alone when right = 0), for every channel. The JAX package splits
   this product into 16-bit limbs because the TPU has no int64, and rewrites
   provably constant channels; both are bit-equal to the direct form;
-- float steps (the entry QUANTIZE, DIV, DEQUANTIZE) repeat the jitted JAX
-  float32 arithmetic. XLA turns a division by a constant into a multiply by
-  its float32 reciprocal, so these multiply by an explicit float32
-  reciprocal tensor; never divide a CUDA tensor by a Python scalar, which
-  ATen also turns into a reciprocal multiply, computed differently;
-- LOGISTIC is a 256-entry lookup table built on the host in float64.
+- requant="fast" (opt-in, as in the JAX package) replaces the convolutions'
+  and FULLY_CONNECTED's requantization by round_half_away(float32(acc) *
+  float32(multiplier)) + zp, one plain float32 multiply, and the int8 ->
+  int8 QUANTIZE by its float form; it is bit-equal to the JAX fast path;
+- float steps (the entry QUANTIZE, DIV, DEQUANTIZE, SOFTMAX, a CONCATENATION
+  or MAXIMUM / MINIMUM whose inputs are quantized differently) repeat the
+  jitted JAX float32 arithmetic. XLA turns a division by a constant into a
+  multiply by its float32 reciprocal, so these multiply by an explicit
+  float32 reciprocal tensor; never divide a CUDA tensor by a Python scalar,
+  which ATen also turns into a reciprocal multiply, computed differently.
+  SOFTMAX's exp and sum are the device's own: one ulp there can move an
+  output code against XLA's;
+- LOGISTIC and LOG are 256-entry lookup tables built on the host in float64;
+- SHAPE, PACK and STRIDED_SLICE / RESHAPE / FILL over their results are
+  host values (numpy arrays in the executor's value table), as the JAX
+  executor keeps them on the host.
 
-The executor runs the 14 op kinds of the flagship graph: QUANTIZE,
-DEQUANTIZE, TRANSPOSE, STRIDED_SLICE, RESHAPE, CONV_2D, DEPTHWISE_CONV_2D,
-FULLY_CONNECTED, ADD, MUL, DIV, REDUCE_MAX, MEAN and LOGISTIC. Any other op,
-requant="fast", and the JAX package's layout pre-passes (transpose elision,
-constant-pad CONCAT folding, which change no value) are not ported yet
-(ROADMAP.md, Queue 1).
+The executor runs every op kind of the JAX executor: QUANTIZE, DEQUANTIZE,
+TRANSPOSE, SHAPE, PACK, FILL, STRIDED_SLICE (strides, masks), CONCATENATION,
+CONV_2D, DEPTHWISE_CONV_2D, FULLY_CONNECTED, ADD, SUB, MEAN, MUL, DIV,
+REDUCE_MAX, SUM, RESHAPE, PAD, PADV2, SOFTMAX, LOGISTIC, LOG, MAXIMUM and
+MINIMUM; any other raises NotImplementedError. Before it builds the steps it
+runs the JAX package's layout pre-passes (`layout_plan`), which change no
+value: a 4-D TRANSPOSE whose value reaches one convolution through identity
+STRIDED_SLICEs is aliased and the convolution reads the untransposed
+tensor; a CONCATENATION of a tensor and a constant (a const tensor, or the
+FILL of a const scalar) feeding one 1x1 CONV_2D is folded into that conv's
+int32 bias, and a FILL that fed only folded CONCATENATIONs is not run.
 """
 
 from __future__ import annotations
@@ -48,7 +63,7 @@ import torch.nn.functional as F
 from birdnet_stm32_tpu_torch.device import full_fp32, resolve_device
 from birdnet_stm32_tpu_torch.quant import tflite_schema as fb
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1: the remaining INT8 executor ops)"
+REQUANT_MODES = ("exact", "fast")
 
 # FusedActivationFunction enum.
 _ACT_NONE, _ACT_RELU, _ACT_RELU_N1_1, _ACT_RELU6 = 0, 1, 2, 3
@@ -198,9 +213,17 @@ def _mbqm_fn(qm, shift, device: torch.device) -> Callable[[torch.Tensor], torch.
     return mbqm
 
 
-def _requant_fn(multipliers, zp: int, lo: int, hi: int, device: torch.device):
-    """int64 accumulator [..., C] -> int8 codes: exact per-channel MBQM by
-    each multiplier, + zp, clamped to the activation bounds."""
+def _requant_fn(multipliers, zp: int, lo: int, hi: int, device: torch.device,
+                requant: str = "exact"):
+    """int64 accumulator [..., C] -> int8 codes, clamped to the activation
+    bounds: 'exact' is the per-channel MBQM by each multiplier, + zp;
+    'fast' is round_half_away(float32(acc) * float32(multiplier)) + zp
+    (the JAX package's _requant_fast: one plain float32 multiply, at most
+    one LSB from exact per op)."""
+    if requant == "fast":
+        m = torch.as_tensor(np.atleast_1d(multipliers).astype(np.float32), device=device)
+        return lambda acc: torch.clamp(
+            _round_away(acc.to(torch.float32) * m).to(torch.int32) + zp, lo, hi).to(torch.int8)
     qms = [_quantize_multiplier(float(m)) for m in np.atleast_1d(multipliers)]
     mbqm = _mbqm_fn([q for q, _ in qms], [s for _, s in qms], device)
     return lambda acc: torch.clamp(mbqm(acc) + zp, lo, hi).to(torch.int8)
@@ -278,14 +301,197 @@ def entry_quant_params(graph: TFLiteGraph) -> tuple[float, int]:
     return float(t.scale[0]), int(t.zero_point[0])
 
 
+# --- Layout pre-passes --------------------------------------------------------
+
+
+@dataclass
+class LayoutPlan:
+    """What the JAX executor's layout pre-passes (tflite_import.py:683-837)
+    decide for a graph. None of it changes a value.
+
+    alias_ops: op index -> the tensor it forwards unchanged (an elided
+        TRANSPOSE, an identity STRIDED_SLICE or a folded CONCATENATION of
+        its chain, any folded CONCATENATION).
+    pending_perm: tensor -> the perm of the TRANSPOSE it was elided from;
+        the value held is the untransposed one, and its consumer (a
+        convolution, or SHAPE) applies the perm.
+    concat_fold: CONCATENATION output -> (leading channels, pad code) for
+        the 1x1 CONV_2D that consumes it, which reads the unpadded tensor
+        with the leading weight channels and adds the pad channels'
+        constant contribution to its int32 bias.
+    dead_ops: FILL ops whose output feeds only folded CONCATENATIONs (the
+        port's eager executor would otherwise launch them for nothing).
+    """
+
+    alias_ops: dict[int, int] = field(default_factory=dict)
+    pending_perm: dict[int, tuple] = field(default_factory=dict)
+    concat_fold: dict[int, tuple[int, int]] = field(default_factory=dict)
+    dead_ops: set[int] = field(default_factory=set)
+
+
+def _consumers(graph: TFLiteGraph) -> dict[int, list[int]]:
+    cons: dict[int, list[int]] = {}
+    for i, op in enumerate(graph.ops):
+        for t in op.inputs:
+            cons.setdefault(t, []).append(i)
+    return cons
+
+
+def _fold_concat(graph: TFLiteGraph, op: OpInfo, cons: dict) -> tuple[int, int] | None:
+    """(leading channels, pad code) when `op` (a CONCATENATION) pads its
+    first input's channels with a constant (a uniform const tensor, or the
+    FILL of a const scalar) for exactly one 1x1 CONV_2D, else None."""
+    if len(op.inputs) != 2:
+        return None
+    t_dyn, t_pad = op.inputs
+    out = op.outputs[0]
+    info_out = graph.tensors[out]
+    if (info_out.dtype != "int8" or len(info_out.shape) != 4
+            or op.options["axis"] not in (3, -1)
+            or op.options.get("activation", _ACT_NONE) != _ACT_NONE):
+        return None
+    so, zo = _sz(graph, out)
+    if _sz(graph, t_dyn) != (so, zo):
+        return None  # the pass-through part would need requantization
+    tp = graph.tensors[t_pad]
+    pad_code = None
+    if tp.data is not None:
+        d = np.asarray(tp.data)
+        if np.all(d == d.flat[0]):
+            pad_code = int(d.flat[0])
+    else:
+        prod = [j for j, p in enumerate(graph.ops) if t_pad in p.outputs]
+        if len(prod) == 1 and graph.ops[prod[0]].name == "FILL":
+            value = graph.tensors[graph.ops[prod[0]].inputs[1]].data
+            if value is not None:
+                pad_code = int(np.asarray(value).reshape(()))
+    if pad_code is None:
+        return None
+    sp, zp = _sz(graph, t_pad)
+    if (sp, zp) != (so, zo):
+        # Requantize the constant as ConcatenationWithScaling would (the
+        # CONCATENATION step's float32 association).
+        inv_so = np.float32(1.0) / np.float32(so)
+        scale = np.float32(sp) * inv_so
+        f = np.float32(pad_code) * scale + np.float32(-zp) * scale
+        pad_code = int(np.clip(np.sign(f) * np.floor(np.abs(f) + np.float32(0.5)) + zo,
+                               -128, 127))
+    users = cons.get(out, [])
+    if any(graph.ops[c].name == "SHAPE" for c in users):
+        return None  # SHAPE would observe the unpadded physical shape
+    if out in graph.outputs or len(users) != 1:
+        return None
+    nxt = graph.ops[users[0]]
+    wt = graph.tensors[nxt.inputs[1]] if len(nxt.inputs) > 1 else None
+    if (nxt.name != "CONV_2D" or nxt.inputs[0] != out or wt is None or wt.data is None
+            or wt.shape[1] != 1 or wt.shape[2] != 1):
+        return None  # only 1x1 convs: no boundary-padding interaction
+    return int(graph.tensors[t_dyn].shape[-1]), pad_code
+
+
+def _slice_is_identity(graph: TFLiteGraph, op: OpInfo) -> bool:
+    """Whether a STRIDED_SLICE with constant bounds keeps all of its input."""
+    t_in, t_out = graph.tensors[op.inputs[0]], graph.tensors[op.outputs[0]]
+    if t_in.shape != t_out.shape or op.options.get("shrink_axis_mask"):
+        return False
+    if any(graph.tensors[op.inputs[k]].data is None for k in (1, 2, 3)):
+        return False  # dynamic bounds: identity cannot be proved
+    if op.options.get("ellipsis_mask") or op.options.get("new_axis_mask"):
+        return False
+    begin, end, strides = (np.asarray(graph.tensors[op.inputs[k]].data) for k in (1, 2, 3))
+    if min(len(begin), len(end), len(strides)) < len(t_in.shape):
+        return False
+    bm, em = op.options["begin_mask"], op.options["end_mask"]
+    for d, dim in enumerate(t_in.shape):
+        b = 0 if (bm >> d) & 1 else int(begin[d])
+        e = dim if (em >> d) & 1 else int(end[d])
+        if b != 0 or e != dim or int(strides[d]) != 1:
+            return False
+    return True
+
+
+def layout_plan(graph: TFLiteGraph, entry_target: int | None = None) -> LayoutPlan:
+    """The layout pre-passes of the JAX executor for `graph`: transpose
+    elision, identity STRIDED_SLICE aliasing inside an elided chain, the
+    CONCAT-of-FILL channel-pad fold and the FILL-producer check. With
+    `entry_target` (the entry TRANSPOSE's output, under pretransposed or
+    prequantized input) the chain rooted at the entry TRANSPOSE keeps its
+    aliases but applies no perm: its input arrives transposed already."""
+    plan = LayoutPlan()
+    cons = _consumers(graph)
+    folded = set()
+    for i, op in enumerate(graph.ops):
+        if op.name == "CONCATENATION":
+            fold = _fold_concat(graph, op, cons)
+            if fold is not None:
+                plan.concat_fold[op.outputs[0]] = fold
+                folded.add(i)
+
+    chains = []
+    for i, op in enumerate(graph.ops):
+        if op.name != "TRANSPOSE" or graph.tensors[op.inputs[1]].data is None:
+            continue
+        perm = tuple(int(p) for p in graph.tensors[op.inputs[1]].data)
+        if len(perm) != 4 or perm[0] != 0:
+            continue
+        chain, t, ok = [i], op.outputs[0], False
+        while True:
+            # SHAPE reports the logical shape of a perm-pending tensor, so it
+            # does not block the chain; a graph output does.
+            users = [c for c in cons.get(t, []) if graph.ops[c].name != "SHAPE"]
+            if len(users) != 1 or t in graph.outputs:
+                break
+            nxt = graph.ops[users[0]]
+            if nxt.inputs[0] == t and (users[0] in folded or (
+                    nxt.name == "STRIDED_SLICE" and _slice_is_identity(graph, nxt))):
+                chain.append(users[0])
+                t = nxt.outputs[0]
+                continue
+            ok = nxt.name in ("CONV_2D", "DEPTHWISE_CONV_2D") and nxt.inputs[0] == t
+            break
+        if ok:
+            chains.append(chain)
+            for ci in chain:
+                plan.alias_ops[ci] = graph.ops[ci].inputs[0]
+                plan.pending_perm[graph.ops[ci].outputs[0]] = perm
+    for i in folded:
+        plan.alias_ops[i] = graph.ops[i].inputs[0]
+
+    if entry_target is not None:
+        plan.alias_ops.pop(1, None)
+        for chain in chains:
+            if chain[0] == 1:
+                for ci in chain:
+                    plan.pending_perm.pop(graph.ops[ci].outputs[0], None)
+        plan.pending_perm.pop(entry_target, None)
+
+    for i, op in enumerate(graph.ops):
+        users = cons.get(op.outputs[0], [])
+        if (op.name == "FILL" and users and all(c in folded for c in users)
+                and op.outputs[0] not in graph.outputs):
+            plan.dead_ops.add(i)
+    return plan
+
+
 # --- Ops -----------------------------------------------------------------------
 #
 # Each _op_* function runs once per executor, on the host: it reads the op's
 # constants, uploads what the op needs to the device and returns
 # step(vals), which reads the op's inputs from `vals` (tensor index ->
-# torch tensor) and stores its output there.
+# torch tensor, or numpy array for a host value) and stores its output there.
 
 Step = Callable[[dict], None]
+
+
+@dataclass
+class _Build:
+    """What every _op_* function reads: the graph, the device, the requant mode
+    and the layout plan."""
+
+    graph: TFLiteGraph
+    dev: torch.device
+    requant: str
+    plan: LayoutPlan
 
 
 def _sz(graph: TFLiteGraph, idx: int) -> tuple[float, int]:
@@ -296,8 +502,17 @@ def _sz(graph: TFLiteGraph, idx: int) -> tuple[float, int]:
 def _host_const(graph: TFLiteGraph, idx: int, what: str) -> np.ndarray:
     data = graph.tensors[idx].data
     if data is None:
-        raise NotImplementedError(f"{what} from a computed tensor {idx}: {_NOT_PORTED}")
+        raise NotImplementedError(f"{what} from a computed tensor {idx} is not supported")
     return np.asarray(data)
+
+
+def _host(graph: TFLiteGraph, vals: dict, idx: int) -> np.ndarray:
+    """A host value at run time: computed (SHAPE, PACK, a slice of them) or
+    a constant's buffer."""
+    x = vals.get(idx)
+    if isinstance(x, np.ndarray):
+        return x
+    return _host_const(graph, idx, "host value")
 
 
 def _gemm_dtype(w: np.ndarray, tap_axes: tuple) -> torch.dtype:
@@ -307,7 +522,8 @@ def _gemm_dtype(w: np.ndarray, tap_axes: tuple) -> torch.dtype:
     return torch.float32 if bound < (1 << 24) else torch.float64
 
 
-def _op_quantize(graph, op, dev) -> Step:
+def _op_quantize(c: _Build, op) -> Step:
+    graph, dev = c.graph, c.dev
     i, o = op.inputs[0], op.outputs[0]
     s, z = _sz(graph, o)
     if graph.tensors[i].dtype == "float32":
@@ -316,8 +532,16 @@ def _op_quantize(graph, op, dev) -> Step:
         def step(v):
             v[o] = quantize_f32(v[i], inv, z)
         return step
-    # int8 -> int8: TFLite's Requantize, MBQM(x - zi, qm, shift) + zo.
     si, zi = _sz(graph, i)
+    if c.requant == "fast":
+        # The JAX fast form: round_away((x - zi) * float32(si / s)) + z.
+        ratio = _f32_const(si / s, dev)
+
+        def step(v):
+            q = _round_away((v[i].to(torch.float32) - zi) * ratio) + z
+            v[o] = torch.clamp(q, -128, 127).to(torch.int8)
+        return step
+    # int8 -> int8: TFLite's Requantize, MBQM(x - zi, qm, shift) + zo.
     mbqm = _mbqm_fn(*_quantize_multiplier(si / s), dev)
 
     def step(v):
@@ -326,68 +550,151 @@ def _op_quantize(graph, op, dev) -> Step:
     return step
 
 
-def _op_dequantize(graph, op, dev) -> Step:
+def _op_dequantize(c: _Build, op) -> Step:
     i, o = op.inputs[0], op.outputs[0]
-    s, z = _sz(graph, i)
-    s32 = _f32_const(s, dev)
+    s, z = _sz(c.graph, i)
+    s32 = _f32_const(s, c.dev)
 
     def step(v):
         v[o] = (v[i].to(torch.float32) - z) * s32
     return step
 
 
-def _op_transpose(graph, op, dev) -> Step:
+def _op_transpose(c: _Build, op) -> Step:
     i, o = op.inputs[0], op.outputs[0]
-    perm = tuple(int(p) for p in _host_const(graph, op.inputs[1], "TRANSPOSE perm"))
+    perm = tuple(int(p) for p in _host_const(c.graph, op.inputs[1], "TRANSPOSE perm"))
 
     def step(v):
         v[o] = v[i].permute(perm)
     return step
 
 
-def _op_strided_slice(graph, op, dev) -> Step:
+def _op_shape(c: _Build, op) -> Step:
+    # A host value: the logical shape (a perm-pending tensor holds its
+    # untransposed value).
     i, o = op.inputs[0], op.outputs[0]
-    begin, end, strides = ([int(x) for x in _host_const(graph, k, "STRIDED_SLICE bounds")]
-                           for k in op.inputs[1:4])
+    perm = c.plan.pending_perm.get(i)
+
+    def step(v):
+        phys = tuple(v[i].shape)
+        shape = phys if perm is None else tuple(phys[p] for p in perm)
+        v[o] = np.asarray(shape, np.int32)
+    return step
+
+
+def _op_pack(c: _Build, op) -> Step:
+    # Packs host scalars into a host vector (shape arithmetic).
+    o = op.outputs[0]
+
+    def step(v):
+        parts = [_host(c.graph, v, i).reshape(()) for i in op.inputs]
+        v[o] = np.stack(parts).astype(np.int32)
+    return step
+
+
+def _op_fill(c: _Build, op) -> Step:
+    graph, dev = c.graph, c.dev
+    o = op.outputs[0]
+    int8 = graph.tensors[o].dtype == "int8"
+
+    def step(v):
+        dims = tuple(int(d) for d in _host(graph, v, op.inputs[0]))
+        value = _host(graph, v, op.inputs[1]).reshape(())
+        dtype = torch.int8 if int8 else torch.from_numpy(np.asarray(value)).dtype
+        v[o] = torch.full(dims, value.item(), dtype=dtype, device=dev)
+    return step
+
+
+def _slice_tensor(x: torch.Tensor, slices: tuple) -> torch.Tensor:
+    """x[slices] with numpy's semantics; torch's own indexing takes positive
+    steps only, so a negative step gathers its indices."""
+    if all(isinstance(s, int) or (s.step or 1) > 0 for s in slices):
+        return x[slices]
+    dim = 0
+    for s in slices:
+        if isinstance(s, int):
+            x = x.select(dim, s)
+            continue
+        idx = torch.arange(*s.indices(x.shape[dim]), device=x.device)
+        x = x.index_select(dim, idx)
+        dim += 1
+    return x
+
+
+def _op_strided_slice(c: _Build, op) -> Step:
+    graph = c.graph
+    i, o = op.inputs[0], op.outputs[0]
     opts = op.options
     if opts.get("new_axis_mask") or opts.get("ellipsis_mask"):
         raise NotImplementedError(
             "STRIDED_SLICE with new_axis/ellipsis masks is not supported")
-    if any(s <= 0 for s in strides):
-        raise NotImplementedError(f"STRIDED_SLICE with strides {strides}: {_NOT_PORTED}")
     bm, em, sm = opts["begin_mask"], opts["end_mask"], opts["shrink_axis_mask"]
     src_shape = graph.tensors[i].shape
-    slices = []
-    for d in range(len(begin)):
-        b = None if (bm >> d) & 1 else begin[d]
-        e = None if (em >> d) & 1 else end[d]
-        if d == 0 and b in (None, 0) and e == 1 and src_shape and src_shape[0] == 1:
-            # A literal batch-1 end from a batch-1 export means "the whole
-            # batch": remap it to the executor's batch, as RESHAPE does.
-            e = None
-        slices.append(begin[d] if (sm >> d) & 1 else slice(b, e, strides[d]))
-    slices = tuple(slices)
+
+    def slices(v, on_host: bool) -> tuple:
+        begin, end, strides = ([int(x) for x in _host(graph, v, k)] for k in op.inputs[1:4])
+        out = []
+        for d in range(len(begin)):
+            b = None if (bm >> d) & 1 else begin[d]
+            e = None if (em >> d) & 1 else end[d]
+            if (d == 0 and not on_host and b in (None, 0) and e == 1 and src_shape
+                    and src_shape[0] == 1):
+                # A literal batch-1 end from a batch-1 export means "the
+                # whole batch": remap it to the executor's batch, as
+                # RESHAPE does.
+                e = None
+            out.append(begin[d] if (sm >> d) & 1 else slice(b, e, strides[d]))
+        return tuple(out)
 
     def step(v):
-        v[o] = v[i][slices]
+        x = v[i]
+        if isinstance(x, np.ndarray):
+            v[o] = np.asarray(x[slices(v, True)])
+        else:
+            v[o] = _slice_tensor(x, slices(v, False))
     return step
 
 
-def _op_reshape(graph, op, dev) -> Step:
+def _op_reshape(c: _Build, op) -> Step:
+    graph = c.graph
     i, o = op.inputs[0], op.outputs[0]
-    if len(op.inputs) > 1 and op.inputs[1] >= 0:
-        spec = [int(d) for d in _host_const(graph, op.inputs[1], "RESHAPE shape")]
-    else:
-        spec = [int(d) for d in op.options["new_shape"]]
+    has_shape = len(op.inputs) > 1 and op.inputs[1] >= 0
 
     def step(v):
         src = v[i]
-        new_shape = list(spec)
+        new_shape = ([int(d) for d in _host(graph, v, op.inputs[1])] if has_shape
+                     else [int(d) for d in op.options["new_shape"]])
         # A spec exported at batch 1 may carry a literal leading 1: remap it
         # to -1, or to the real batch when the spec's -1 is elsewhere.
         if new_shape and new_shape[0] not in (-1, src.shape[0]):
             new_shape[0] = -1 if -1 not in new_shape[1:] else src.shape[0]
         v[o] = src.reshape(new_shape)
+    return step
+
+
+def _op_concatenation(c: _Build, op) -> Step:
+    graph, dev = c.graph, c.dev
+    o = op.outputs[0]
+    axis = op.options["axis"]
+    so, zo = _sz(graph, o)
+    parts = []
+    for i in op.inputs:
+        si, zi = _sz(graph, i)
+        if (si, zi) == (so, zo):
+            parts.append(lambda v, i=i: v[i])
+            continue
+        # TFLite ConcatenationWithScaling: float32 with a precomputed inverse
+        # output scale, round(x * scale + bias) + zo, in that association.
+        scale = np.float32(si) * (np.float32(1.0) / np.float32(so))
+        sc, bi = _f32_const(scale, dev), _f32_const(np.float32(-zi) * scale, dev)
+        parts.append(lambda v, i=i, sc=sc, bi=bi: torch.clamp(
+            _round_away(v[i].to(torch.float32) * sc + bi) + zo, -128, 127).to(torch.int8))
+    act = op.options.get("activation", _ACT_NONE)
+    lo, hi = _act_bounds(act, so, zo)
+
+    def step(v):
+        cat = torch.cat([part(v) for part in parts], dim=axis)
+        v[o] = cat if act == _ACT_NONE else torch.clamp(cat, lo, hi)
     return step
 
 
@@ -408,7 +715,8 @@ def _tap_conv(xp: torch.Tensor, w: torch.Tensor, out_hw, strides, dil) -> torch.
     return acc
 
 
-def _op_conv(graph, op, dev) -> Step:
+def _op_conv(c: _Build, op) -> Step:
+    graph, dev = c.graph, c.dev
     name, (i, wi), o = op.name, op.inputs[:2], op.outputs[0]
     w = _host_const(graph, wi, f"{name} weights")  # CONV [O,kh,kw,I]; DW [1,kh,kw,C]
     bias = (_host_const(graph, op.inputs[2], f"{name} bias").astype(np.int64)
@@ -420,10 +728,27 @@ def _op_conv(graph, op, dev) -> Step:
     dil = tuple(op.options.get("dilation", (1, 1)))
     same = op.options["padding"] == "SAME"
     lo, hi = _act_bounds(op.options["activation"], so, zo)
-    requant = _requant_fn(si * sw.astype(np.float64) / so, zo, lo, hi, dev)
+    requant = _requant_fn(si * sw.astype(np.float64) / so, zo, lo, hi, dev, c.requant)
     depthwise = name == "DEPTHWISE_CONV_2D"
     kh, kw = w.shape[1], w.shape[2]
-    c_in = graph.tensors[i].shape[3]
+    c_in = graph.tensors[i].shape[3]  # the logical NHWC shape
+    # An elided TRANSPOSE: the value is untransposed, apply its perm here.
+    perm = c.plan.pending_perm.get(i)
+    if perm is None:
+        def x_in(v):
+            return v[i]
+    else:
+        def x_in(v):
+            return v[i].permute(perm)
+    # A folded constant-pad CONCATENATION: read the unpadded tensor with the
+    # leading weight channels; the pad channels' constant contribution
+    # joins the bias correction.
+    pad_corr = 0
+    fold = c.plan.concat_fold.get(i) if not depthwise else None
+    if fold is not None:
+        n_lead, pad_code = fold
+        pad_corr = w[:, :, :, n_lead:].astype(np.int64).sum(axis=(1, 2, 3)) * (pad_code - zi)
+        w, c_in = w[:, :, :, :n_lead], n_lead
 
     if depthwise and kh == kw == 1 and (sh, swd) == (1, 1) and dil == (1, 1) \
             and w.shape[0] == 1 and w.shape[3] == c_in:
@@ -433,13 +758,13 @@ def _op_conv(graph, op, dev) -> Step:
         bv = torch.as_tensor(np.broadcast_to(bias, w.shape[3:]).copy(), device=dev)
 
         def step(v):
-            v[o] = requant((v[i].to(torch.int64) - zi) * wv + bv)
+            v[o] = requant((x_in(v).to(torch.int64) - zi) * wv + bv)
         return step
 
     tap_axes = (0, 1, 2) if depthwise else (1, 2, 3)
     w_sum = w.astype(np.int64).sum(axis=tap_axes)
     # The zero-point fold: padding with zi makes sum w * (x - zi) exact.
-    correction = torch.as_tensor(bias - zi * w_sum, dtype=torch.int64, device=dev)
+    correction = torch.as_tensor(bias - zi * w_sum + pad_corr, dtype=torch.int64, device=dev)
 
     def padded(x):
         if not same:
@@ -460,7 +785,7 @@ def _op_conv(graph, op, dev) -> Step:
         repeat = w.shape[3] // c_in if depthwise else 1
 
         def step(v):
-            xp = padded(v[i]).to(torch.int32)
+            xp = padded(x_in(v)).to(torch.int32)
             if repeat > 1:
                 xp = xp.repeat_interleave(repeat, dim=3)
             acc = _tap_conv(xp, w_taps, out_hw(xp), (sh, swd), dil)
@@ -473,7 +798,7 @@ def _op_conv(graph, op, dev) -> Step:
         wt = torch.as_tensor(w.reshape(O, -1).T.copy(), dtype=gemm, device=dev)  # [I, O]
 
         def step(v):
-            x = v[i][:, ::sh, ::swd, :]
+            x = x_in(v)[:, ::sh, ::swd, :]
             acc = (x.to(gemm) @ wt).to(torch.int64)
             v[o] = requant(acc + correction)
         return step
@@ -484,7 +809,7 @@ def _op_conv(graph, op, dev) -> Step:
                          dtype=gemm, device=dev)  # [I*kh*kw, O]
 
     def step(v):
-        xp = padded(v[i])
+        xp = padded(x_in(v))
         Ho, Wo = out_hw(xp)
         cols = F.unfold(xp.to(gemm).permute(0, 3, 1, 2), (kh, kw), dilation=dil,
                         stride=(sh, swd))  # [B, I*kh*kw, Ho*Wo]
@@ -493,7 +818,8 @@ def _op_conv(graph, op, dev) -> Step:
     return step
 
 
-def _op_fully_connected(graph, op, dev) -> Step:
+def _op_fully_connected(c: _Build, op) -> Step:
+    graph, dev = c.graph, c.dev
     if op.options.get("weights_format", 0) != 0:
         raise NotImplementedError(
             "FULLY_CONNECTED with shuffled weights format "
@@ -513,7 +839,7 @@ def _op_fully_connected(graph, op, dev) -> Step:
     sw = graph.tensors[wi].scale
     so, zo = _sz(graph, o)
     lo, hi = _act_bounds(op.options["activation"], so, zo)
-    requant = _requant_fn(si * sw.astype(np.float64) / so, zo, lo, hi, dev)
+    requant = _requant_fn(si * sw.astype(np.float64) / so, zo, lo, hi, dev, c.requant)
     gemm = _gemm_dtype(w, (1,))
     wt = torch.as_tensor(w.T.copy(), dtype=gemm, device=dev)  # [in, out]
     correction = torch.as_tensor(bias - zi * w.astype(np.int64).sum(axis=1),
@@ -525,10 +851,11 @@ def _op_fully_connected(graph, op, dev) -> Step:
     return step
 
 
-def _op_add(graph, op, dev) -> Step:
-    # TFLite int8 ADD: rescale both inputs to twice the larger input scale
-    # at 20 fractional bits, add, requantize. A constant operand is rescaled
-    # once, on the host.
+def _op_add_sub(c: _Build, op) -> Step:
+    # TFLite int8 ADD / SUB: rescale both inputs to twice the larger input
+    # scale at 20 fractional bits, add or subtract, requantize. A constant
+    # operand is rescaled once, on the host.
+    graph, dev = c.graph, c.dev
     (a, b), o = op.inputs[:2], op.outputs[0]
     sa, za = _sz(graph, a)
     sb, zb = _sz(graph, b)
@@ -549,14 +876,17 @@ def _op_add(graph, op, dev) -> Step:
     ra, rb = rescaled(a, za, sa), rescaled(b, zb, sb)
     out = _mbqm_fn(*_quantize_multiplier(twice_max / ((1 << left_shift) * so)), dev)
     lo, hi = _act_bounds(op.options["activation"], so, zo)
+    sign = 1 if op.name == "ADD" else -1
 
     def step(v):
-        v[o] = torch.clamp(out(ra(v) + rb(v)) + zo, lo, hi).to(torch.int8)
+        raw = ra(v) + rb(v) if sign > 0 else ra(v) - rb(v)
+        v[o] = torch.clamp(out(raw) + zo, lo, hi).to(torch.int8)
     return step
 
 
-def _op_mul(graph, op, dev) -> Step:
+def _op_mul(c: _Build, op) -> Step:
     # TFLite int8 MUL: the product of the offset codes, one MBQM.
+    graph, dev = c.graph, c.dev
     (a, b), o = op.inputs[:2], op.outputs[0]
     sa, za = _sz(graph, a)
     sb, zb = _sz(graph, b)
@@ -565,8 +895,8 @@ def _op_mul(graph, op, dev) -> Step:
     def offset(idx, zp):
         data = graph.tensors[idx].data
         if data is not None:
-            c = torch.as_tensor(np.asarray(data, np.int64) - zp, device=dev)
-            return lambda v: c
+            k = torch.as_tensor(np.asarray(data, np.int64) - zp, device=dev)
+            return lambda v: k
         return lambda v: v[idx].to(torch.int64) - zp
 
     fa, fb_ = offset(a, za), offset(b, zb)
@@ -578,21 +908,46 @@ def _op_mul(graph, op, dev) -> Step:
     return step
 
 
-def _op_div(graph, op, dev) -> Step:
+def _dequant_f32(graph: TFLiteGraph, idx: int, dev: torch.device):
+    """v -> (code - zp) * float32(scale): the JAX executor's float reads."""
+    s, z = _sz(graph, idx)
+    s32 = _f32_const(s, dev)
+    return lambda v: (v[idx].to(torch.float32) - z) * s32
+
+
+def _op_div(c: _Build, op) -> Step:
     # Float-faithful, as the JAX package: dequantize both, divide, multiply
     # by the float32 reciprocal of the output scale, round half away.
     (a, b), o = op.inputs[:2], op.outputs[0]
-    sa, za = _sz(graph, a)
-    sb, zb = _sz(graph, b)
-    so, zo = _sz(graph, o)
-    sa32, sb32, inv_so = _f32_const(sa, dev), _f32_const(sb, dev), f32_reciprocal(so, dev)
+    fa, fb_ = _dequant_f32(c.graph, a, c.dev), _dequant_f32(c.graph, b, c.dev)
+    so, zo = _sz(c.graph, o)
+    inv_so = f32_reciprocal(so, c.dev)
     lo, hi = _act_bounds(op.options["activation"], so, zo)
 
     def step(v):
-        fa = (v[a].to(torch.float32) - za) * sa32
-        fb_ = (v[b].to(torch.float32) - zb) * sb32
-        q = _round_away(fa / fb_ * inv_so) + zo
+        q = _round_away(fa(v) / fb_(v) * inv_so) + zo
         v[o] = torch.clamp(q, lo, hi).to(torch.int8)
+    return step
+
+
+def _op_maximum_minimum(c: _Build, op) -> Step:
+    # TFLite's quantized Maximum / Minimum compares the raw codes when every
+    # tensor shares its quantization; otherwise float-faithful (<= 1 LSB),
+    # as the JAX package.
+    graph, dev = c.graph, c.dev
+    (a, b), o = op.inputs[:2], op.outputs[0]
+    fn = torch.maximum if op.name == "MAXIMUM" else torch.minimum
+    so, zo = _sz(graph, o)
+    if _sz(graph, a) == _sz(graph, b) == (so, zo):
+        def step(v):
+            v[o] = fn(v[a], v[b])
+        return step
+    fa, fb_ = _dequant_f32(graph, a, dev), _dequant_f32(graph, b, dev)
+    inv_so = f32_reciprocal(so, dev)
+
+    def step(v):
+        q = _round_away(fn(fa(v), fb_(v)) * inv_so) + zo
+        v[o] = torch.clamp(q, -128, 127).to(torch.int8)
     return step
 
 
@@ -600,7 +955,8 @@ def _reduce_axes(graph, op) -> tuple:
     return tuple(int(x) for x in np.atleast_1d(_host_const(graph, op.inputs[1], "axes")))
 
 
-def _op_reduce_max(graph, op, dev) -> Step:
+def _op_reduce_max(c: _Build, op) -> Step:
+    graph = c.graph
     i, o = op.inputs[0], op.outputs[0]
     axes, keep = _reduce_axes(graph, op), op.options.get("keepdims", True)
     si, zi = _sz(graph, i)
@@ -609,7 +965,7 @@ def _op_reduce_max(graph, op, dev) -> Step:
         def step(v):
             v[o] = v[i].amax(dim=axes, keepdim=keep)
         return step
-    ratio = _f32_const(si / so, dev)
+    ratio = _f32_const(si / so, c.dev)
 
     def step(v):
         m = v[i].amax(dim=axes, keepdim=keep)
@@ -618,60 +974,130 @@ def _op_reduce_max(graph, op, dev) -> Step:
     return step
 
 
-def _op_mean(graph, op, dev) -> Step:
-    # TFLite integer Mean: acc = sum(q - zp_in); MBQM(acc, si / (n * so)) + zp_out.
+def _op_mean_sum(c: _Build, op) -> Step:
+    # TFLite integer Mean: acc = sum(q - zp_in); MBQM(acc, si / (n * so)) +
+    # zp_out. SUM is the same without the 1 / n.
+    graph, dev = c.graph, c.dev
     i, o = op.inputs[0], op.outputs[0]
-    axes, keep = _reduce_axes(graph, op), op.options["keepdims"]
+    axes = _reduce_axes(graph, op)
+    mean = op.name == "MEAN"
+    keep = op.options["keepdims"] if mean else op.options.get("keepdims", False)
     si, zi = _sz(graph, i)
     so, zo = _sz(graph, o)
 
     def step(v):
         x = v[i]
-        num = math.prod(x.shape[a] for a in axes)
+        num = math.prod(x.shape[a] for a in axes) if mean else 1
         acc = (x.to(torch.int64) - zi).sum(dim=axes, keepdim=keep)
         q = _mbqm_fn(*_quantize_multiplier(si / (num * so)), dev)(acc) + zo
         v[o] = torch.clamp(q, -128, 127).to(torch.int8)
     return step
 
 
-def _op_logistic(graph, op, dev) -> Step:
+def _op_pad(c: _Build, op) -> Step:
+    # TFLite Pad: constant padding with the output zero point for quantized
+    # tensors, 0.0 for float ones, or PADV2's explicit constant.
+    graph = c.graph
     i, o = op.inputs[0], op.outputs[0]
-    si, zi = _sz(graph, i)
-    zo = _sz(graph, o)[1]
-    so = graph.tensors[o].scale[0]  # numpy float64, as the JAX package divides by it
-    vals = np.arange(-128, 128, dtype=np.float64)
-    f = 1.0 / (1.0 + np.exp(-(vals - zi) * si))
-    lut = np.clip(np.sign(f / so) * np.floor(np.abs(f / so) + 0.5) + zo,
-                  -128, 127).astype(np.int8)
-    lut = torch.as_tensor(lut, device=dev)
+    pads = _host_const(graph, op.inputs[1], "PAD paddings").astype(np.int64).reshape(-1, 2)
+    flat = [int(p) for before_after in pads[::-1] for p in before_after]  # last dim first
+    if op.name == "PADV2" and len(op.inputs) > 2 and op.inputs[2] >= 0:
+        value = _host_const(graph, op.inputs[2], "PADV2 value").reshape(()).item()
+    elif graph.tensors[i].dtype == "float32":
+        value = 0.0
+    else:
+        value = _sz(graph, o)[1]
+
+    def step(v):
+        v[o] = F.pad(v[i], flat, value=value)
+    return step
+
+
+def _op_softmax(c: _Build, op) -> Step:
+    # Float-faithful softmax(beta * x) over the last axis, as the JAX
+    # executor computes it (exp(x - max) / sum); the int8 output scale is
+    # 1/256.
+    graph, dev = c.graph, c.dev
+    i, o = op.inputs[0], op.outputs[0]
+    f = _dequant_f32(graph, i, dev)
+    beta = _f32_const(op.options.get("beta", 1.0), dev)
+    so, zo = _sz(graph, o)
+    inv_so = f32_reciprocal(so, dev)
+
+    def step(v):
+        x = beta * f(v)
+        e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+        p = e / e.sum(dim=-1, keepdim=True)
+        v[o] = torch.clamp(_round_away(p * inv_so) + zo, -128, 127).to(torch.int8)
+    return step
+
+
+def _lut_step(c: _Build, op, f_of_x) -> Step:
+    """An int8 elementwise op as a 256-entry table built on the host in
+    float64: round half away, + zp, clamp (TFLite's LUTPopulate)."""
+    i, o = op.inputs[0], op.outputs[0]
+    si, zi = _sz(c.graph, i)
+    zo = _sz(c.graph, o)[1]
+    so = c.graph.tensors[o].scale[0]  # numpy float64, as the JAX package divides by it
+    f = f_of_x((np.arange(-128, 128, dtype=np.float64) - zi) * si)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        q = np.sign(f / so) * np.floor(np.abs(f / so) + 0.5) + zo
+    lut = np.clip(np.nan_to_num(q, nan=-128.0, neginf=-128.0), -128, 127).astype(np.int8)
+    lut = torch.as_tensor(lut, device=c.dev)
 
     def step(v):
         v[o] = lut[v[i].to(torch.int64) + 128]
     return step
 
 
+def _op_logistic(c: _Build, op) -> Step:
+    return _lut_step(c, op, lambda x: 1.0 / (1.0 + np.exp(-x)))
+
+
+def _op_log(c: _Build, op) -> Step:
+    # Non-positive dequants map to qmin: the graph clamps with MAXIMUM(x,
+    # eps) first (the db magnitude scaling).
+    def log(x):
+        with np.errstate(divide="ignore", invalid="ignore"):
+            return np.where(x > 0.0, np.log(x), -np.inf)
+    return _lut_step(c, op, log)
+
+
 _OPS = {
     "QUANTIZE": _op_quantize,
     "DEQUANTIZE": _op_dequantize,
     "TRANSPOSE": _op_transpose,
+    "SHAPE": _op_shape,
+    "PACK": _op_pack,
+    "FILL": _op_fill,
     "STRIDED_SLICE": _op_strided_slice,
+    "CONCATENATION": _op_concatenation,
     "RESHAPE": _op_reshape,
     "CONV_2D": _op_conv,
     "DEPTHWISE_CONV_2D": _op_conv,
     "FULLY_CONNECTED": _op_fully_connected,
-    "ADD": _op_add,
+    "ADD": _op_add_sub,
+    "SUB": _op_add_sub,
     "MUL": _op_mul,
     "DIV": _op_div,
     "REDUCE_MAX": _op_reduce_max,
-    "MEAN": _op_mean,
+    "MEAN": _op_mean_sum,
+    "SUM": _op_mean_sum,
+    "PAD": _op_pad,
+    "PADV2": _op_pad,
+    "SOFTMAX": _op_softmax,
     "LOGISTIC": _op_logistic,
+    "LOG": _op_log,
+    "MAXIMUM": _op_maximum_minimum,
+    "MINIMUM": _op_maximum_minimum,
 }
 
 
 def build_executor(graph: TFLiteGraph, batch_size: int, device: str | torch.device = "cuda",
                    return_all: bool = False, requant: str = "exact",
                    pretransposed_input: bool = False,
-                   prequantized_input: bool = False) -> Callable[[torch.Tensor], Any]:
+                   prequantized_input: bool = False,
+                   layout_prepasses: bool = True) -> Callable[[torch.Tensor], Any]:
     """Build f(x) mapping one input batch to the graph's output on `device`.
 
     Args:
@@ -679,21 +1105,25 @@ def build_executor(graph: TFLiteGraph, batch_size: int, device: str | torch.devi
         batch_size: The batch the executor runs (x.shape[0]).
         device: Where weights live and the graph runs; default CUDA.
         return_all: Return {tensor index: value} instead of the output.
-        requant: 'exact' only ('fast' is not ported yet).
+        requant: 'exact' (bit-exact TFLite fixed-point requantization) or
+            'fast' (float32-multiply requantization, <= 1 LSB per op, and the
+            flips cascade; opt-in only, as in the JAX package).
         pretransposed_input: x comes in the entry TRANSPOSE's output
             orientation (entry_transpose_perm); it is quantized directly
             and the transpose is skipped.
         prequantized_input: x IS the int8 entry tensor in that orientation,
             quantized by a producer with entry_quant_params(graph) (the
             fused frontend kernel's int8 epilogue).
+        layout_prepasses: Run the layout pre-passes (`layout_plan`); False
+            runs every op as the graph lists it, the same values.
 
     Returns:
         f(x: [B, ...] float32, or int8 with prequantized_input) -> [B, ...]
-        float32, on `device`.
+        float32, on `device`. f.steps is the number of ops it computes
+        (aliased, skipped and dead ops not counted).
     """
-    if requant != "exact":
-        raise NotImplementedError(f"requant={requant!r} is not ported yet "
-                                  "(ROADMAP.md, Queue 1: requant='fast')")
+    if requant not in REQUANT_MODES:
+        raise ValueError(f"Invalid requant: {requant!r} (expected one of {REQUANT_MODES})")
     dev = resolve_device(device)
     entry_skip: set[int] = set()
     entry_target = None
@@ -702,14 +1132,22 @@ def build_executor(graph: TFLiteGraph, batch_size: int, device: str | torch.devi
             raise ValueError("graph does not start with QUANTIZE -> TRANSPOSE")
         entry_skip = {0, 1}
         entry_target = graph.ops[1].outputs[0]
+    plan = layout_plan(graph, entry_target) if layout_prepasses else LayoutPlan()
+    build = _Build(graph, dev, requant, plan)
 
-    steps = []
+    steps, n_compute = [], 0
     for op_index, op in enumerate(graph.ops):
-        if op_index in entry_skip:
+        if op_index in entry_skip or op_index in plan.dead_ops:
             continue
         if op.name not in _OPS:
-            raise NotImplementedError(f"TFLite op {op.name}: {_NOT_PORTED}")
-        steps.append(_OPS[op.name](graph, op, dev))
+            raise NotImplementedError(f"TFLite op {op.name} not supported")
+        if op_index in plan.alias_ops:
+            # Forward the input unchanged; the consumer applies any perm.
+            src, dst = plan.alias_ops[op_index], op.outputs[0]
+            steps.append(lambda v, src=src, dst=dst: v.__setitem__(dst, v[src]))
+            continue
+        steps.append(_OPS[op.name](build, op))
+        n_compute += 1
     consts = {t.index: torch.as_tensor(t.data.copy(), device=dev)
               for t in graph.tensors if t.data is not None}
     if entry_target is not None and not prequantized_input:
@@ -736,4 +1174,5 @@ def build_executor(graph: TFLiteGraph, batch_size: int, device: str | torch.devi
                 step(vals)
         return vals if return_all else vals[graph.outputs[0]]
 
+    executor.steps = n_compute
     return executor

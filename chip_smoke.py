@@ -54,7 +54,32 @@ It imports nothing of JAX. In order it:
    (d) one warm 64-chunk batch of each leg by part (copy, frontend,
        executor, whole), and the CUDA launches its executor makes with
        their summed device time (torch.profiler);
-6. serve phase: the port's `serve` entry point
+6. bf16 phase: the flagship in bf16 at full width (seeded init_model)
+   through make_fused_classifier(TorchRunner(model, cfg,
+   dtype=torch.bfloat16), cfg) on the hybrid requests (3 x 64 + 37):
+   every floating parameter and buffer bf16; scores [229, 100] finite;
+   the linear kernel launched once per batch and nothing else; mean score
+   cosine >= 0.999 against the fp32 leg on the same waveforms (bench.py's
+   bf16 gate; the minimum printed) and >= 0.999 against the port's CPU
+   bf16 path on 8 rows; then one 64-chunk batch of each leg by part (copy,
+   kernel, cast, DS-CNN forward, whole call; CUDA events, the legs in
+   turns, median of three rounds);
+7. fuzz phase: the nine configurations the JAX package's executor fuzz
+   test serves (tests/goldens/torch_fuzz, read by
+   tests/torch_fuzz_fixtures.py): the CUDA executor on the committed
+   features equal to the JAX goldens bit for bit, requant exact and fast
+   (a SOFTMAX graph may instead be within one output quantum, 1.5/256,
+   with >= 95 % exact, and is then named); the float32 leg (TF32 off)
+   within 1e-5 of the JAX scores, the bf16 leg at cosine >= 0.999 of the
+   JAX bf16 scores; each config's waveforms through make_fused_classifier
+   on CUDA on the fp32, bf16 and INT8 legs: the kernel-fed features within
+   the kernel phase's tolerance of the JAX features, the config's kernel
+   launched (linear for hybrid, the features kernel for librosa, log_mel
+   and mfcc, none for raw), INT8 scores at cosine >= 0.999 of the CPU
+   path and bf16 at >= 0.999 of fp32; then the executor's steps, CUDA
+   launches and device time per 64-chunk batch on the flagship graph with
+   and without the layout pre-passes (the same scores);
+8. serve phase: the port's `serve` entry point
    (birdnet_stm32_tpu_torch/cli/serve.py) and its waveform ingress:
    (a) writes seeded WAVs (PCM16 mono at 22.05 kHz, 10 s and 31 s; PCM16
        stereo at 44.1 kHz; PCM16 mono at 48 and 16 kHz; float32 mono at
@@ -82,13 +107,13 @@ It imports nothing of JAX. In order it:
        float32 at 48 kHz resampled on the card) on both legs, by part
        (CUDA events): host-to-device copy, ingress, frontend, model, whole;
        the modes in turns, three rounds, the median of each part;
-7. tile phase: the tile grid (grid="tile", the port of _kernel_tile) of
+9. tile phase: the tile grid (grid="tile", the port of _kernel_tile) of
    every specialisation of the kernel phase at each batch_tile of 2, 4, 8
    and 16, on the kernel phase's input: bit-equal to the sample-grid
    kernel, within the kernel phase's tolerance of the plain version, the
    same again after its timing launches; times by CUDA
    events; and grid="tile" at B=6 with batch_tile 4 raises ValueError;
-8. bench phase: the port's frontend benchmark entry
+10. bench phase: the port's frontend benchmark entry
    (birdnet_stm32_tpu_torch/scripts/bench_frontend.py) at B=256 on CUDA,
    with the launch counts cleared just before: its numerics within 1e-5 of
    the composition; on the B=256 input it times, the sample grid within
@@ -97,7 +122,7 @@ It imports nothing of JAX. In order it:
    codes at most one apart on under 1 %, min cosine >= BENCH_MIN_COSINE;
    and the tile-grid kernel launched; it prints the bench's three
    sections;
-9. prints the `kernels` JSON line, the card's name and power limit, and
+11. prints the `kernels` JSON line, the card's name and power limit, and
    last the `ok` JSON line.
 
 Any failed check exits non-zero before the `ok` line.
@@ -979,6 +1004,220 @@ def serve_phase(torch, np) -> dict:
     return launches
 
 
+# The bf16 gate of bench.py's headline (mean score cosine >= 0.999 against
+# float32) and the port's gate for its CPU bf16 path on BF16_CPU_ROWS rows.
+BF16_MIN_COSINE = 0.999
+BF16_CPU_ROWS = 8
+# The kernel phase's tolerance of a kernel against its plain version, by
+# kernel (1e-5 for linear, 2e-5 for the others).
+KERNEL_TOL = {"linear": 1e-5}
+FEATURE_TOL = 2e-5
+
+
+def row_cosines(np, a, b):
+    """Per-row cosine of two score batches (float64)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+def bf16_phase(torch, np, cfg) -> dict[str, int]:
+    """The bf16 leg at full width (the flagship, seeded init_model): 229
+    chunks in batches of 3 x 64 + 37 through make_fused_classifier with a
+    TorchRunner(dtype=torch.bfloat16), against the float32 leg on the same
+    waveforms and the port's CPU bf16 path; then one 64-chunk batch of each
+    leg by part. Returns the linear kernel's launches on the bf16 run."""
+    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn, init_model
+    from birdnet_stm32_tpu_torch.models.runners import TorchRunner
+    from birdnet_stm32_tpu_torch.models.serving import (
+        classify_in_batches,
+        make_fused_classifier,
+    )
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+
+    model = init_model(build_dscnn(cfg, device="cuda"), seed=0)
+    legs = {"fp32": TorchRunner(model, cfg, device="cuda"),
+            "bf16": TorchRunner(model, cfg, device="cuda", dtype=torch.bfloat16)}
+    dtypes = {p.dtype for p in legs["bf16"].model.parameters()} | {
+        b.dtype for b in legs["bf16"].model.buffers() if b.is_floating_point()}
+    if dtypes != {torch.bfloat16}:
+        fail(f"bf16 runner holds {dtypes}")
+    classify = {leg: make_fused_classifier(r, cfg, device="cuda") for leg, r in legs.items()}
+    requests = requests_for(np, cfg, REQUESTS)
+    n_chunks, n_batches = sum(REQUESTS), sum(-(-n // B) for n in REQUESTS)
+    name = frontend_kernel.kernel_name("linear", "none")
+
+    frontend_kernel.launches.clear()
+    t0 = time.perf_counter()
+    results = [classify_in_batches(classify["bf16"], r, batch_size=B) for r in requests]
+    wall = time.perf_counter() - t0
+    counts = dict(frontend_kernel.launches)
+    s16 = np.concatenate([sc for sc, _ in results])
+    s32 = np.concatenate([classify_in_batches(classify["fp32"], r, batch_size=B)[0]
+                          for r in requests])
+    cos = row_cosines(np, s16, s32)
+    cpu_model = build_dscnn(cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu16 = make_fused_classifier(TorchRunner(cpu_model, cfg, device="cpu",
+                                              dtype=torch.bfloat16), cfg, device="cpu")
+    cpu_cos = row_cosines(np, cpu16(requests[0][:BF16_CPU_ROWS]), s16[:BF16_CPU_ROWS])
+    print(json.dumps({"bf16_leg": "flagship", "served_chunks": n_chunks, "batches": n_batches,
+                      "kernel_launches": counts, "serve_wall_s": wall,
+                      "request_seconds": [dt for _, dt in results],
+                      "mean_cosine_vs_fp32": float(cos.mean()),
+                      "min_cosine_vs_fp32": float(cos.min()),
+                      "max_abs_vs_fp32": float(np.abs(s16 - s32).max()),
+                      "min_cosine_vs_cpu_bf16": float(cpu_cos.min()),
+                      "top1_agreement_vs_fp32": float((s16.argmax(1) == s32.argmax(1)).mean())}))
+    if counts != {name: n_batches}:
+        fail(f"bf16 leg: launches {counts}, expected {name} x {n_batches} only")
+    if s16.shape != (n_chunks, cfg.num_classes) or not np.isfinite(s16).all():
+        fail(f"bf16 leg: scores {s16.shape} not finite [{n_chunks}, {cfg.num_classes}]")
+    if not cos.mean() >= BF16_MIN_COSINE:
+        fail(f"bf16 leg: mean cosine {cos.mean()} vs fp32 < {BF16_MIN_COSINE}")
+    if not cpu_cos.min() >= BF16_MIN_COSINE:
+        fail(f"bf16 leg: cosine {cpu_cos.min()} vs the CPU bf16 path < {BF16_MIN_COSINE}")
+
+    # One warm 64-chunk batch by part, the legs in turns, median of three
+    # rounds (CUDA events).
+    wave = torch.from_numpy(requests[0])
+    x = wave.cuda()
+    with torch.no_grad():
+        feats = frontend_kernel.frontend_input(x, cfg)
+        feats16 = feats.to(torch.bfloat16)
+    parts = {leg: [] for leg in legs}
+    for _ in range(3):
+        for leg, runner in legs.items():
+            f_in = feats16 if leg == "bf16" else feats
+            with torch.no_grad():
+                parts[leg].append({
+                    "h2d_copy": cuda_ms(torch, lambda: wave.cuda()),
+                    "frontend_kernel": cuda_ms(torch, lambda: frontend_kernel.frontend_input(
+                        x, cfg)),
+                    "bf16_cast": (cuda_ms(torch, lambda: feats.to(torch.bfloat16))
+                                  if leg == "bf16" else 0.0),
+                    "dscnn_forward": cuda_ms(torch, lambda: runner.forward(f_in)),
+                    "classify_total": cuda_ms(torch, lambda: classify[leg](requests[0])),
+                })
+    print(json.dumps({"bf16_batch_breakdown_median_ms": {
+        leg: {part: float(np.median([r[part] for r in rs])) for part in rs[0]}
+        for leg, rs in parts.items()}, "rounds": 3}))
+    return {name: counts[name]}
+
+
+def fuzz_phase(torch, np) -> dict[str, int]:
+    """The nine fuzz configurations (tests/goldens/torch_fuzz, made by
+    tests/make_torch_fuzz_fixtures.py with the JAX package): the CUDA
+    executor against the JAX goldens (requant exact and fast), the float
+    leg in float32 and bf16 against the JAX scores, and each config's
+    waveform -> scores path through make_fused_classifier. Returns the
+    kernels' launches on the waveform paths."""
+    from birdnet_stm32_tpu_torch.config import ModelConfig
+    from birdnet_stm32_tpu_torch.models.convert import flax_to_state_dict
+    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn
+    from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner, TorchRunner
+    from birdnet_stm32_tpu_torch.models.serving import make_fused_classifier
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from birdnet_stm32_tpu_torch.quant.tflite_import import TFLiteGraph, build_executor
+    from tests.torch_fuzz_fixtures import (
+        MIN_EXACT_SHARE,
+        ONE_QUANTUM,
+        all_fixtures,
+        has_float_faithful_ops,
+        within_one_quantum,
+    )
+
+    launches: dict[str, int] = {}
+    for f in all_fixtures():
+        cfg = ModelConfig.from_dict(f.cfg)
+        graph = TFLiteGraph(f.tflite)
+        feats = torch.from_numpy(f.features).cuda()
+        report = {"fuzz_config": f.label}
+        for requant, ref in (("exact", f.int8_exact), ("fast", f.int8_fast)):
+            got = build_executor(graph, len(f.features), device="cuda",
+                                 requant=requant)(feats).cpu().numpy()
+            err, exact = within_one_quantum(got, ref)
+            report[f"int8_{requant}"] = {"max_abs": err, "exact_share": exact}
+            if exact < 1.0:
+                if not (has_float_faithful_ops(graph) and err <= ONE_QUANTUM
+                        and exact >= MIN_EXACT_SHARE):
+                    fail(f"fuzz {f.label}: CUDA executor ({requant}) off the JAX golden: "
+                         f"max {err}, {exact:.2%} exact")
+                report[f"int8_{requant}"]["softmax_ulp_graph"] = True
+
+        model = build_dscnn(cfg, class_activation=f.class_activation, device="cuda")
+        model.load_state_dict(flax_to_state_dict(f.variables), strict=True)
+        r32 = TorchRunner(model, cfg, device="cuda")
+        r16 = TorchRunner(model, cfg, device="cuda", dtype=torch.bfloat16)
+        f32_err = float(np.abs(r32.predict(f.features) - f.float_f32).max())
+        bf16_cos = float(row_cosines(np, r16.predict(f.features), f.float_bf16).min())
+        report.update(float_f32_max_abs=f32_err, bf16_min_cosine_vs_jax=bf16_cos)
+        if not f32_err <= 1e-5:
+            fail(f"fuzz {f.label}: float32 scores {f32_err} from the JAX golden > 1e-5")
+        if not bf16_cos >= BF16_MIN_COSINE:
+            fail(f"fuzz {f.label}: bf16 cosine {bf16_cos} vs the JAX bf16 golden")
+
+        # The waveform -> scores path on CUDA, counted from zero.
+        mode = frontend_kernel.FRONTEND_MODES.get(cfg.audio_frontend)
+        kname = (frontend_kernel.kernel_name(mode, cfg.mag_scale if mode == "mel" else "none")
+                 if mode else None)
+        x = torch.from_numpy(f.waves).cuda()
+        frontend_kernel.launches.clear()
+        with torch.no_grad():
+            wave_feats = frontend_kernel.frontend_input(x, cfg).cpu().numpy()
+        legs = {"fp32": r32, "bf16": r16,
+                "int8": TFLiteSimRunner(graph, device="cuda")}
+        scores = {leg: make_fused_classifier(r, cfg, device="cuda")(f.waves)
+                  for leg, r in legs.items()}
+        counts = dict(frontend_kernel.launches)
+        expected = {kname: 1 + len(legs)} if kname else {}
+        feat_tol = KERNEL_TOL.get(mode, FEATURE_TOL) if kname else 1e-6
+        feat_err = float(np.abs(wave_feats - f.wave_features).max())
+        cpu_int8 = make_fused_classifier(TFLiteSimRunner(graph, device="cpu"), cfg,
+                                         device="cpu")(f.waves)
+        int8_cos = float(row_cosines(np, scores["int8"], cpu_int8).min())
+        wave_bf16_cos = float(row_cosines(np, scores["bf16"], scores["fp32"]).min())
+        report.update(kernel=kname, kernel_launches=counts,
+                      wave_features_max_abs_vs_jax=feat_err,
+                      wave_int8_min_cosine_vs_cpu=int8_cos,
+                      wave_bf16_min_cosine_vs_fp32=wave_bf16_cos)
+        print(json.dumps(report))
+        if counts != expected:
+            fail(f"fuzz {f.label}: launches {counts}, expected {expected}")
+        if not feat_err <= feat_tol:
+            fail(f"fuzz {f.label}: waveform features {feat_err} from JAX's > {feat_tol}")
+        if not int8_cos >= BF16_MIN_COSINE:
+            fail(f"fuzz {f.label}: INT8 cosine {int8_cos} vs the CPU path")
+        if not wave_bf16_cos >= BF16_MIN_COSINE:
+            fail(f"fuzz {f.label}: bf16 cosine {wave_bf16_cos} vs fp32 on waveforms")
+        for leg, sc in scores.items():
+            if sc.shape != (len(f.waves), cfg.num_classes) or not np.isfinite(sc).all():
+                fail(f"fuzz {f.label}: {leg} scores {sc.shape} not finite")
+        if kname:
+            launches[kname] = launches.get(kname, 0) + counts[kname]
+    return launches
+
+
+def prepass_phase(torch, np) -> None:
+    """The executor's steps and CUDA launches per 64-chunk batch on the
+    flagship graph with and without the layout pre-passes (the same
+    scores)."""
+    from birdnet_stm32_tpu_torch.quant.tflite_import import TFLiteGraph, build_executor
+    from tests.int8_fixture import flagship_features
+
+    graph = TFLiteGraph(FLAGSHIP_TFLITE)
+    x = torch.from_numpy(flagship_features(B)).cuda()
+    out, report = {}, {}
+    for pre in (False, True):
+        fwd = build_executor(graph, B, device="cuda", layout_prepasses=pre)
+        out[pre] = fwd(x).cpu().numpy()
+        report["with_prepasses" if pre else "without_prepasses"] = {
+            "ops": len(graph.ops), "steps": fwd.steps, "executor_ms": cuda_ms(torch, lambda: fwd(x)),
+            **device_activity(torch, lambda: fwd(x))}
+    print(json.dumps({"executor_prepasses_flagship_b64": report}))
+    if not np.array_equal(out[False], out[True]):
+        fail("the layout pre-passes changed the flagship graph's scores")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1003,6 +1242,8 @@ def main() -> None:
     launches = slice_phase(torch, np)
     flagship = ModelConfig.load(ROOT / "artifacts/flagship/bundle/model_config.json")
     launches.update(int8_phase(torch, np, flagship))
+    phase_launches = [bf16_phase(torch, np, flagship), fuzz_phase(torch, np)]
+    prepass_phase(torch, np)
     serve_launches = serve_phase(torch, np)
     tile_entries = tile_phase(torch, np, quant, entries)
     bench_launches = bench_phase(torch)
@@ -1010,6 +1251,11 @@ def main() -> None:
                            for q in (False, True))
     for entry in entries:
         entry["launches"] = launches.get(entry["name"], 0)
+        # The bf16 and fuzz phases' launches, each run counted from zero.
+        for path, counts in zip(("bf16", "fuzz"), phase_launches):
+            if entry["name"] in counts:
+                entry["launches"] += counts[entry["name"]]
+                entry.setdefault("phase_launches", {})[path] = counts[entry["name"]]
         # The serve path's own launches, each run counted from zero.
         for path, n in serve_launches.items():
             if entry["name"] == (linear_int8 if "int8" in path else linear):

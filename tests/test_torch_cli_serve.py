@@ -211,7 +211,9 @@ def test_thresholds(served, tmp_path, capsys):
 
 def test_guards(tmp_path):
     """The int16 / mu-law mutual exclusion in the CLI and in
-    decode_for_classify; --bf16 (not ported); verbs not ported exit 2."""
+    decode_for_classify; --bf16 with a .tflite is accepted and ignored, as
+    in the JAX package (the same TSV as without it); verbs not ported
+    exit 2."""
     audio_dir = tmp_path / "audio"
     save_wav(_chirp(7, 3.0, SR)[:, 0], audio_dir / "x.wav", SR)
     with pytest.raises(SystemExit, match="mutually exclusive"):
@@ -219,8 +221,10 @@ def test_guards(tmp_path):
     with pytest.raises(ValueError, match="mutually exclusive"):
         decode_for_classify(audio_dir / "x.wav", ModelConfig.load(BUNDLE_CONFIG),
                             int16_io=True, ulaw_io=True)
-    with pytest.raises(SystemExit, match="bf16"):
-        main(_serve_args(audio_dir, tmp_path / "r.txt", "--bf16"))
+    assert main(_serve_args(audio_dir, tmp_path / "plain.txt")) == 0
+    assert main(_serve_args(audio_dir, tmp_path / "bf16.txt", "--bf16")) == 0
+    plain = (tmp_path / "plain.txt").read_text()
+    assert plain and (tmp_path / "bf16.txt").read_text() == plain
     for verb in ("train", "evaluate", "benchmark", "nonsense"):
         assert main([verb]) == 2
     assert not (tmp_path / "r.txt").exists()

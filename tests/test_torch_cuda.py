@@ -404,3 +404,110 @@ def test_serve_once_on_card_matches_cpu(cuda, tmp_path):
         for g, r in zip(got, ref):
             a, b = np.array(g[1:], float), np.array(r[1:], float)
             assert a.shape == (100,) and a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) >= 0.999
+
+
+# --- Every model the serving dispatch accepts: the executor's other op
+# kinds, requant='fast', the nine fuzz configurations and the bf16 leg. ---
+
+
+def _row_cosines(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("requant", ["exact", "fast"])
+def test_op_graphs_on_card_match_cpu(cuda, requant):
+    """Each tiny op graph (tests/int8_op_graphs.py) on the card equals the
+    port's CPU executor, which tier-1 holds bit-equal to the JAX one;
+    SOFTMAX's exp and sum may move a code by one (the fuzz gate)."""
+    from birdnet_stm32_tpu_torch.quant import tflite_import as P
+    from tests.int8_op_graphs import KINDS, op_graph, op_inputs
+    from tests.torch_fuzz_fixtures import MIN_EXACT_SHARE, ONE_QUANTUM, within_one_quantum
+
+    x = op_inputs(5)
+    for kind in KINDS:
+        graph = op_graph(P, kind)
+        ref = build_executor(graph, 5, device="cpu", requant=requant)(torch.from_numpy(x))
+        got = build_executor(graph, 5, device="cuda", requant=requant)(
+            torch.from_numpy(x).cuda()).cpu()
+        if kind == "softmax":
+            err, exact = within_one_quantum(got.numpy(), ref.numpy())
+            assert err <= ONE_QUANTUM and exact >= MIN_EXACT_SHARE, (kind, err, exact)
+        else:
+            assert torch.equal(got, ref), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", range(9))
+def test_fuzz_configs_on_card(cuda, i):
+    """The committed graph on its committed features equals the JAX golden
+    (exact and fast); the float32 leg is within 1e-5 of the JAX scores and
+    the bf16 leg at cosine >= 0.999 of the JAX bf16 ones."""
+    from birdnet_stm32_tpu_torch.models.convert import flax_to_state_dict
+    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn
+    from birdnet_stm32_tpu_torch.models.runners import TorchRunner
+    from tests.torch_fuzz_fixtures import (
+        MIN_EXACT_SHARE,
+        ONE_QUANTUM,
+        has_float_faithful_ops,
+        load,
+        within_one_quantum,
+    )
+
+    f = load(i)
+    graph = TFLiteGraph(f.tflite)
+    x = torch.from_numpy(f.features).cuda()
+    for requant, ref in (("exact", f.int8_exact), ("fast", f.int8_fast)):
+        got = build_executor(graph, len(f.features), device="cuda", requant=requant)(x)
+        err, exact = within_one_quantum(got.cpu().numpy(), ref)
+        assert exact == 1.0 or (has_float_faithful_ops(graph) and err <= ONE_QUANTUM
+                                and exact >= MIN_EXACT_SHARE), (f.label, requant, err, exact)
+    cfg = ModelConfig.from_dict(f.cfg)
+    model = build_dscnn(cfg, class_activation=f.class_activation, device="cuda")
+    model.load_state_dict(flax_to_state_dict(f.variables), strict=True)
+    np.testing.assert_allclose(TorchRunner(model, cfg, device="cuda").predict(f.features),
+                               f.float_f32, atol=1e-5)
+    r16 = TorchRunner(model, cfg, device="cuda", dtype=torch.bfloat16)
+    assert _row_cosines(r16.predict(f.features), f.float_bf16).min() >= 0.999
+
+
+@pytest.mark.cuda
+def test_bf16_features_are_the_cast_of_the_kernel(cuda):
+    """frontend_input(feature_dtype=bf16) on CUDA launches the kernel at any
+    stft_precision and returns the cast of its float32 output."""
+    cfg = ModelConfig.load(FLAGSHIP_CONFIG)
+    y = _wave(21, 4, cfg.chunk_samples)
+    ref = frontend_input(y, cfg)
+    name = kernel_name("linear", "none")
+    for precision in ("highest", "high", "default"):
+        before = frontend_kernel.launches[name]
+        got = frontend_input(y, cfg, stft_precision=precision, feature_dtype=torch.bfloat16)
+        assert frontend_kernel.launches[name] == before + 1
+        assert got.dtype == torch.bfloat16 and torch.equal(got, ref.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_bf16_flagship_on_card(cuda):
+    """The bf16 leg at full width: the linear kernel once per batch, scores
+    float32 at cosine >= 0.999 of the fp32 leg and of the CPU bf16 path."""
+    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn, init_model
+    from birdnet_stm32_tpu_torch.models.runners import TorchRunner
+    from birdnet_stm32_tpu_torch.models.serving import make_fused_classifier
+
+    cfg = ModelConfig.load(FLAGSHIP_CONFIG)
+    model = init_model(build_dscnn(cfg, device="cuda"), seed=3)
+    wave = np.random.default_rng(22).normal(0, 0.2, (8, cfg.chunk_samples)).astype(np.float32)
+    name = kernel_name("linear", "none")
+    before = frontend_kernel.launches[name]
+    s16 = make_fused_classifier(TorchRunner(model, cfg, device="cuda", dtype=torch.bfloat16),
+                                cfg, device="cuda")(wave)
+    assert frontend_kernel.launches[name] == before + 1
+    s32 = make_fused_classifier(TorchRunner(model, cfg, device="cuda"), cfg, device="cuda")(wave)
+    cpu = build_dscnn(cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    c16 = make_fused_classifier(TorchRunner(cpu, cfg, device="cpu", dtype=torch.bfloat16), cfg,
+                                device="cpu")(wave)
+    assert s16.dtype == np.float32 and np.isfinite(s16).all()
+    assert _row_cosines(s16, s32).min() >= 0.999
+    assert _row_cosines(s16, c16).min() >= 0.999

@@ -152,10 +152,12 @@ def test_seeded_init_is_reproducible():
 
 
 def _port_sources():
-    # chip_smoke.py and the INT8 fixture helper it imports run on the card
-    # machine, which has no JAX.
+    # chip_smoke.py and the test helpers it imports (the INT8 fixture, the
+    # tiny op graphs, the fuzz fixture loader) run on the card machine,
+    # which has no JAX.
     return sorted((REPO / "birdnet_stm32_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tests" / "int8_fixture.py"]
+        REPO / "chip_smoke.py", REPO / "tests" / "int8_fixture.py",
+        REPO / "tests" / "int8_op_graphs.py", REPO / "tests" / "torch_fuzz_fixtures.py"]
 
 
 # TFLiteInterpreterRunner (graphs that are not full-int8) is the TFLite
@@ -166,8 +168,8 @@ LAZY_IMPORTS = {"birdnet_stm32_tpu_torch/models/runners.py": {"tensorflow"}}
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
-    """No module of the port, not chip_smoke.py and not the INT8 fixture
-    helper imports jax, flax, tensorflow, flatbuffers or the JAX package
+    """No module of the port, not chip_smoke.py and not the test helpers it
+    imports jax, flax, tensorflow, flatbuffers or the JAX package
     (matched on the exact top-level name); the one exception is
     LAZY_IMPORTS, and only inside a function body."""
     banned = {"jax", "flax", "tensorflow", "flatbuffers", "birdnet_stm32_tpu"}
@@ -197,3 +199,19 @@ def test_port_sources_cover_the_serve_slice():
                    "ops/resample.py", "data/worker.py", "data/dataset.py", "data/species.py",
                    "evaluation/metrics.py", "models/serving.py", "models/runners.py"):
         assert f"birdnet_stm32_tpu_torch/{module}" in scanned
+
+
+def test_port_sources_cover_every_served_model():
+    """The scan reaches the modules that serve every model the dispatch
+    accepts (bf16 leg, pcen / raw / learned-mel frontends, the whole
+    executor) and the fixture helpers the card reads."""
+    scanned = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for path in ("birdnet_stm32_tpu_torch/models/frontend_layer.py",
+                 "birdnet_stm32_tpu_torch/models/dscnn.py",
+                 "birdnet_stm32_tpu_torch/models/convert.py",
+                 "birdnet_stm32_tpu_torch/ops/stft.py",
+                 "birdnet_stm32_tpu_torch/ops/spectrogram.py",
+                 "birdnet_stm32_tpu_torch/device.py",
+                 "birdnet_stm32_tpu_torch/quant/tflite_import.py",
+                 "tests/int8_op_graphs.py", "tests/torch_fuzz_fixtures.py"):
+        assert path in scanned

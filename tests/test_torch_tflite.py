@@ -220,14 +220,26 @@ def test_general_convolutions_bit_equal_to_jax(padding, stride, dilation, act):
 
 
 def test_executor_rejects_what_it_cannot_run():
+    """An op neither executor runs raises NotImplementedError; so does an
+    invalid requant mode (ValueError), a prequantized entry the graph does
+    not have, and an input of the wrong batch."""
     graph = _graphs()[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.build_executor(graph, 1, device="cpu", requant="fast")
+    with pytest.raises(ValueError, match="requant"):
+        P.build_executor(graph, 1, device="cpu", requant="approximate")
+    from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner
+
+    with pytest.raises(ValueError, match="requant"):
+        TFLiteSimRunner(graph, device="cpu", requant="approximate")
     other = copy.copy(graph)
     other.ops = list(graph.ops)
-    other.ops[55] = P.OpInfo("SOFTMAX", graph.ops[55].inputs, graph.ops[55].outputs, {})
-    with pytest.raises(NotImplementedError, match="SOFTMAX.*ROADMAP"):
+    other.ops[55] = P.OpInfo("GATHER", graph.ops[55].inputs, graph.ops[55].outputs, {})
+    with pytest.raises(NotImplementedError, match="GATHER"):
         P.build_executor(other, 1, device="cpu")
+    j_other = copy.copy(_graphs()[1])
+    j_other.ops = list(j_other.ops)
+    j_other.ops[55] = J.OpInfo("GATHER", j_other.ops[55].inputs, j_other.ops[55].outputs, {})
+    with pytest.raises(NotImplementedError, match="GATHER"):
+        J.build_executor(j_other, 1)(jnp.zeros((1, 257, 256, 1), jnp.float32))
     with pytest.raises(ValueError, match="QUANTIZE -> TRANSPOSE"):
         P.build_executor(graph, 1, device="cpu", prequantized_input=True)
     fwd = P.build_executor(graph, 2, device="cpu")
