@@ -1,7 +1,7 @@
 """CLI dispatch: python -m birdnet_stm32_tpu_torch <command> [args].
 
-The port's verbs so far: `serve`. The JAX package's other verbs are not
-ported yet (ROADMAP.md) and exit with code 2.
+The port's verbs so far: `serve` and `train`. The JAX package's other
+verbs are not ported yet (ROADMAP.md) and exit with code 2.
 """
 
 from __future__ import annotations
@@ -11,8 +11,10 @@ import sys
 COMMANDS = {
     "serve": ("birdnet_stm32_tpu_torch.cli.serve",
               "Watch a directory, classify new WAVs continuously"),
+    "train": ("birdnet_stm32_tpu_torch.cli.train",
+              "Train a DS-CNN on a folder of class-labelled WAVs"),
 }
-NOT_PORTED = ("train", "convert", "evaluate", "benchmark", "profile", "deploy", "board-test")
+NOT_PORTED = ("convert", "evaluate", "benchmark", "profile", "deploy", "board-test")
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -22,7 +22,6 @@ from math import gcd
 from pathlib import Path
 
 import numpy as np
-from scipy.signal import resample_poly
 
 
 @dataclass
@@ -112,6 +111,10 @@ def fast_resample(y: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
     """Polyphase resampling with scipy.signal.resample_poly."""
     if sr_in == sr_out:
         return y.astype(np.float32, copy=False)
+    # Imported here: scipy.signal takes seconds to import, and the loader's
+    # spawn workers import this module whether or not they resample.
+    from scipy.signal import resample_poly
+
     g = gcd(sr_in, sr_out)
     return resample_poly(y, sr_out // g, sr_in // g).astype(np.float32, copy=False)
 

@@ -8,12 +8,11 @@ score at 4 decimals. Files already in the results file are skipped on
 restart, so the service resumes where it stopped.
 
 The port adds `--device` (default cuda; nothing falls back to the CPU on
-its own). It serves .tflite models: run directories and .keras files
-raise NotImplementedError (models/runners.py::load_model_runner), and the
-float leg, float32 or bf16, is served through the API (a TorchRunner).
-`--bf16` asks for bf16 serving of a float checkpoint; with a .tflite it
-is accepted and ignored, as in the JAX package, and the lines served are
-the same as without it.
+its own). It serves .tflite models and the run directories the port's
+`train` writes (float32, or bf16 with `--bf16`; models/runners.py::
+load_model_runner); reference .keras files raise NotImplementedError.
+With a .tflite `--bf16` is accepted and ignored, as in the JAX package,
+and the lines served are the same as without it.
 """
 
 from __future__ import annotations
@@ -32,7 +31,8 @@ def get_args(argv=None):
     p = argparse.ArgumentParser(
         "birdnet_stm32_tpu_torch serve",
         description="Watch a directory and classify new WAVs continuously.")
-    p.add_argument("--model_path", required=True, help=".tflite model")
+    p.add_argument("--model_path", required=True,
+                   help=".tflite model or a run directory of train")
     p.add_argument("--audio_dir", required=True, help="directory to watch")
     p.add_argument("--config_path", default=None)
     p.add_argument("--labels_path", default=None)

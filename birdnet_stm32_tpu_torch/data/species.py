@@ -1,5 +1,5 @@
-"""Species list readers (port of data/species.py::load_species_list and
-open_species_list)."""
+"""Species list readers and writer (port of data/species.py::
+load_species_list, open_species_list and save_species_list)."""
 
 from __future__ import annotations
 
@@ -24,3 +24,10 @@ def open_species_list(path: str | Path) -> list[str]:
     if not unique:
         raise ValueError(f"Species list is empty after deduplication: {path}")
     return unique
+
+
+def save_species_list(species: list[str], path: str | Path) -> None:
+    """One species per line."""
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    p.write_text("".join(f"{s}\n" for s in species), encoding="utf-8")

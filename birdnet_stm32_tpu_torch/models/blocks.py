@@ -8,6 +8,11 @@ variables (models/convert.py) is a flat rename. Each block therefore comes
 as a pair: `add_<block>(parent, name, ...)` registers its layers and
 returns the channel count it produces; `<block>(parent, x, name, ...)`
 applies them.
+
+Train mode is the module's `.train()`: BN normalises with the batch
+statistics and updates its running statistics the Keras / Flax way (with
+the biased batch variance), and the blocks' SpatialDropout2D drops whole
+channels. `.eval()` serves: BN on its running statistics, dropout off.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import torch.nn.functional as F
 # (torch's momentum is 1 - Keras momentum).
 BN_MOMENTUM = 0.99
 BN_EPS = 1e-3
+# The blocks' SpatialDropout2D rate (fixed in the reference's blocks).
+BLOCK_DROP_RATE = 0.1
 
 
 def make_divisible(v: float, divisor: int = 8) -> int:
@@ -57,9 +64,36 @@ class Conv2dSame(nn.Conv2d):
         return super().forward(x)
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
+class _KerasBatchNorm(nn.modules.batchnorm._BatchNorm):
+    """BatchNorm whose train mode updates the running variance with the
+    biased batch variance, as Keras and Flax do (torch's BatchNorm uses the
+    unbiased one, n / (n - 1) larger). In eval mode it is torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            dims = [0, *range(2, x.dim())]
+            var, mean = torch.var_mean(x.detach(), dim=dims, correction=0)
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(self.momentum * mean)
+            self.running_var.mul_(keep).add_(self.momentum * var)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+class BatchNorm1d(_KerasBatchNorm, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_KerasBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
     """Keras-default BatchNormalization (momentum .99, eps 1e-3)."""
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
 
 
 def depthwise_conv(channels: int, strides) -> Conv2dSame:
@@ -86,15 +120,17 @@ def add_ds_conv_block(parent: nn.Module, name: str, cin: int, cout: int, strides
     parent.add_module(f"{name}_dw_bn", batch_norm(cin))
     parent.add_module(f"{name}_pw", Conv2dSame(cin, cout, (1, 1)))
     parent.add_module(f"{name}_pw_bn", batch_norm(cout))
+    parent.add_module(f"{name}_drop", nn.Dropout2d(BLOCK_DROP_RATE))
     return cout
 
 
 def ds_conv_block(parent: nn.Module, x: torch.Tensor, name: str) -> torch.Tensor:
-    """DW -> BN -> ReLU6 -> PW -> BN -> (+x when stride 1 and in == out) ->
-    ReLU6. Spatial dropout is inert at inference and is not applied."""
+    """DW -> BN -> ReLU6 -> PW -> BN -> SpatialDropout -> (+x when stride 1
+    and in == out) -> ReLU6."""
     dw = getattr(parent, f"{name}_dw")
     y = relu6(getattr(parent, f"{name}_dw_bn")(dw(x)))
     y = getattr(parent, f"{name}_pw_bn")(getattr(parent, f"{name}_pw")(y))
+    y = getattr(parent, f"{name}_drop")(y)
     if tuple(dw.stride) == (1, 1) and y.shape[1] == x.shape[1]:
         y = x + y
     return relu6(y)
@@ -118,7 +154,7 @@ def add_inverted_residual_block(parent: nn.Module, name: str, cin: int, cout: in
                                 expansion: int, strides, use_se: bool,
                                 se_reduction: int) -> int:
     """1x1 expand -> BN/ReLU6 -> DW 3x3 -> BN/ReLU6 -> [SE] -> 1x1 project
-    -> BN (reference blocks.py:49-133)."""
+    -> BN -> SpatialDropout (reference blocks.py:49-133)."""
     hidden = make_divisible(cin * expansion, 8)
     parent.add_module(f"{name}_expand", Conv2dSame(cin, hidden, (1, 1)))
     parent.add_module(f"{name}_expand_bn", batch_norm(hidden))
@@ -128,6 +164,7 @@ def add_inverted_residual_block(parent: nn.Module, name: str, cin: int, cout: in
         add_se_block(parent, f"{name}_se", hidden, se_reduction)
     parent.add_module(f"{name}_project", Conv2dSame(hidden, cout, (1, 1)))
     parent.add_module(f"{name}_project_bn", batch_norm(cout))
+    parent.add_module(f"{name}_drop", nn.Dropout2d(BLOCK_DROP_RATE))
     return cout
 
 
@@ -138,6 +175,7 @@ def inverted_residual_block(parent: nn.Module, x: torch.Tensor, name: str) -> to
     if hasattr(parent, f"{name}_se_reduce"):
         y = se_block(parent, y, f"{name}_se")
     y = getattr(parent, f"{name}_project_bn")(getattr(parent, f"{name}_project")(y))
+    y = getattr(parent, f"{name}_drop")(y)
     if tuple(dw.stride) == (1, 1) and y.shape[1] == x.shape[1]:
         y = x + y
     return y

@@ -4,10 +4,14 @@ frontend -> stem 3x3 s(1,2) -> 4 stages of plain DS (or inverted-residual)
 blocks with optional SE, base filters [32, 64, 128, 256] x alpha, repeats
 [2, 3, 4, 2] x depth_multiplier (stride (2,2) on each stage's first block)
 -> 1x1 embeddings conv_bn (skipped when the channels already match) -> GAP
-or attention pooling -> dense head -> softmax, sigmoid or none (logits),
-as `class_activation` says.
+or attention pooling -> dropout -> dense head -> softmax, sigmoid or none
+(logits), as `class_activation` says.
 
-Inference only: dropout is inert and BN runs on its running statistics.
+`.eval()` serves (BN on running statistics, dropout off); `.train()` trains:
+BN on batch statistics with the Keras running-statistics update, the
+blocks' SpatialDropout2D and the head's dropout on. `train(freeze_bn=True)`
+keeps every BN on its running statistics with no update (QAT), and
+`train(freeze_frontend_bn=True)` only the frontend's (a frozen frontend).
 Public layout as the JAX model: input [B, bins, W, 1] (or [B, T, 1] for
 the raw frontend), scores [B, C]; NCHW inside.
 """
@@ -63,7 +67,7 @@ class DSCNN(nn.Module):
                  use_se: bool = True, se_reduction: int = 8,
                  use_inverted_residual: bool = True, expansion_factor: int = 2,
                  use_attention_pooling: bool = False, class_activation: str = "softmax",
-                 learn_mel_scale: bool = False):
+                 learn_mel_scale: bool = False, dropout_rate: float = 0.5):
         super().__init__()
         if audio_frontend not in _FRONTEND_MODES:
             raise ValueError(f"Invalid audio frontend: {audio_frontend!r}")
@@ -107,8 +111,21 @@ class DSCNN(nn.Module):
             blocks.append(("conv_bn", "emb"))
         if use_attention_pooling:
             add_attention_pooling(self, "attn_pool", ch)
+        self.dropout = nn.Dropout(dropout_rate)
         self.pred = nn.Linear(ch, num_classes)
         self.blocks = tuple(blocks)
+
+    def train(self, mode: bool = True, freeze_bn: bool = False,
+              freeze_frontend_bn: bool = False) -> "DSCNN":
+        """Train mode (eval mode with mode=False); freeze_bn puts every BN
+        back on its running statistics, freeze_frontend_bn the frontend's."""
+        super().train(mode)
+        if mode and (freeze_bn or freeze_frontend_bn):
+            scope = self if freeze_bn else self.audio_frontend
+            for m in scope.modules():
+                if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                    m.eval()
+        return self
 
     def forward(self, x: torch.Tensor, return_embeddings: bool = False):
         """[B, bins, W, 1] (raw: [B, T, 1]) -> [B, num_classes] scores (and
@@ -127,7 +144,7 @@ class DSCNN(nn.Module):
             emb = attention_pooling(self, x, "attn_pool")
         else:
             emb = x.mean(dim=(2, 3))  # GAP
-        y = self.pred(emb)
+        y = self.pred(self.dropout(emb))
         if self.class_activation == "softmax":
             y = torch.softmax(y, dim=-1)
         elif self.class_activation == "sigmoid":
@@ -167,6 +184,7 @@ def build_dscnn(cfg: ModelConfig, class_activation: str = "softmax",
         use_attention_pooling=cfg.use_attention_pooling,
         class_activation=class_activation,
         learn_mel_scale=learn_mel_scale,
+        dropout_rate=cfg.dropout_rate,
     )
     return model.to(dev).eval()
 

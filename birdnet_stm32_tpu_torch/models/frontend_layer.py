@@ -10,7 +10,8 @@ Modes:
   (k=16, stride=ceil(T/W), no bias) -> BN `raw_fb_bn` -> ReLU6 ->
   magnitude scaling -> [B, mel_bins, W, 1].
 
-Inference only: BN runs on its running statistics.
+`raw_fb_bn` follows the module's train / eval mode (models/blocks.py:
+batch statistics and the Keras running-statistics update in train mode).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from birdnet_stm32_tpu_torch.models.blocks import BN_EPS, BN_MOMENTUM, relu6
+from birdnet_stm32_tpu_torch.models.blocks import BN_EPS, BN_MOMENTUM, BatchNorm1d, relu6
 from birdnet_stm32_tpu_torch.ops.magnitude import db_compress
 from birdnet_stm32_tpu_torch.ops.mel import hz_to_mel, mel_filterbank
 
@@ -155,7 +156,7 @@ class AudioFrontend(nn.Module):
             self.raw_pad = (total // 2, total - total // 2)
             self.raw_fb = nn.Conv1d(1, mel_bins, RAW_KERNEL, stride=self.raw_stride,
                                     bias=False)
-            self.raw_fb_bn = nn.BatchNorm1d(mel_bins, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+            self.raw_fb_bn = BatchNorm1d(mel_bins, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
         if mode != "precomputed":
             self.mag = MagnitudeScaling(mag_scale, mel_bins)
 

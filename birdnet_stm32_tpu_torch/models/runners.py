@@ -3,8 +3,9 @@ bf16), the INT8 integer graph and the TFLite interpreter (port of
 models/runners.py), and load_model_runner, which picks one from a model
 file.
 
-Not ported yet (ROADMAP.md, Queue 1): meshes, and loading float
-checkpoints (run directories: item 9; .keras files: item 11).
+Not ported yet (ROADMAP.md, Queue 1): meshes, and loading reference
+.keras files (item 11). Run directories the port's `train` wrote load as
+TorchRunners.
 """
 
 from __future__ import annotations
@@ -150,23 +151,32 @@ def _is_full_int8(graph: TFLiteGraph) -> bool:
 def load_model_runner(model_path: str | Path, dtype: torch.dtype | None = None,
                       device: str | torch.device = "cuda"):
     """The runner for a model file: a .tflite gives TFLiteSimRunner on
-    `device` when the graph is full-int8, else TFLiteInterpreterRunner (host).
-    `dtype` (torch.bfloat16 for bf16 serving) applies to float checkpoints
-    only; a .tflite ignores it, as in the JAX package.
+    `device` when the graph is full-int8, else TFLiteInterpreterRunner (host);
+    a run directory of the port's `train` (or the .keras path train mapped
+    to it) gives a TorchRunner of its best/ weights on `device`, with the
+    head train_state.json records. `dtype` (torch.bfloat16 for bf16
+    serving) applies to float checkpoints only; a .tflite ignores it, as in
+    the JAX package.
 
-    Run directories and .keras files (float checkpoints) raise
-    NotImplementedError: their loaders come with ROADMAP.md Queue 1 items 9
-    (checkpoints) and 11 (.keras transplant).
+    Reference .keras files raise NotImplementedError (their transplant is
+    ROADMAP.md Queue 1 item 11); a JAX (orbax) run directory raises
+    ValueError (training/checkpoint.py::load_checkpoint).
     """
+    from birdnet_stm32_tpu_torch.training.checkpoint import keras_run_dir, load_checkpoint
+
     p = Path(model_path)
     if p.suffix == ".tflite":
         sim = TFLiteSimRunner(p, device=device)
         if _is_full_int8(sim.graph):
             return sim
         return TFLiteInterpreterRunner(p)
-    if p.suffix == ".keras" or p.is_dir():
+    run_dir = keras_run_dir(p) if p.suffix == ".keras" else (p if p.is_dir() else None)
+    if run_dir is not None:
+        model, _, cfg = load_checkpoint(run_dir, device=device)
+        return TorchRunner(model, cfg, device=device, dtype=dtype)
+    if p.suffix == ".keras":
         raise NotImplementedError(
-            f"{model_path}: float checkpoints are not loadable in the port yet "
-            "(ROADMAP.md Queue 1: item 9 brings run-directory checkpoints, item 11 "
-            ".keras files); serve a .tflite, or a TorchRunner through the API")
+            f"{model_path}: reference .keras files are not loadable in the port yet "
+            "(ROADMAP.md Queue 1 item 11); serve a run directory of the port's train "
+            "or a .tflite")
     raise ValueError(f"Cannot infer runner type from {model_path}")

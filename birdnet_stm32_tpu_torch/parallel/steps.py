@@ -1,0 +1,147 @@
+"""The train and eval steps on one device (port of parallel/steps.py; the
+port has no mesh).
+
+The train step: train-mode forward (BN batch statistics, dropout), loss
+on the logits + the L2 of the block convolutions' kernels, gradients,
+the freeze mask on the gradients, the optimizer (training/optimizer.py),
+the freeze mask on the updates, p + u, then the NonNeg clamp of the
+hybrid mel mixer. Convolutions and matmuls run in full float32
+(device.full_fp32: no TF32).
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from birdnet_stm32_tpu_torch.device import full_fp32
+
+MEL_MIXER = "audio_frontend.mel_mixer"
+# The kernels the reference regularizes: the stage blocks' depthwise,
+# pointwise, expand and project convolutions. Not the stem, emb, SE dense
+# layers ('stageN_seM_expand', 'stageN_irM_se_expand'), attention score,
+# frontend or head.
+_BLOCK_KERNEL = re.compile(r"stage\d+_(ir|ds)\d+_(dw|pw|expand|project)$")
+
+
+@dataclass
+class TrainState:
+    """Step count, the model's own parameters and buffers (the steps update
+    them in place), and the optimizer state."""
+
+    step: int
+    params: dict[str, torch.nn.Parameter]
+    buffers: dict[str, torch.Tensor]
+    opt_state: dict
+
+    @classmethod
+    def create(cls, model: torch.nn.Module, tx) -> "TrainState":
+        params = dict(model.named_parameters())
+        return cls(step=0, params=params, buffers=dict(model.named_buffers()),
+                   opt_state=tx.init(params))
+
+    def variables(self) -> dict[str, torch.Tensor]:
+        """A state_dict of the parameters and buffers (copies)."""
+        return {k: v.detach().clone() for k, v in {**self.params, **self.buffers}.items()}
+
+
+def _project_nonneg_mel_mixer(params: dict[str, torch.Tensor]) -> None:
+    """Keras NonNeg constraint of the hybrid mel mixer: clamp after each
+    update."""
+    if MEL_MIXER in params:
+        params[MEL_MIXER].data.clamp_(min=0.0)
+
+
+def conv_kernel_l2(params: dict[str, torch.Tensor], coeff: float) -> torch.Tensor:
+    """coeff * sum ||K||^2 over the block convolutions' kernels."""
+    total = 0.0
+    for name, p in params.items():
+        module, _, leaf = name.rpartition(".")
+        if leaf == "weight" and _BLOCK_KERNEL.fullmatch(module):
+            total = total + torch.sum(p * p)
+    return coeff * total
+
+
+def freeze_mask(params: dict[str, Any], frontend_trainable: bool = True,
+                freeze_bn: bool = False) -> dict[str, bool]:
+    """Keep-mask over the parameters: frontend_trainable=False drops the
+    frontend's, freeze_bn=True every BN's scale and bias. Apply it to the
+    gradients and to the updates (decoupled weight decay moves params
+    otherwise)."""
+    def keep(name: str) -> bool:
+        parts = name.split(".")
+        if not frontend_trainable and parts[0] == "audio_frontend":
+            return False
+        if freeze_bn and any(p.endswith("_bn") or p == "bn" for p in parts[:-1]):
+            return False
+        return True
+
+    return {k: keep(k) for k in params}
+
+
+def _masked(tree: dict[str, torch.Tensor], keep: dict[str, bool]) -> dict[str, torch.Tensor]:
+    return {k: v * float(keep[k]) for k, v in tree.items()}
+
+
+def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tree.values()))))
+
+
+def make_train_step(
+    model: torch.nn.Module,
+    tx,
+    loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    frontend_trainable: bool = True,
+    kernel_l2: float = 1e-4,
+):
+    """step(state, x, y) -> (state, {"loss", "grad_norm"}) for a DSCNN
+    built with class_activation='none'. frontend_trainable=False zeroes
+    the frontend's gradients and updates and keeps its BN on running
+    statistics. kernel_l2 is the L2 coefficient (0 disables). Full float32
+    only: mixed precision is not ported yet (ROADMAP.md Queue 1 item 9)."""
+
+    def step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
+        names = list(state.params)
+        model.train(freeze_frontend_bn=not frontend_trainable)
+        with full_fp32():
+            logits = model(x)
+            loss = loss_fn(logits, y)
+            if kernel_l2 > 0:
+                loss = loss + conv_kernel_l2(state.params, kernel_l2)
+            grads = torch.autograd.grad(loss, [state.params[k] for k in names],
+                                        allow_unused=True)
+        with torch.no_grad():
+            grads = {k: torch.zeros_like(state.params[k]) if g is None else g
+                     for k, g in zip(names, grads)}
+            if not frontend_trainable:
+                keep = freeze_mask(state.params, frontend_trainable)
+                grads = _masked(grads, keep)
+            grad_norm = global_norm(grads)
+            updates = tx.update(grads, state.opt_state, state.params)
+            if not frontend_trainable:
+                updates = _masked(updates, keep)
+            torch._foreach_add_([state.params[k] for k in updates], list(updates.values()))
+            _project_nonneg_mel_mixer(state.params)
+        state.step += 1
+        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    return step
+
+
+def make_eval_step(model: torch.nn.Module, loss_fn, activation: str = "sigmoid"):
+    """step(state, x, y) -> (loss, scores): eval-mode forward, the loss on
+    the logits, sigmoid or softmax scores."""
+
+    @torch.no_grad()
+    def step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
+        model.eval()
+        with full_fp32():
+            logits = model(x)
+            loss = loss_fn(logits, y)
+        scores = torch.sigmoid(logits) if activation == "sigmoid" else torch.softmax(logits, -1)
+        return loss, scores
+
+    return step

@@ -122,8 +122,45 @@ It imports nothing of JAX. In order it:
    codes at most one apart on under 1 %, min cosine >= BENCH_MIN_COSINE;
    and the tile-grid kernel launched; it prints the bench's three
    sections;
-11. prints the `kernels` JSON line, the card's name and power limit, and
-   last the `ok` JSON line.
+11. train phase (after the serve phase): the port's `train` entry point
+   (birdnet_stm32_tpu_torch/cli/train.py):
+   (a) writes a seeded WAV folder: a folder per flagship class (100) and a
+       noise folder, 3 mono PCM16 files at 22.05 kHz of 4-7 s each, a
+       chirp-and-tone pattern per class with noise (~70 MB);
+   (b) runs `__main__.main(["train", ...])` in this process on CUDA (the
+       default device) at the flagship's full width (hybrid, pwl, n_fft
+       512, 64 mels, 256 frames, alpha 1.0, embeddings 256, plain DS, no
+       SE) with the defaults otherwise (int16 feed, mixup, SpecAugment, 4
+       loader workers): batch 64, 2 epochs x 8 steps, then `--resume` for a
+       third epoch, the launch counts cleared before each run: parameters
+       and batches on CUDA, the int16 rows reaching the batcher; the linear
+       kernel launched exactly once per train step and per validation
+       batch and nothing else; every loss finite and the last epoch's below
+       the first's; history.csv with 3 rows; best/, last/ and the sidecars;
+       the resumed optimizer at step 24;
+   (c) serves the trained run directory with `serve` on two of its files
+       (sigmoid head: 100 finite scores in [0, 1] per file); then
+       train_model on the librosa + pwl config at full width (two steps on
+       one int16 batch with SpecAugment and mixup, one validation batch):
+       the features kernel (mel + pwl) launched exactly three times;
+   (d) one train step from the same state on 16 rows of the first int16
+       batch of a FIFO loader, the card against the port's CPU path
+       (dropout 0, no augmentation, SGD, L2 on): the kernel's features
+       within 1e-5 of the plain version's; then both steps on the card's
+       features: loss within 1e-6 and grad norm within 1e-3 relative, each
+       tensor's update within 5e-2 and the whole update within 2e-2 in L2
+       norm, every BN statistic within 1e-5 of its tensor's largest value;
+   (e) prints the batcher's and the adam train step's median ms over 7
+       CUDA-event timings at batch 64, their CUDA launches and device-busy
+       ms (torch.profiler), the chunks/s they allow, and each epoch's
+       data_wait_s / dispatch_s / val_s, the host loop's chunks/s (steps x
+       batch over data_wait_s + dispatch_s) and the epoch's chunks/s
+       (steps x batch over the epoch's seconds, which end after the
+       validation sweep has read its scores back), with the card's name
+       and power limit;
+12. prints the `kernels` JSON line (the linear and mel + pwl entries with
+   `train_launches`), the card's name and power limit, and last the `ok`
+   JSON line.
 
 Any failed check exits non-zero before the `ok` line.
 """
@@ -1218,6 +1255,352 @@ def prepass_phase(torch, np) -> None:
         fail("the layout pre-passes changed the flagship graph's scores")
 
 
+# The train phase's seeded WAV folder: a folder per flagship class plus a
+# noise folder, TRAIN_FILES mono PCM16 files at 22.05 kHz of 4-7 s each.
+TRAIN_FILES = 3
+TRAIN_BATCH = 64
+TRAIN_STEPS = 8
+# The card-vs-CPU train step: STEP_ROWS rows of the FIFO batch. Both steps
+# train on the card's features (the kernel is held to its plain version
+# on its own), so the gates measure the step alone: cuDNN's and the CPU's
+# convolutions and BN backward sum in other orders. A BN bias's or
+# scale's gradient is a sum over the batch of terms that nearly cancel
+# (the next train-mode BN's backward takes out their mean), so those
+# tensors keep fewer correct digits than the loss. Readings on an H100
+# 80GB HBM3 at 700 W on this batch: loss 9.9e-8, gradient norm 2.0e-4, BN
+# statistics 2.8e-7, the worst tensor's update (stage1_ds2_pw_bn.bias)
+# 1.9 % and the whole update 0.55 % in L2 norm, all relative; the gates
+# stand 2.5-35x above them.
+STEP_ROWS = 16
+STEP_LOSS_RTOL = 1e-6
+STEP_GRAD_NORM_RTOL = 1e-3
+STEP_TENSOR_UPDATE_RTOL = 5e-2
+STEP_UPDATE_RTOL = 2e-2
+STEP_STATS_RTOL = 1e-5
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def write_train_folder(np, root: Path, class_names: list[str]) -> None:
+    """One chirp-and-tone pattern per class (its own base frequency and
+    sweep) with noise; the noise folder holds noise only."""
+    from birdnet_stm32_tpu_torch.audio.io import save_wav
+
+    sr = 22050
+    rng = np.random.default_rng(8)
+    t = np.arange(7 * sr, dtype=np.float32) / np.float32(sr)
+    gate = np.sin(2 * np.pi * 2.0 * t) > 0
+    for ci, name in enumerate([*class_names, "noise"]):
+        f0 = np.float32(300.0 + 45.0 * ci)
+        if ci < len(class_names):
+            pattern = (0.4 * np.sin(2 * np.pi * f0 * t * (1.0 + 0.05 * (ci % 7) * t))
+                       + 0.2 * np.sin(2 * np.pi * 1.5 * f0 * t) * gate)
+            sigma = np.float32(0.05)
+        else:
+            pattern, sigma = np.zeros_like(t), np.float32(0.3)
+        for i in range(TRAIN_FILES):
+            n = int(sr * rng.uniform(4.0, 7.0))
+            x = pattern[:n] + sigma * rng.standard_normal(n, dtype=np.float32)
+            save_wav(x, root / name / f"{i}.wav", sr)
+
+
+def train_args(data: Path, run_dir: Path, epochs: int) -> list[str]:
+    """The flagship's full width (hybrid, pwl, n_fft 512, 64 mels, 256
+    frames, alpha 1.0, embeddings 256, plain DS blocks, no SE) with the
+    defaults otherwise: int16 feed, mixup, SpecAugment, 4 loader workers."""
+    return ["--data_path_train", str(data), "--run_dir", str(run_dir),
+            "--sample_rate", "22050", "--chunk_duration", "3.0", "--fft_length", "512",
+            "--num_mels", "64", "--spec_width", "256", "--audio_frontend", "hybrid",
+            "--mag_scale", "pwl", "--alpha", "1.0", "--embeddings_size", "256",
+            "--no_se", "--no_inverted_residual", "--batch_size", str(TRAIN_BATCH),
+            "--epochs", str(epochs), "--steps_per_epoch", str(TRAIN_STEPS), "--seed", "0"]
+
+
+def run_train(torch, args: list[str], seen: dict) -> None:
+    """`python -m birdnet_stm32_tpu_torch train ...` in this process on
+    CUDA (the default device), with train_model wrapped to record where the
+    model's parameters and the batcher's tensors live."""
+    import contextlib
+    import io
+
+    from birdnet_stm32_tpu_torch.__main__ import main as port_main
+    from birdnet_stm32_tpu_torch.training import trainer
+
+    real = trainer.train_model
+
+    def spy(model, cfg, train_batches, val_batches, run_dir, batcher=None, **kw):
+        def spy_batcher(gen, wave, labels):
+            x, y = batcher(gen, wave, labels)
+            seen.setdefault("batch", set()).update(
+                (t.device.type, str(t.dtype)) for t in (wave, x, y))
+            return x, y
+
+        out = real(model, cfg, train_batches, val_batches, run_dir, batcher=spy_batcher, **kw)
+        seen["params"] = {p.device.type for p in model.parameters()}
+        return out
+
+    trainer.train_model = spy
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = port_main(["train", *args])
+    finally:
+        trainer.train_model = real
+    if rc != 0:
+        fail(f"train {args} exited {rc}:\n{out.getvalue()}")
+
+
+def train_step_check(torch, cfg, wave, labels) -> None:
+    """One train step from the same state and int16 batch (STEP_ROWS rows),
+    the card against the port's CPU path: dropout 0, no augmentation, SGD,
+    the L2 term on."""
+    import copy
+
+    from birdnet_stm32_tpu_torch.data.pipeline import make_train_batcher
+    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn, init_model
+    from birdnet_stm32_tpu_torch.parallel.steps import TrainState, make_train_step
+    from birdnet_stm32_tpu_torch.training.losses import make_loss_fn
+    from birdnet_stm32_tpu_torch.training.optimizer import build_optimizer
+
+    wave, labels = wave[:STEP_ROWS], labels[:STEP_ROWS]
+    batcher = make_train_batcher(cfg, spec_augment=False, mixup_probability=0.0,
+                                 input_dtype="int16")
+    # The batch through the batcher on both sides (the kernel against its
+    # plain version); both steps then train on the card's features, so the
+    # step gates measure the step alone.
+    xg, yg = batcher(None, torch.as_tensor(wave).cuda(), torch.as_tensor(labels).cuda())
+    xc, _ = batcher(None, torch.as_tensor(wave), torch.as_tensor(labels))
+    gpu = init_model(build_dscnn(cfg, class_activation="none", device="cuda"), seed=3)
+    res = {}
+    for dev, model in (("cuda", gpu), ("cpu", copy.deepcopy(gpu).to("cpu"))):
+        for m in model.modules():
+            if isinstance(m, (torch.nn.Dropout, torch.nn.Dropout2d)):
+                m.p = 0.0
+        before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        tx = build_optimizer("sgd", 1e-2, gradient_clip_norm=1.0)
+        step = make_train_step(model, tx, make_loss_fn(multilabel=True))
+        _, metrics = step(TrainState.create(model, tx), xg.to(dev), yg.to(dev))
+        after = model.state_dict()
+        res[dev] = ({k: float(v) for k, v in metrics.items()},
+                    {k: (after[k] - before[k]).cpu() for k in after if after[k].is_floating_point()},
+                    {k: v.cpu() for k, v in after.items() if "running" in k})
+    (mg, ug, sg), (mc, uc, sc) = res["cuda"], res["cpu"]
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+    moved = [k for k in uc if "running" not in k and uc[k].norm() > 0]
+    per_tensor = {k: float((ug[k] - uc[k]).norm() / uc[k].norm()) for k in moved}
+    worst = sorted(per_tensor, key=per_tensor.get, reverse=True)[:3]
+    diff = torch.cat([(ug[k] - uc[k]).flatten() for k in moved])
+    got = {
+        "features_max_abs": float((xg.cpu() - xc).abs().max()),
+        "loss_rel": rel(mg["loss"], mc["loss"]),
+        "grad_norm_rel": rel(mg["grad_norm"], mc["grad_norm"]),
+        "tensor_update_rel": per_tensor[worst[0]],
+        "update_rel": float(diff.norm() / torch.cat([uc[k].flatten() for k in moved]).norm()),
+        "bn_stats_rel": max(float((sg[k] - sc[k]).abs().max() / sc[k].abs().max().clamp_min(1e-30))
+                            for k in sc),
+    }
+    print(json.dumps({"train_step_card_vs_cpu": got, "rows": STEP_ROWS,
+                      "worst_tensors": {k: per_tensor[k] for k in worst}}))
+    gates = {"features_max_abs": KERNEL_TOL["linear"], "loss_rel": STEP_LOSS_RTOL,
+             "grad_norm_rel": STEP_GRAD_NORM_RTOL, "tensor_update_rel": STEP_TENSOR_UPDATE_RTOL,
+             "update_rel": STEP_UPDATE_RTOL, "bn_stats_rel": STEP_STATS_RTOL}
+    for k, tol in gates.items():
+        if not got[k] <= tol:
+            fail(f"train step card vs CPU: {k} {got[k]:.3e} > {tol:.0e}")
+
+
+def features_train_check(torch, np, flagship, wave, labels, tmp: Path) -> int:
+    """train_model (the API under `train`) on the librosa + pwl config at
+    full width, whose features come from the features kernel: two train
+    steps on one int16 loader batch with SpecAugment and mixup, and one
+    validation batch. The kernel launches once per step and per validation
+    batch, and nothing else launches; returns its launches."""
+    from birdnet_stm32_tpu_torch.data.pipeline import make_train_batcher
+    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn, init_model
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from birdnet_stm32_tpu_torch.training.trainer import train_model
+
+    cfg = dataclasses.replace(flagship, audio_frontend="librosa", mag_scale="pwl")
+    deq = wave[:, :-1].astype(np.float32) / np.abs(wave[:, -1:].astype(np.float32))
+    model = init_model(build_dscnn(cfg, class_activation="none", device="cuda"), seed=5)
+    name = frontend_kernel.kernel_name("mel", "pwl")
+    frontend_kernel.launches.clear()
+    _, history = train_model(
+        model, cfg, iter([(wave, labels)] * 2), lambda: [(deq, labels)], tmp / "librosa",
+        epochs=1, steps_per_epoch=2, batcher=make_train_batcher(cfg, input_dtype="int16"),
+        multilabel=True, device="cuda")
+    counts = dict(frontend_kernel.launches)
+    if counts != {name: 3} or not np.isfinite(history[0]["loss"]):
+        fail(f"librosa + pwl training: launches {counts} (want {{{name!r}: 3}}), "
+             f"history {history}")
+    print(json.dumps({"train_librosa_pwl": {"launches": counts[name],
+                                            "loss": history[0]["loss"]}}))
+    return counts[name]
+
+
+def train_timing(torch, cfg, wave, labels) -> dict:
+    """One int16 batch of TRAIN_BATCH: the batcher (dequant, the kernel,
+    SpecAugment, mixup) and the train step (adam) on the card, each the
+    median of seven CUDA-event timings after two warm-up calls, and the
+    CUDA launches and device-busy ms of one call of each (torch.profiler)."""
+    from birdnet_stm32_tpu_torch.data.pipeline import make_train_batcher
+    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn, init_model
+    from birdnet_stm32_tpu_torch.parallel.steps import TrainState, make_train_step
+    from birdnet_stm32_tpu_torch.training.losses import make_loss_fn
+    from birdnet_stm32_tpu_torch.training.optimizer import build_optimizer
+    from birdnet_stm32_tpu_torch.utils.prng import generator
+
+    wave, labels = torch.as_tensor(wave).cuda(), torch.as_tensor(labels).cuda()
+    batcher = make_train_batcher(cfg, input_dtype="int16")
+    model = init_model(build_dscnn(cfg, class_activation="none", device="cuda"), seed=4)
+    tx = build_optimizer("adam", 1e-3, gradient_clip_norm=1.0)
+    step = make_train_step(model, tx, make_loss_fn(multilabel=True))
+    state = TrainState.create(model, tx)
+    gen = generator(0, "cuda")
+    x, y = batcher(gen, wave, labels)
+
+    def median_ms(fn, n=7, warmup=2):
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(n):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[n // 2]
+
+    batcher_ms = median_ms(lambda: batcher(gen, wave, labels))
+    step_ms = median_ms(lambda: step(state, x, y))
+    activity = {"batcher": device_activity(torch, lambda: batcher(gen, wave, labels)),
+                "train_step": device_activity(torch, lambda: step(state, x, y))}
+    return {"batch": int(wave.shape[0]), "batcher_ms": round(batcher_ms, 4),
+            "train_step_ms": round(step_ms, 4), "device_activity": activity,
+            "device_chunks_per_s": round(wave.shape[0] * 1000.0 / (batcher_ms + step_ms), 1)}
+
+
+def train_phase(torch, np, flagship) -> dict:
+    """The port's `train` entry point at the flagship's full width on a
+    seeded WAV folder: two epochs of TRAIN_STEPS, then --resume for a third;
+    the run directory, losses and launches; one step card vs CPU; the
+    trained run served by `serve`; step and batcher times. Returns the
+    linear kernel's launches by run."""
+    import csv
+    import tempfile
+    from types import SimpleNamespace
+
+    from birdnet_stm32_tpu_torch.cli.train import build_loaders
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+
+    linear = frontend_kernel.kernel_name("linear", "none")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data, run_dir = Path(tmp) / "data", Path(tmp) / "run"
+        t0 = time.perf_counter()
+        write_train_folder(np, data, flagship.class_names)
+        write_s = time.perf_counter() - t0
+        loader_args = SimpleNamespace(
+            seed=0, data_path_train=str(data), data_path_val=None, val_split=0.2,
+            top_n_classes=None, max_samples_per_class=None, upsample_ratio=0.5,
+            no_upsample=False, sample_rate=22050, chunk_duration=3.0, max_chunks_per_file=2,
+            snr_threshold=0.1, max_duration=30.0, batch_size=TRAIN_BATCH, num_workers=4)
+        train_loader, val_loader, class_names, _ = build_loaders(loader_args, ship="int16")
+        if class_names != sorted(flagship.class_names):
+            fail("train folder: the classes found are not the flagship's")
+        val_batches = -(-len(val_loader.paths) // TRAIN_BATCH)
+        for run, epochs, extra in (("train", 2, []), ("resume", 3, ["--resume"])):
+            seen = {}
+            frontend_kernel.launches.clear()
+            t0 = time.perf_counter()
+            run_train(torch, train_args(data, run_dir, epochs) + extra, seen)
+            wall = time.perf_counter() - t0
+            counts = dict(frontend_kernel.launches)
+            new_epochs = 2 if run == "train" else 1
+            want = new_epochs * (TRAIN_STEPS + val_batches)
+            if counts != {linear: want}:
+                fail(f"train ({run}): kernel launches {counts}, want {{{linear!r}: {want}}} "
+                     "(one per train step and per validation batch)")
+            if seen.get("params") != {"cuda"}:
+                fail(f"train ({run}): parameters on {seen.get('params')}")
+            if {d for d, _ in seen.get("batch", ())} != {"cuda"} or (
+                    "cuda", "torch.int16") not in seen["batch"]:
+                fail(f"train ({run}): batches {seen.get('batch')}")
+            launches[run] = want
+            print(json.dumps({"train_run": run, "wall_s": round(wall, 3),
+                              "linear_launches": counts[linear]}))
+        rows = list(csv.DictReader(open(run_dir / "history.csv")))
+        state = torch.load(run_dir / "last/train_state.pt", map_location="cpu",
+                           weights_only=True)
+        losses = [float(r["loss"]) for r in rows]
+        print(json.dumps({"train_history": [
+            {k: float(v) for k, v in r.items()} for r in rows],
+            "write_folder_s": round(write_s, 3), "card": card()}))
+        for name in ("best/state_dict.pt", "last/train_state.pt", "model_config.json",
+                     "labels.txt", "train_state.json", "history.csv"):
+            if not (run_dir / name).exists():
+                fail(f"train: run directory lacks {name}")
+        if len(rows) != 3:
+            fail(f"train: history.csv has {len(rows)} rows, want 3")
+        if not all(np.isfinite(float(v)) for r in rows for k, v in r.items()
+                   if k in ("loss", "val_loss")):
+            fail(f"train: a loss is not finite: {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"train: the last epoch's loss {losses[-1]} is not below the first's {losses[0]}")
+        if state["step"] != 3 * TRAIN_STEPS or state["opt_state"]["count"] != 3 * TRAIN_STEPS:
+            fail(f"train: resumed step {state['step']}, want {3 * TRAIN_STEPS}")
+        for r in rows:
+            n = TRAIN_BATCH * TRAIN_STEPS
+            print(json.dumps({"train_epoch": int(float(r["epoch"])),
+                              "data_wait_s": float(r["data_wait_s"]),
+                              "dispatch_s": float(r["dispatch_s"]),
+                              "val_s": float(r["val_s"]),
+                              "host_loop_chunks_per_s": round(
+                                  n / (float(r["data_wait_s"]) + float(r["dispatch_s"])), 1),
+                              "epoch_chunks_per_s": round(n / float(r["seconds"]), 1)}))
+
+        # Serve the trained run directory with the port's serve verb.
+        serve_dir = Path(tmp) / "serve"
+        serve_dir.mkdir()
+        for name in class_names[:2]:
+            (serve_dir / f"{name}.wav").write_bytes((data / name / "0.wav").read_bytes())
+        frontend_kernel.launches.clear()
+        run_serve(["--model_path", str(run_dir), "--audio_dir", str(serve_dir), "--once",
+                   "--results_file", str(Path(tmp) / "served.tsv")])
+        launches["serve"] = frontend_kernel.launches.get(linear, 0)
+        served = tsv_rows(np, Path(tmp) / "served.tsv")
+        if len(served) != 2 or not all(
+                v.shape == (100,) and np.isfinite(v).all() and (v >= 0).all() and (v <= 1).all()
+                for _, v in served.values()):
+            fail(f"serve of the trained run: {served}")
+        if launches["serve"] < 1 or set(frontend_kernel.launches) != {linear}:
+            fail(f"serve of the trained run: launches {dict(frontend_kernel.launches)}")
+
+        # One int16 batch for the checks below: the first TRAIN_BATCH chunks
+        # in file order (FIFO, the same in every run), read in threads with
+        # no pool to spawn and a reservoir of two batches.
+        wave, labels = next(iter(dataclasses.replace(
+            train_loader, executor="thread", shuffle=False, infinite=False,
+            reservoir_size=2 * TRAIN_BATCH)))
+        if wave.dtype != np.int16 or wave.shape[0] != TRAIN_BATCH:
+            fail(f"the int16 feed shipped {wave.dtype} {wave.shape}")
+        launches["librosa_pwl"] = features_train_check(torch, np, flagship, wave, labels,
+                                                       Path(tmp))
+        train_step_check(torch, flagship, wave, labels)
+        timing = train_timing(torch, flagship, wave, labels)
+    print(json.dumps({"train_timing": timing, "card": card()}))
+    return launches
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1234,19 +1617,30 @@ def main() -> None:
     from birdnet_stm32_tpu_torch.quant.tflite_import import TFLiteGraph, entry_quant_params
     from tests.int8_fixture import entry_transpose_fixture
 
-    build_phase()
-    occupancy_phase()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    timed("build", build_phase)
+    timed("occupancy", occupancy_phase)
     quant = entry_quant_params(entry_transpose_fixture(TFLiteGraph(FLAGSHIP_TFLITE)))
-    entries = kernel_phase(torch, np, quant)
-    sweep_phase(torch)
-    launches = slice_phase(torch, np)
+    entries = timed("kernel", kernel_phase, torch, np, quant)
+    timed("sweep", sweep_phase, torch)
+    launches = timed("slice", slice_phase, torch, np)
     flagship = ModelConfig.load(ROOT / "artifacts/flagship/bundle/model_config.json")
-    launches.update(int8_phase(torch, np, flagship))
-    phase_launches = [bf16_phase(torch, np, flagship), fuzz_phase(torch, np)]
-    prepass_phase(torch, np)
-    serve_launches = serve_phase(torch, np)
-    tile_entries = tile_phase(torch, np, quant, entries)
-    bench_launches = bench_phase(torch)
+    launches.update(timed("int8", int8_phase, torch, np, flagship))
+    phase_launches = [timed("bf16", bf16_phase, torch, np, flagship),
+                      timed("fuzz", fuzz_phase, torch, np)]
+    timed("prepass", prepass_phase, torch, np)
+    serve_launches = timed("serve", serve_phase, torch, np)
+    train_launches = timed("train", train_phase, torch, np, flagship)
+    tile_entries = timed("tile", tile_phase, torch, np, quant, entries)
+    bench_launches = timed("bench", bench_phase, torch)
+    print(json.dumps({"phase_seconds": seconds}))
     linear, linear_int8 = (frontend_kernel.kernel_name("linear", "none", quant=q)
                            for q in (False, True))
     for entry in entries:
@@ -1261,6 +1655,13 @@ def main() -> None:
             if entry["name"] == (linear_int8 if "int8" in path else linear):
                 entry["launches"] += n
                 entry.setdefault("serve_launches", {})[path] = n
+        # The train path's own launches (train, resume, serving the run;
+        # the librosa + pwl trainer run on the features kernel).
+        mel_pwl = frontend_kernel.kernel_name("mel", "pwl")
+        for path, n in train_launches.items():
+            if entry["name"] == (mel_pwl if path == "librosa_pwl" else linear):
+                entry["launches"] += n
+                entry.setdefault("train_launches", {})[path] = n
     for entry in tile_entries:
         entry["launches"] = bench_launches.get(entry["name"], 0)
     entries += tile_entries
@@ -1268,13 +1669,9 @@ def main() -> None:
         if entry["launches"] == 0 and entry["served_path"] is not None:
             fail(f"{entry['name']} was never launched on its served path")
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    name_and_limit = card()
     print(json.dumps({"kernels": entries}))
-    print(smi.stdout.strip().splitlines()[0])
+    print(name_and_limit)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

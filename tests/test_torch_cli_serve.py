@@ -213,7 +213,7 @@ def test_guards(tmp_path):
     """The int16 / mu-law mutual exclusion in the CLI and in
     decode_for_classify; --bf16 with a .tflite is accepted and ignored, as
     in the JAX package (the same TSV as without it); verbs not ported
-    exit 2."""
+    exit 2 (and `train`, ported, exits 2 on its missing required flag)."""
     audio_dir = tmp_path / "audio"
     save_wav(_chirp(7, 3.0, SR)[:, 0], audio_dir / "x.wav", SR)
     with pytest.raises(SystemExit, match="mutually exclusive"):
@@ -225,8 +225,11 @@ def test_guards(tmp_path):
     assert main(_serve_args(audio_dir, tmp_path / "bf16.txt", "--bf16")) == 0
     plain = (tmp_path / "plain.txt").read_text()
     assert plain and (tmp_path / "bf16.txt").read_text() == plain
-    for verb in ("train", "evaluate", "benchmark", "nonsense"):
+    for verb in ("evaluate", "benchmark", "nonsense"):
         assert main([verb]) == 2
+    with pytest.raises(SystemExit) as exc:
+        main(["train"])
+    assert exc.value.code == 2
     assert not (tmp_path / "r.txt").exists()
 
 
@@ -250,9 +253,15 @@ def test_load_model_runner_dispatch(tmp_path):
     assert PR._is_full_int8(runner.graph) and JR._is_full_int8(JTFLiteGraph(str(FLAGSHIP_TFLITE)))
     keras = tmp_path / "model.keras"
     keras.write_bytes(b"\x00")
-    for path in (tmp_path, keras):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PR.load_model_runner(path, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PR.load_model_runner(keras, device="cpu")
+    # Run directories load (tests/test_torch_cli_train.py); one without the
+    # port's best/state_dict.pt raises, a JAX (orbax) one saying so.
+    with pytest.raises(FileNotFoundError, match="state_dict.pt"):
+        PR.load_model_runner(tmp_path, device="cpu")
+    (tmp_path / "best").mkdir()
+    with pytest.raises(ValueError, match="orbax"):
+        PR.load_model_runner(tmp_path, device="cpu")
     with pytest.raises(ValueError, match="Cannot infer"):
         PR.load_model_runner(tmp_path / "model.onnx", device="cpu")
     # A graph whose first conv has float weights is not full-int8, in both

@@ -511,3 +511,114 @@ def test_bf16_flagship_on_card(cuda):
     assert s16.dtype == np.float32 and np.isfinite(s16).all()
     assert _row_cosines(s16, s32).min() >= 0.999
     assert _row_cosines(s16, c16).min() >= 0.999
+
+
+# --- Training (the `train` entry point): the batcher's kernel feed and one
+# train step on the card against the port's CPU path. ---
+
+TINY_TRAIN = dict(sample_rate=4000, num_mels=16, spec_width=32, fft_length=128,
+                  chunk_duration=1.0, embeddings_size=32, num_classes=3,
+                  class_names=["a", "b", "c"], audio_frontend="hybrid", mag_scale="pwl",
+                  alpha=0.25, use_se=False, use_inverted_residual=False, dropout_rate=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_train_step_on_card_matches_cpu(cuda, optimizer):
+    """One train step from the same weights on the same int16 batch (no
+    augmentation, dropout 0, L2 on): the batcher launches the linear kernel
+    once, its features within 1e-5 of the CPU's plain version. Both steps
+    then train on the card's features: loss within 1e-4 and grad norm
+    within 5e-3 relative; BN statistics within 1e-3
+    relative. SGD: each tensor's update within 5e-2 and the whole update
+    within 1e-2 in L2 norm (a train-mode BN's gradients are mostly
+    cancellation, so the backends' summation orders show as 1-3 % on some
+    tensors, chip_smoke.py). Adam's sign(g)-like first step (|g| below
+    ~1e-7 gives an update of size lr whatever its sign): 99 % of entries
+    within 1e-2 of lr."""
+    import copy
+
+    from birdnet_stm32_tpu_torch.data.pipeline import make_train_batcher
+    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn, init_model
+    from birdnet_stm32_tpu_torch.parallel.steps import TrainState, make_train_step
+    from birdnet_stm32_tpu_torch.training.losses import make_loss_fn
+    from birdnet_stm32_tpu_torch.training.optimizer import build_optimizer
+
+    cfg = ModelConfig(**TINY_TRAIN)
+    rng = np.random.default_rng(31)
+    codes = rng.integers(-20000, 20000, (16, cfg.chunk_samples)).astype(np.int16)
+    scale = np.abs(codes.astype(np.int32)).max(axis=1, keepdims=True).astype(np.int16)
+    wave = np.concatenate([codes, scale], axis=1)
+    labels = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 16)]
+    batcher = make_train_batcher(cfg, spec_augment=False, mixup_probability=0.0,
+                                 input_dtype="int16")
+    gpu = init_model(build_dscnn(cfg, class_activation="none", device="cuda"), seed=5)
+    for m in gpu.modules():  # the blocks' SpatialDropout too
+        if isinstance(m, (torch.nn.Dropout, torch.nn.Dropout2d)):
+            m.p = 0.0
+    models = {"cuda": gpu, "cpu": copy.deepcopy(gpu).to("cpu")}
+    name = kernel_name("linear", "none")
+    n0 = frontend_kernel.launches[name]
+    xg, yg = batcher(None, torch.as_tensor(wave).cuda(), torch.as_tensor(labels).cuda())
+    assert frontend_kernel.launches[name] == n0 + 1
+    xc, _ = batcher(None, torch.as_tensor(wave), torch.as_tensor(labels))
+    assert (xg.cpu() - xc).abs().max() <= 1e-5
+    # Both steps train on the card's features: the gates below measure the
+    # step alone.
+    out = {}
+    for dev, model in models.items():
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        tx = build_optimizer(optimizer, 1e-3, gradient_clip_norm=1.0)
+        step = make_train_step(model, tx, make_loss_fn())
+        _, m = step(TrainState.create(model, tx), xg.to(dev), yg.to(dev))
+        after = model.state_dict()
+        out[dev] = (m, {k: (after[k] - before[k]).cpu() for k in after
+                        if after[k].is_floating_point()})
+    (mg, ug), (mc, uc) = out["cuda"], out["cpu"]
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-4 * abs(float(mc["loss"]))
+    assert abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) <= 5e-3 * float(mc["grad_norm"])
+    moved = [k for k in uc if "running" not in k and uc[k].norm() > 0]
+    for k in uc:
+        if "running" in k:
+            scale_k = models["cpu"].state_dict()[k].abs().max()
+            assert (ug[k] - uc[k]).abs().max() <= 1e-3 * scale_k, k
+        elif optimizer == "sgd" and k in moved:
+            assert (ug[k] - uc[k]).norm() <= 5e-2 * uc[k].norm(), k
+    if optimizer == "sgd":
+        diff = torch.cat([(ug[k] - uc[k]).flatten() for k in moved])
+        assert diff.norm() <= 1e-2 * torch.cat([uc[k].flatten() for k in moved]).norm()
+    else:
+        d = torch.cat([(ug[k] - uc[k]).flatten() for k in uc if "running" not in k])
+        assert (d.abs() <= 1e-5).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_train_cli_on_card(cuda, tmp_path):
+    """`train` on CUDA (the default device) on a seeded WAV folder: one
+    linear-kernel launch per train step and per validation batch, then the
+    run directory served by `serve` on the card."""
+    from birdnet_stm32_tpu_torch.__main__ import main
+    from birdnet_stm32_tpu_torch.audio.io import save_wav
+
+    data = tmp_path / "data"
+    rng = np.random.default_rng(32)
+    for ci, cls in enumerate(["a", "b", "c", "noise"]):
+        for i in range(4):
+            t = np.arange(int(4000 * rng.uniform(1.5, 3.0))) / 4000
+            save_wav(0.5 * np.sin(2 * np.pi * (300 + 400 * ci) * t) + rng.normal(0, 0.05, t.size),
+                     data / cls / f"{i}.wav", 4000)
+    args = ["train", "--data_path_train", str(data), "--run_dir", str(tmp_path / "run"),
+            "--sample_rate", "4000", "--chunk_duration", "1.0", "--fft_length", "128",
+            "--num_mels", "16", "--spec_width", "32", "--alpha", "0.25",
+            "--embeddings_size", "32", "--no_se", "--no_inverted_residual", "--epochs", "2",
+            "--steps_per_epoch", "3", "--batch_size", "8", "--num_workers", "0"]
+    name = kernel_name("linear", "none")
+    frontend_kernel.launches.clear()
+    assert main(args) == 0
+    # 16 files, 3 for validation (one chunk each): one validation batch.
+    assert dict(frontend_kernel.launches) == {name: 2 * (3 + 1)}
+    results = tmp_path / "served.txt"
+    assert main(["serve", "--model_path", str(tmp_path / "run"), "--audio_dir",
+                 str(data / "a"), "--results_file", str(results), "--once"]) == 0
+    rows = [line.split("\t") for line in results.read_text().splitlines()]
+    assert len(rows) == 4 and all(len(r) == 4 for r in rows)

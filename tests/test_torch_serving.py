@@ -201,6 +201,15 @@ def test_port_sources_cover_the_serve_slice():
         assert f"birdnet_stm32_tpu_torch/{module}" in scanned
 
 
+def test_port_sources_cover_the_train_slice():
+    """The scan reaches every module of the `train` path."""
+    scanned = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for module in ("cli/train.py", "utils/prng.py", "audio/activity.py", "data/augment.py",
+                   "data/pipeline.py", "parallel/steps.py", "training/losses.py",
+                   "training/optimizer.py", "training/checkpoint.py", "training/trainer.py"):
+        assert f"birdnet_stm32_tpu_torch/{module}" in scanned
+
+
 def test_port_sources_cover_every_served_model():
     """The scan reaches the modules that serve every model the dispatch
     accepts (bf16 leg, pcen / raw / learned-mel frontends, the whole
