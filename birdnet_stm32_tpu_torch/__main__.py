@@ -1,7 +1,10 @@
 """CLI dispatch: python -m birdnet_stm32_tpu_torch <command> [args].
 
-The port's verbs so far: `serve` and `train`. The JAX package's other
-verbs are not ported yet (ROADMAP.md) and exit with code 2.
+The port's verbs: `serve`, `train`, `evaluate`, `benchmark`, `board-test`
+and `profile`, each on CUDA by default (`--device cpu` for the CPU;
+`profile` is analytical and runs nowhere). `convert` and `deploy` need
+TensorFlow and a StableHLO export, are not ported yet (ROADMAP.md) and
+exit with code 2.
 """
 
 from __future__ import annotations
@@ -13,8 +16,16 @@ COMMANDS = {
               "Watch a directory, classify new WAVs continuously"),
     "train": ("birdnet_stm32_tpu_torch.cli.train",
               "Train a DS-CNN on a folder of class-labelled WAVs"),
+    "evaluate": ("birdnet_stm32_tpu_torch.cli.evaluate",
+                 "Pooled file-level metrics and reports on a labelled test set"),
+    "benchmark": ("birdnet_stm32_tpu_torch.cli.benchmark",
+                  "Batched inference over a WAV directory with [BENCH] timings"),
+    "board-test": ("birdnet_stm32_tpu_torch.cli.board_test",
+                   "The board test's loop on the local device, from a deploy config"),
+    "profile": ("birdnet_stm32_tpu_torch.cli.profile",
+                "Analytical per-layer parameters, MACs and activation bytes"),
 }
-NOT_PORTED = ("convert", "evaluate", "benchmark", "profile", "deploy", "board-test")
+NOT_PORTED = ("convert", "deploy")
 
 
 def main(argv: list[str] | None = None) -> int:

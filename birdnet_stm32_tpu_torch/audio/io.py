@@ -8,8 +8,16 @@ tail. Any decode error returns an empty array, as in the JAX package.
 
 The JAX package decodes and resamples through its native library when it
 is built and falls back to this numpy code; the port has only the numpy
-code. Not ported (ROADMAP.md): compressed formats (the libav codec) and the
-decoded-waveform cache (`cached_waveform`, `cache_dir=`).
+code. Not ported (ROADMAP.md): compressed formats (the libav codec). A
+compressed file is a content miss everywhere: an empty array, and in the
+decoded-waveform cache a miss that is not persisted, as in the JAX package
+when its codec is absent.
+
+The decoded-waveform cache (`cache_dir=`, `cached_waveform`): the whole
+file is decoded, downmixed and resampled to the target rate once, stored as
+an .npy under a key of path, mtime_ns, size and rate (the JAX package's
+key), published by atomic rename, and later calls slice their window out of
+a read-only memmap.
 """
 
 from __future__ import annotations
@@ -164,11 +172,20 @@ def load_audio_window(
     chunk_duration: float = 3.0,
     random_offset: bool = False,
     rng: np.random.Generator | None = None,
+    cache_dir: str | Path | None = None,
 ) -> np.ndarray:
     """One contiguous mono window of a WAV: read -> downmix -> resample ->
     peak-normalise. Returns an empty array on any error and for files that
-    are not WAV."""
+    are not WAV.
+
+    cache_dir serves the window from the decoded-waveform cache
+    (cached_waveform), with the same offset, duration and peak policy; the
+    random offset is still drawn per call, only the decode is cached.
+    """
     try:
+        if cache_dir is not None:
+            return _load_window_cached(path, sample_rate, max_duration, chunk_duration,
+                                       random_offset, rng, cache_dir)
         if Path(path).suffix.lower() != ".wav":
             return np.empty((0,), np.float32)
         info = wav_info(path)
@@ -191,6 +208,108 @@ def load_audio_window(
         return y.astype(np.float32, copy=False)
     except Exception:
         return np.empty((0,), np.float32)
+
+
+def _cache_key(path: Path, sample_rate: int) -> str:
+    """Cache entry name: sha1 of the resolved path, mtime_ns, size and rate
+    (the JAX package's string). A rewritten file is a miss; the stale entry
+    is never read again, so nothing needs invalidating."""
+    import hashlib
+
+    st = path.stat()
+    raw = f"{path.resolve()}|{st.st_mtime_ns}|{st.st_size}|{sample_rate}"
+    return hashlib.sha1(raw.encode()).hexdigest()
+
+
+def cached_waveform(path: str | Path, sample_rate: int, cache_dir: str | Path) -> np.ndarray:
+    """The whole decoded mono waveform at `sample_rate`, through the .npy
+    cache.
+
+    A hit returns a read-only memmap. A miss decodes the whole WAV,
+    downmixes and resamples it, and publishes the entry by an atomic
+    rename, so concurrent workers never see a torn file. A content failure
+    (an unparseable or empty file) is cached as an empty array; an OSError
+    or MemoryError is not persisted and returns empty for this call only.
+    A compressed file is a content miss that is not persisted: the port has
+    no codec, as the JAX package when its codec is not built.
+    """
+    path = Path(path)
+    cache_dir = Path(cache_dir)
+    entry = cache_dir / f"{_cache_key(path, sample_rate)}.npy"
+    if entry.exists():
+        try:
+            return np.load(entry, mmap_mode="r")
+        except Exception:
+            pass  # torn or corrupt entry: rebuild it
+
+    y = np.empty((0,), np.float32)
+    if path.suffix.lower() != ".wav":
+        return y
+    try:
+        info = wav_info(path)
+        if info.frames > 0 and info.sample_rate > 0:
+            y = _decode_frames(info, 0, info.frames).mean(axis=1).astype(np.float32, copy=False)
+            if y.size and info.sample_rate != sample_rate:
+                y = fast_resample(y, info.sample_rate, sample_rate)
+    except (OSError, MemoryError):
+        return np.empty((0,), np.float32)  # environmental: retry next call
+    except Exception:
+        y = np.empty((0,), np.float32)
+
+    y = np.ascontiguousarray(y, dtype=np.float32)
+    cache_dir.mkdir(parents=True, exist_ok=True)
+    tmp = cache_dir / f"{entry.stem}.{os.getpid()}.tmp.npy"
+    try:
+        with open(tmp, "wb") as f:
+            np.save(f, y)
+        os.replace(tmp, entry)
+    except Exception:
+        tmp.unlink(missing_ok=True)
+    return y
+
+
+# Files whose whole decode (at the source or the target rate, all channels,
+# float32) would exceed this many bytes take the direct window path instead
+# of the cache, so a worker never holds hours of decoded audio: 512 MB is
+# ~100 min at 22.05 kHz.
+CACHE_MAX_DECODED_BYTES = 512 * 1024 * 1024
+
+
+def _load_window_cached(path, sample_rate, max_duration, chunk_duration, random_offset,
+                        rng, cache_dir) -> np.ndarray:
+    """load_audio_window over the decoded-waveform cache: the same window
+    policy (_window_bounds) and peak normalisation, applied at the target
+    rate. The only difference from the direct path is that a resampled
+    file was resampled whole, which moves a few samples at the window's
+    edges (the polyphase filter's ramp)."""
+    entry = Path(cache_dir) / f"{_cache_key(Path(path), sample_rate)}.npy"
+    if not entry.exists():
+        # Probe before the whole decode: too-long files are not cached.
+        try:
+            info = audio_info(path)
+            frames_at_target = info.frames / max(info.sample_rate, 1) * sample_rate
+            # The decode materialises [frames, channels] float32 before the
+            # downmix, so channels count against the cap.
+            ch = max(1, info.channels)
+            if 4 * max(info.frames * ch, frames_at_target) > CACHE_MAX_DECODED_BYTES:
+                return load_audio_window(path, sample_rate, max_duration, chunk_duration,
+                                         random_offset, rng)
+        except Exception:
+            pass  # unparseable: cached_waveform caches it as empty
+    y_full = cached_waveform(path, sample_rate, cache_dir)
+    total_frames = int(y_full.shape[0])
+    if total_frames <= 0:
+        return np.empty((0,), np.float32)
+    start, n = _window_bounds(total_frames, sample_rate, max_duration, chunk_duration,
+                              random_offset, rng)
+    if n <= 0:
+        return np.empty((0,), np.float32)
+    # A copy: callers get a writable array even on a memmap hit.
+    y = np.array(y_full[start : start + n], dtype=np.float32)
+    peak = float(np.max(np.abs(y))) if y.size else 0.0
+    if peak > 0.0:
+        y /= peak
+    return y
 
 
 def audio_info(path: str | Path) -> WavInfo:
@@ -243,10 +362,13 @@ def load_audio_file(
     chunk_duration: float = 3.0,
     chunk_overlap: float = 0.0,
     random_offset: bool = False,
+    cache_dir: str | Path | None = None,
 ) -> np.ndarray:
-    """Load + resample + normalise + chunk: [n_chunks, chunk_size] float32."""
+    """Load + resample + normalise + chunk: [n_chunks, chunk_size] float32.
+    cache_dir routes the decode through the decoded-waveform cache."""
     audio = load_audio_window(path, sample_rate=sample_rate, max_duration=max_duration,
-                              chunk_duration=chunk_duration, random_offset=random_offset)
+                              chunk_duration=chunk_duration, random_offset=random_offset,
+                              cache_dir=cache_dir)
     if audio.size == 0:
         return np.empty((0, int(sample_rate * chunk_duration)), np.float32)
     return split_audio_into_chunks(audio, sample_rate=sample_rate,

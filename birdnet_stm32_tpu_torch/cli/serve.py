@@ -82,19 +82,6 @@ def _append_result(results_file: Path, name: str, scores: np.ndarray) -> None:
         f.write(name + "".join(f"\t{s:.4f}" for s in scores) + "\n")
 
 
-def _resolve_classes(classes, cfg) -> list[str]:
-    """Validate class names before serving: an empty list gets placeholder
-    names; fewer names than the model's classes fails fast."""
-    if not classes:
-        print(f"[warn] no class names (config class_names empty, no "
-              f"--labels_path); using class_0..class_{cfg.num_classes - 1}")
-        return [f"class_{i}" for i in range(cfg.num_classes)]
-    if len(classes) < cfg.num_classes:
-        raise SystemExit(f"labels list has {len(classes)} names but the "
-                         f"model outputs {cfg.num_classes} classes")
-    return list(classes)
-
-
 def serve_loop(runner, cfg, classes, audio_dir: Path, results_file: Path,
                poll_interval: float = 2.0, batch_size: int = 64, top_k: int = 3,
                score_threshold: float = 0.01, overlap: float = 0.0,
@@ -222,6 +209,7 @@ def main(argv=None) -> int:
 
     import torch
 
+    from birdnet_stm32_tpu_torch.cli.benchmark import _resolve_classes
     from birdnet_stm32_tpu_torch.cli.deploy import resolve_config_path
     from birdnet_stm32_tpu_torch.config import ModelConfig
     from birdnet_stm32_tpu_torch.data.species import open_species_list

@@ -7,9 +7,10 @@ The flags and defaults are the JAX package's. Training runs on one device,
 CUDA by default (`--device cpu` for the CPU); `--no_mesh` is accepted and
 changes nothing. The feed is int16 by default (`--train_feed`): the
 batcher dequantizes on the device, then the frontend kernel computes the
-features. The QAT, linear-probe, LR-finder, tuning, mixed-precision and
-waveform-cache options are not ported yet (ROADMAP.md Queue 1 item 9) and
-exit with code 2.
+features. `--cache_dir` serves the decode from the decoded-waveform cache
+(audio/io.py::cached_waveform). The QAT, linear-probe, LR-finder, tuning
+and mixed-precision options are not ported yet (ROADMAP.md Queue 1 item 9)
+and exit with code 2.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from pathlib import Path
 import numpy as np
 
 NOT_PORTED_FLAGS = ("qat", "qat_act", "linear_probe", "find_lr", "tune",
-                    "mixed_precision", "cache_dir")
+                    "mixed_precision")
 
 
 def get_args(argv=None):
@@ -100,7 +101,9 @@ def get_args(argv=None):
                         "device), ulaw (a quarter, ~2.2%% relative error) or float32")
     p.add_argument("--no_int16_feed", action="store_true",
                    help="deprecated alias for --train_feed float32")
-    p.add_argument("--cache_dir", default=None, help="not ported yet")
+    p.add_argument("--cache_dir", default=None,
+                   help="decoded-waveform cache directory: each file is decoded and "
+                        "resampled once, later epochs read memmap slices")
     p.add_argument("--n_mfcc", type=int, default=20, help="MFCC coefficients (mfcc frontend)")
     # Run control
     p.add_argument("--run_dir", "--checkpoint_path", dest="run_dir",
@@ -179,7 +182,7 @@ def build_loaders(args, ship: str = "float32"):
         sample_rate=args.sample_rate, chunk_duration=args.chunk_duration,
         num_classes=len(class_names), max_chunks_per_file=args.max_chunks_per_file,
         snr_threshold=args.snr_threshold, seed=args.seed,
-        load_duration=args.max_duration,
+        load_duration=args.max_duration, cache_dir=getattr(args, "cache_dir", None),
         ship_int16=ship == "int16", ship_ulaw=ship == "ulaw")
     # The port decodes in numpy, which takes the interpreter lock between
     # its calls: decode threads would stall the train step's host-side

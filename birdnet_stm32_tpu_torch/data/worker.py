@@ -37,6 +37,8 @@ class LoaderConfig:
     (bit-exact after the batcher's dequant), everything else requantizes
     (one PCM16 LSB). ship_ulaw ships [T] int8 mu-law rows (a quarter of the
     bytes, ~2.2 % relative waveform error). The two are exclusive.
+    cache_dir serves the float decode from the decoded-waveform cache
+    (audio/io.py::cached_waveform); raw PCM16 codes are read directly.
     """
 
     sample_rate: int = 24000
@@ -51,12 +53,6 @@ class LoaderConfig:
     cache_dir: str | None = None
     ship_int16: bool = False
     ship_ulaw: bool = False
-
-    def __post_init__(self):
-        if self.cache_dir is not None:
-            raise NotImplementedError(
-                "cache_dir: the decoded-waveform cache is not ported yet "
-                "(ROADMAP.md Queue 1 item 9)")
 
     def resolved_candidates(self) -> int:
         if self.candidate_chunks_per_file is not None:
@@ -201,7 +197,8 @@ def process_file(task: tuple[str, np.ndarray, LoaderConfig, int]):
             return fast
     audio = load_audio_window(
         path, sample_rate=cfg.sample_rate, max_duration=cfg.load_duration,
-        chunk_duration=cfg.chunk_duration, random_offset=cfg.random_offset, rng=rng)
+        chunk_duration=cfg.chunk_duration, random_offset=cfg.random_offset, rng=rng,
+        cache_dir=cfg.cache_dir)
 
     if audio.size == 0:
         chunk = rng.uniform(-1.0, 1.0, T).astype(np.float32)

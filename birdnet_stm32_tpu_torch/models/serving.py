@@ -28,10 +28,10 @@ composition (raw, or a geometry the kernels do not take) emits bf16
 features itself through the bf16-I/O STFT, as the JAX package does.
 
 decode_for_classify and chunks_for_classify_int16 turn one WAV into the
-chunk batch each ingress takes (audio/io.py).
+chunk batch each ingress takes (audio/io.py), through the decoded-waveform
+cache when given a cache_dir.
 
-Not ported yet (ROADMAP.md): meshes, the decoded-waveform cache
-(cache_dir=).
+Not ported yet (ROADMAP.md): meshes.
 """
 
 from __future__ import annotations
@@ -255,17 +255,19 @@ def make_embedder(runner, cfg, stft_precision: str | None = None,
 
 
 def decode_for_classify(path, cfg, overlap: float = 0.0, max_duration=None,
-                        device_resample: bool = False, int16_io: bool = False,
-                        ulaw_io: bool = False):
-    """One header probe and one decode for the serving driver (cli/serve.py):
-    (chunks, src_rate, audio_seconds, read_ms).
+                        device_resample: bool = False, cache_dir: str | None = None,
+                        int16_io: bool = False, ulaw_io: bool = False):
+    """One header probe and one decode for the serving drivers
+    (cli/serve.py, cli/benchmark.py): (chunks, src_rate, audio_seconds,
+    read_ms).
 
     chunks is [N, T] float32; with int16_io [N, T+1] int16 codes + scale
     column (raw codes for mono PCM16 WAVs at the decode rate, bit-exact
     after the device dequant; requantized otherwise); with ulaw_io [N, T]
     int8 mu-law codes. device_resample decodes at the file's own rate
     (src_rate), for a classifier made with input_sample_rate=src_rate.
-    Thread-safe: it shares no state.
+    cache_dir routes the float decode through the decoded-waveform cache
+    (audio/io.py::cached_waveform). Thread-safe: it shares no state.
     """
     if int16_io and ulaw_io:
         raise ValueError("int16_io and ulaw_io are mutually exclusive")
@@ -284,10 +286,11 @@ def decode_for_classify(path, cfg, overlap: float = 0.0, max_duration=None,
         pass  # unparseable header: the decode below yields 0 chunks
     if int16_io:
         chunks = chunks_for_classify_int16(str(path), cfg, overlap,
-                                           max_duration=max_duration, sample_rate=src_rate)
+                                           max_duration=max_duration, sample_rate=src_rate,
+                                           cache_dir=cache_dir)
     else:
         chunks = chunks_for_file(str(path), cfg, overlap, max_duration=max_duration,
-                                 sample_rate=src_rate)
+                                 sample_rate=src_rate, cache_dir=cache_dir)
         if ulaw_io:
             chunks = quantize_waveform_ulaw(chunks)
     if duration <= 0.0 and len(chunks):
@@ -296,13 +299,14 @@ def decode_for_classify(path, cfg, overlap: float = 0.0, max_duration=None,
 
 
 def chunks_for_classify_int16(path, cfg, overlap: float = 0.0, max_duration=None,
-                              sample_rate=None) -> np.ndarray:
+                              sample_rate=None, cache_dir: str | None = None) -> np.ndarray:
     """[N, T+1] int16 chunks + scale column for one file.
 
     Mono PCM16 WAVs at the decode rate ship their raw codes (window peak in
     the scale column, bit-exact after the device dequant); everything else
-    decodes to float and requantizes (quantize_waveform_int16: scale 32767,
-    one PCM16 LSB of error).
+    decodes to float (through the cache when given cache_dir) and
+    requantizes (quantize_waveform_int16: scale 32767, one PCM16 LSB of
+    error).
     """
     from birdnet_stm32_tpu_torch.audio.io import load_chunks_int16
 
@@ -311,7 +315,8 @@ def chunks_for_classify_int16(path, cfg, overlap: float = 0.0, max_duration=None
                                chunk_overlap=overlap, max_duration=max_duration)
     if chunks is None:
         chunks = quantize_waveform_int16(
-            chunks_for_file(path, cfg, overlap, max_duration=max_duration, sample_rate=rate))
+            chunks_for_file(path, cfg, overlap, max_duration=max_duration, sample_rate=rate,
+                            cache_dir=cache_dir))
     return chunks
 
 

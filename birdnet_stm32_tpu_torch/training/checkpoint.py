@@ -23,7 +23,6 @@ import csv
 import json
 from pathlib import Path
 
-import numpy as np
 import torch
 
 from birdnet_stm32_tpu_torch.config import ModelConfig
@@ -185,26 +184,6 @@ def append_history_csv(run_dir: str | Path, epoch: int, metrics: dict) -> None:
 
 def save_training_curves(run_dir: str | Path, history: list[dict]) -> None:
     """curves.png (loss and ROC-AUC per epoch), only where matplotlib imports."""
-    try:
-        import matplotlib
+    from birdnet_stm32_tpu_torch.evaluation.reporting import save_training_curves_plot
 
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-    except Exception:
-        return
-    if not history:
-        return
-    epochs = np.arange(1, len(history) + 1)
-    fig, axes = plt.subplots(1, 2, figsize=(11, 4))
-    axes[0].plot(epochs, [h.get("loss", np.nan) for h in history], label="train")
-    axes[0].plot(epochs, [h.get("val_loss", np.nan) for h in history], label="val")
-    axes[0].set_title("loss")
-    axes[0].set_xlabel("epoch")
-    axes[0].legend()
-    axes[1].plot(epochs, [h.get("val_roc_auc", np.nan) for h in history], label="val roc-auc")
-    axes[1].set_title("ROC-AUC")
-    axes[1].set_xlabel("epoch")
-    axes[1].legend()
-    fig.tight_layout()
-    fig.savefig(Path(run_dir) / "curves.png", dpi=100)
-    plt.close(fig)
+    save_training_curves_plot(history, Path(run_dir) / "curves.png")

@@ -21,6 +21,7 @@ import torch
 
 from birdnet_stm32_tpu_torch.config import ModelConfig
 from birdnet_stm32_tpu_torch.device import resolve_device
+from birdnet_stm32_tpu_torch.evaluation.ranking import roc_auc_score
 from birdnet_stm32_tpu_torch.models.blocks import BN_MOMENTUM
 from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import frontend_input
 from birdnet_stm32_tpu_torch.parallel.steps import TrainState, make_eval_step, make_train_step
@@ -34,24 +35,15 @@ def _log(tag: str, msg: str) -> None:
     print(f"[{tag}] {msg}", flush=True)
 
 
-def _column_auc(pos: np.ndarray, score: np.ndarray) -> float:
-    """ROC-AUC of one column: the Mann-Whitney statistic with average ranks
-    for tied scores (ties count one half)."""
-    _, inverse, counts = np.unique(score, return_inverse=True, return_counts=True)
-    rank = (np.cumsum(counts) - (counts - 1) / 2.0)[inverse]  # 1-based average ranks
-    n_pos = float(pos.sum())
-    n_neg = float(pos.size) - n_pos
-    return float((rank[pos].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
-
-
 def macro_roc_auc(y_true: np.ndarray, y_score: np.ndarray) -> float:
     """Macro ROC-AUC over the label columns with both classes present
-    (degenerate columns are skipped; nan when none is left). numpy only."""
+    (degenerate columns are skipped; nan when none is left). numpy only
+    (evaluation/ranking.py)."""
     aucs = []
     for c in range(y_true.shape[1]):
         col = y_true[:, c]
         if 0 < col.sum() < len(col):
-            aucs.append(_column_auc(col > 0.5, np.asarray(y_score[:, c])))
+            aucs.append(roc_auc_score((col > 0.5).astype(np.float64), np.asarray(y_score[:, c])))
     return float(np.mean(aucs)) if aucs else float("nan")
 
 

@@ -158,9 +158,42 @@ It imports nothing of JAX. In order it:
        (steps x batch over the epoch's seconds, which end after the
        validation sweep has read its scores back), with the card's name
        and power limit;
-12. prints the `kernels` JSON line (the linear and mel + pwl entries with
-   `train_launches`), the card's name and power limit, and last the `ok`
-   JSON line.
+12. evaluate phase (after the train phase, on its folder and run
+   directory): the port's `evaluate`, `benchmark`, `board-test` and
+   `profile` verbs in this process on CUDA (the default device):
+   (a) `evaluate` on the evaluate subset (the first file of each of the
+       100 classes, 2-3 chunks each) with `--max_files 1 --batch_size 64
+       --optimize_thresholds --bootstrap_ci --n_bootstrap 50 --det_curve
+       --benchmark_latency --profile_memory --save_csv
+       --save_benchmark_json`: the committed bundle plain, with
+       --int16_io and twice with --cache_dir (a miss, then hits), and the
+       train phase's run in float32 and with --bf16; then the INT8,
+       float32 and bf16 commands with --device cpu. Checks: 100 files and
+       finite [100, 100] pooled scores; finite metrics (every class has a
+       file); the report files; the linear kernel launched once per device
+       batch (ceil(chunks / 64), plus the --benchmark_latency warm-up
+       batch) and no other kernel; --int16_io and both cached passes
+       bit-equal to the plain INT8 run; the card against the CPU per file:
+       float32 within 1e-4, bf16 and INT8 at cosine >= 0.999, roc-auc,
+       cmAP and mAP within EVAL_METRIC_ATOL;
+   (b) `benchmark` of the bundle over the serve phase's six files, serial,
+       --pipeline 4, --int16_io, --ulaw_io, --device_resample and
+       --trace_dir: a [BENCH] line per file and `=== DONE ===`; the linear
+       kernel launched once per device batch (plus one warm-up batch per
+       source rate) and nothing else; the pipelined per-file top-1 and
+       score within 1e-5 of the serial ones; the trace names the linear
+       kernel;
+   (c) `board-test` from a TOML deploy config naming the bundle and the six
+       files: the --save_results CSV (file, top_label, top_score), a row
+       per file;
+   (d) `profile` of the flagship config: its parameter count equals the
+       port's DS-CNN's;
+   (e) prints each evaluate leg's chunks/s and each benchmark mode's
+       `=== DONE ===` wall, real-time factor and chunks/s, with the card's
+       name and power limit;
+13. prints the `kernels` JSON line (the linear and mel + pwl entries with
+   `train_launches`, the linear entry with `evaluate_launches`), the
+   card's name and power limit, and last the `ok` JSON line.
 
 Any failed check exits non-zero before the `ok` line.
 """
@@ -790,8 +823,8 @@ def write_serve_files(np, root: Path) -> None:
                 w.writeframes((x * 32767.0).astype("<i2").tobytes())
 
 
-def run_serve(args: list[str]) -> str:
-    """`python -m birdnet_stm32_tpu_torch serve ...` in this process; its
+def run_verb(verb: str, args: list[str]) -> str:
+    """`python -m birdnet_stm32_tpu_torch <verb> ...` in this process; its
     standard output."""
     import contextlib
     import io
@@ -800,10 +833,11 @@ def run_serve(args: list[str]) -> str:
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = port_main(["serve", *args])
+        rc = port_main([verb, *args])
     if rc != 0:
-        fail(f"serve {args} exited {rc}")
+        fail(f"{verb} {args} exited {rc}:\n{out.getvalue()[-2000:]}")
     return out.getvalue()
+
 
 
 def tsv_rows(np, path: Path) -> dict:
@@ -852,12 +886,12 @@ def serve_cli_checks(np, root: Path, launches: dict) -> None:
                 "--results_file", str(results), "--once", *extra]
         frontend_kernel.launches.clear()
         t0 = time.perf_counter()
-        out = run_serve(args)
+        out = run_verb("serve", args)
         wall = time.perf_counter() - t0
         counts = dict(frontend_kernel.launches)
         launches[f"serve --{mode}"] = counts.get(linear, 0)
         rows[mode] = tsv_rows(np, results)
-        again = run_serve(args)
+        again = run_verb("serve", args)
         print(json.dumps({"serve_mode": mode, "files": len(rows[mode]), "batches": n_batches,
                           "kernel_launches": counts, "serve_wall_s": wall,
                           "second_run": again.strip().splitlines()[-1]}))
@@ -1489,14 +1523,14 @@ def train_timing(torch, cfg, wave, labels) -> dict:
             "device_chunks_per_s": round(wave.shape[0] * 1000.0 / (batcher_ms + step_ms), 1)}
 
 
-def train_phase(torch, np, flagship) -> dict:
+def train_phase(torch, np, flagship, tmp: Path) -> dict:
     """The port's `train` entry point at the flagship's full width on a
-    seeded WAV folder: two epochs of TRAIN_STEPS, then --resume for a third;
+    seeded WAV folder (tmp/data, the run in tmp/run, both kept for the
+    evaluate phase): two epochs of TRAIN_STEPS, then --resume for a third;
     the run directory, losses and launches; one step card vs CPU; the
     trained run served by `serve`; step and batcher times. Returns the
     linear kernel's launches by run."""
     import csv
-    import tempfile
     from types import SimpleNamespace
 
     from birdnet_stm32_tpu_torch.cli.train import build_loaders
@@ -1504,104 +1538,350 @@ def train_phase(torch, np, flagship) -> dict:
 
     linear = frontend_kernel.kernel_name("linear", "none")
     launches = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        data, run_dir = Path(tmp) / "data", Path(tmp) / "run"
-        t0 = time.perf_counter()
-        write_train_folder(np, data, flagship.class_names)
-        write_s = time.perf_counter() - t0
-        loader_args = SimpleNamespace(
-            seed=0, data_path_train=str(data), data_path_val=None, val_split=0.2,
-            top_n_classes=None, max_samples_per_class=None, upsample_ratio=0.5,
-            no_upsample=False, sample_rate=22050, chunk_duration=3.0, max_chunks_per_file=2,
-            snr_threshold=0.1, max_duration=30.0, batch_size=TRAIN_BATCH, num_workers=4)
-        train_loader, val_loader, class_names, _ = build_loaders(loader_args, ship="int16")
-        if class_names != sorted(flagship.class_names):
-            fail("train folder: the classes found are not the flagship's")
-        val_batches = -(-len(val_loader.paths) // TRAIN_BATCH)
-        for run, epochs, extra in (("train", 2, []), ("resume", 3, ["--resume"])):
-            seen = {}
-            frontend_kernel.launches.clear()
-            t0 = time.perf_counter()
-            run_train(torch, train_args(data, run_dir, epochs) + extra, seen)
-            wall = time.perf_counter() - t0
-            counts = dict(frontend_kernel.launches)
-            new_epochs = 2 if run == "train" else 1
-            want = new_epochs * (TRAIN_STEPS + val_batches)
-            if counts != {linear: want}:
-                fail(f"train ({run}): kernel launches {counts}, want {{{linear!r}: {want}}} "
-                     "(one per train step and per validation batch)")
-            if seen.get("params") != {"cuda"}:
-                fail(f"train ({run}): parameters on {seen.get('params')}")
-            if {d for d, _ in seen.get("batch", ())} != {"cuda"} or (
-                    "cuda", "torch.int16") not in seen["batch"]:
-                fail(f"train ({run}): batches {seen.get('batch')}")
-            launches[run] = want
-            print(json.dumps({"train_run": run, "wall_s": round(wall, 3),
-                              "linear_launches": counts[linear]}))
-        rows = list(csv.DictReader(open(run_dir / "history.csv")))
-        state = torch.load(run_dir / "last/train_state.pt", map_location="cpu",
-                           weights_only=True)
-        losses = [float(r["loss"]) for r in rows]
-        print(json.dumps({"train_history": [
-            {k: float(v) for k, v in r.items()} for r in rows],
-            "write_folder_s": round(write_s, 3), "card": card()}))
-        for name in ("best/state_dict.pt", "last/train_state.pt", "model_config.json",
-                     "labels.txt", "train_state.json", "history.csv"):
-            if not (run_dir / name).exists():
-                fail(f"train: run directory lacks {name}")
-        if len(rows) != 3:
-            fail(f"train: history.csv has {len(rows)} rows, want 3")
-        if not all(np.isfinite(float(v)) for r in rows for k, v in r.items()
-                   if k in ("loss", "val_loss")):
-            fail(f"train: a loss is not finite: {losses}")
-        if not losses[-1] < losses[0]:
-            fail(f"train: the last epoch's loss {losses[-1]} is not below the first's {losses[0]}")
-        if state["step"] != 3 * TRAIN_STEPS or state["opt_state"]["count"] != 3 * TRAIN_STEPS:
-            fail(f"train: resumed step {state['step']}, want {3 * TRAIN_STEPS}")
-        for r in rows:
-            n = TRAIN_BATCH * TRAIN_STEPS
-            print(json.dumps({"train_epoch": int(float(r["epoch"])),
-                              "data_wait_s": float(r["data_wait_s"]),
-                              "dispatch_s": float(r["dispatch_s"]),
-                              "val_s": float(r["val_s"]),
-                              "host_loop_chunks_per_s": round(
-                                  n / (float(r["data_wait_s"]) + float(r["dispatch_s"])), 1),
-                              "epoch_chunks_per_s": round(n / float(r["seconds"]), 1)}))
-
-        # Serve the trained run directory with the port's serve verb.
-        serve_dir = Path(tmp) / "serve"
-        serve_dir.mkdir()
-        for name in class_names[:2]:
-            (serve_dir / f"{name}.wav").write_bytes((data / name / "0.wav").read_bytes())
+    data, run_dir = tmp / "data", tmp / "run"
+    t0 = time.perf_counter()
+    write_train_folder(np, data, flagship.class_names)
+    write_s = time.perf_counter() - t0
+    loader_args = SimpleNamespace(
+        seed=0, data_path_train=str(data), data_path_val=None, val_split=0.2,
+        top_n_classes=None, max_samples_per_class=None, upsample_ratio=0.5,
+        no_upsample=False, sample_rate=22050, chunk_duration=3.0, max_chunks_per_file=2,
+        snr_threshold=0.1, max_duration=30.0, batch_size=TRAIN_BATCH, num_workers=4)
+    train_loader, val_loader, class_names, _ = build_loaders(loader_args, ship="int16")
+    if class_names != sorted(flagship.class_names):
+        fail("train folder: the classes found are not the flagship's")
+    val_batches = -(-len(val_loader.paths) // TRAIN_BATCH)
+    for run, epochs, extra in (("train", 2, []), ("resume", 3, ["--resume"])):
+        seen = {}
         frontend_kernel.launches.clear()
-        run_serve(["--model_path", str(run_dir), "--audio_dir", str(serve_dir), "--once",
-                   "--results_file", str(Path(tmp) / "served.tsv")])
-        launches["serve"] = frontend_kernel.launches.get(linear, 0)
-        served = tsv_rows(np, Path(tmp) / "served.tsv")
-        if len(served) != 2 or not all(
-                v.shape == (100,) and np.isfinite(v).all() and (v >= 0).all() and (v <= 1).all()
-                for _, v in served.values()):
-            fail(f"serve of the trained run: {served}")
-        if launches["serve"] < 1 or set(frontend_kernel.launches) != {linear}:
-            fail(f"serve of the trained run: launches {dict(frontend_kernel.launches)}")
+        t0 = time.perf_counter()
+        run_train(torch, train_args(data, run_dir, epochs) + extra, seen)
+        wall = time.perf_counter() - t0
+        counts = dict(frontend_kernel.launches)
+        new_epochs = 2 if run == "train" else 1
+        want = new_epochs * (TRAIN_STEPS + val_batches)
+        if counts != {linear: want}:
+            fail(f"train ({run}): kernel launches {counts}, want {{{linear!r}: {want}}} "
+                 "(one per train step and per validation batch)")
+        if seen.get("params") != {"cuda"}:
+            fail(f"train ({run}): parameters on {seen.get('params')}")
+        if {d for d, _ in seen.get("batch", ())} != {"cuda"} or (
+                "cuda", "torch.int16") not in seen["batch"]:
+            fail(f"train ({run}): batches {seen.get('batch')}")
+        launches[run] = want
+        print(json.dumps({"train_run": run, "wall_s": round(wall, 3),
+                          "linear_launches": counts[linear]}))
+    rows = list(csv.DictReader(open(run_dir / "history.csv")))
+    state = torch.load(run_dir / "last/train_state.pt", map_location="cpu",
+                       weights_only=True)
+    losses = [float(r["loss"]) for r in rows]
+    print(json.dumps({"train_history": [
+        {k: float(v) for k, v in r.items()} for r in rows],
+        "write_folder_s": round(write_s, 3), "card": card()}))
+    for name in ("best/state_dict.pt", "last/train_state.pt", "model_config.json",
+                 "labels.txt", "train_state.json", "history.csv"):
+        if not (run_dir / name).exists():
+            fail(f"train: run directory lacks {name}")
+    if len(rows) != 3:
+        fail(f"train: history.csv has {len(rows)} rows, want 3")
+    if not all(np.isfinite(float(v)) for r in rows for k, v in r.items()
+               if k in ("loss", "val_loss")):
+        fail(f"train: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the last epoch's loss {losses[-1]} is not below the first's {losses[0]}")
+    if state["step"] != 3 * TRAIN_STEPS or state["opt_state"]["count"] != 3 * TRAIN_STEPS:
+        fail(f"train: resumed step {state['step']}, want {3 * TRAIN_STEPS}")
+    for r in rows:
+        n = TRAIN_BATCH * TRAIN_STEPS
+        print(json.dumps({"train_epoch": int(float(r["epoch"])),
+                          "data_wait_s": float(r["data_wait_s"]),
+                          "dispatch_s": float(r["dispatch_s"]),
+                          "val_s": float(r["val_s"]),
+                          "host_loop_chunks_per_s": round(
+                              n / (float(r["data_wait_s"]) + float(r["dispatch_s"])), 1),
+                          "epoch_chunks_per_s": round(n / float(r["seconds"]), 1)}))
 
-        # One int16 batch for the checks below: the first TRAIN_BATCH chunks
-        # in file order (FIFO, the same in every run), read in threads with
-        # no pool to spawn and a reservoir of two batches.
-        wave, labels = next(iter(dataclasses.replace(
-            train_loader, executor="thread", shuffle=False, infinite=False,
-            reservoir_size=2 * TRAIN_BATCH)))
-        if wave.dtype != np.int16 or wave.shape[0] != TRAIN_BATCH:
-            fail(f"the int16 feed shipped {wave.dtype} {wave.shape}")
-        launches["librosa_pwl"] = features_train_check(torch, np, flagship, wave, labels,
-                                                       Path(tmp))
-        train_step_check(torch, flagship, wave, labels)
-        timing = train_timing(torch, flagship, wave, labels)
+    # Serve the trained run directory with the port's serve verb.
+    serve_dir = tmp / "serve"
+    serve_dir.mkdir()
+    for name in class_names[:2]:
+        (serve_dir / f"{name}.wav").write_bytes((data / name / "0.wav").read_bytes())
+    frontend_kernel.launches.clear()
+    run_verb("serve", ["--model_path", str(run_dir), "--audio_dir", str(serve_dir), "--once",
+               "--results_file", str(tmp / "served.tsv")])
+    launches["serve"] = frontend_kernel.launches.get(linear, 0)
+    served = tsv_rows(np, tmp / "served.tsv")
+    if len(served) != 2 or not all(
+            v.shape == (100,) and np.isfinite(v).all() and (v >= 0).all() and (v <= 1).all()
+            for _, v in served.values()):
+        fail(f"serve of the trained run: {served}")
+    if launches["serve"] < 1 or set(frontend_kernel.launches) != {linear}:
+        fail(f"serve of the trained run: launches {dict(frontend_kernel.launches)}")
+
+    # One int16 batch for the checks below: the first TRAIN_BATCH chunks
+    # in file order (FIFO, the same in every run), read in threads with
+    # no pool to spawn and a reservoir of two batches.
+    wave, labels = next(iter(dataclasses.replace(
+        train_loader, executor="thread", shuffle=False, infinite=False,
+        reservoir_size=2 * TRAIN_BATCH)))
+    if wave.dtype != np.int16 or wave.shape[0] != TRAIN_BATCH:
+        fail(f"the int16 feed shipped {wave.dtype} {wave.shape}")
+    launches["librosa_pwl"] = features_train_check(torch, np, flagship, wave, labels,
+                                                   tmp)
+    train_step_check(torch, flagship, wave, labels)
+    timing = train_timing(torch, flagship, wave, labels)
     print(json.dumps({"train_timing": timing, "card": card()}))
     return launches
 
 
+# The evaluate phase's subset of the train phase's folder: the first file
+# of each of the first EVAL_CLASSES classes (2-3 chunks each), evaluated
+# with --max_files 1 on the card and, for the comparison, on the CPU.
+EVAL_CLASSES = 100
+EVAL_FLAGS = ["--batch_size", str(B), "--max_files", "1", "--optimize_thresholds",
+              "--bootstrap_ci", "--n_bootstrap", "50", "--det_curve", "--benchmark_latency",
+              "--profile_memory", "--save_csv", "--save_benchmark_json"]
+EVAL_REPORTS = ("predictions.csv", "species_report.csv", "benchmark.json", "thresholds.json")
+# Card against CPU on the same command, per-file pooled scores: float32
+# within 1e-4 (the slice phase's gate); bf16 and INT8 at cosine >= 0.999
+# per file (an INT8 entry code fed by the kernel may differ by one from the
+# plain version's, ROADMAP Queue 3 item 2).
+EVAL_F32_ATOL = 1e-4
+EVAL_MIN_COSINE = 0.999
+# Card against CPU, |difference| of roc-auc, cmAP and mAP. First reading
+# (NVIDIA H100 80GB HBM3, 700 W): INT8 2.1e-5 / 2.4e-5 / 9.2e-6, bf16
+# 1.5e-6 / 8.4e-6 / 6.6e-6, float32 0; the gate stands 40x above the worst.
+# A class's single positive moving from rank r to r + 1 moves cmAP by
+# 1 / (100 r (r + 1)): the gate admits one such swap at rank 3 or deeper.
+EVAL_METRIC_ATOL = 1e-3
+# The benchmark modes over the serve phase's six files.
+BENCH_MODES = {"serial": [], "pipeline": ["--pipeline", "4"], "int16": ["--int16_io"],
+               "ulaw": ["--ulaw_io"], "device_resample": ["--device_resample"],
+               "trace": ["--trace_dir"]}
+PIPELINE_ATOL = 1e-5
+
+
+def run_evaluate(args: list[str]) -> dict:
+    """`evaluate` in this process, with evaluation.metrics.evaluate wrapped
+    to keep what it returns (metrics, per-file records, pooled scores) and
+    its wall seconds."""
+    from birdnet_stm32_tpu_torch.evaluation import metrics
+
+    real, seen = metrics.evaluate, {}
+
+    def spy(*a, **k):
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        seen.update(wall_s=time.perf_counter() - t0, metrics=out[0], per_file=out[1],
+                    y_scores=out[3])
+        return out
+
+    metrics.evaluate = spy
+    try:
+        seen["stdout"] = run_verb("evaluate", args)
+    finally:
+        metrics.evaluate = real
+    return seen
+
+
+def evaluate_checks(torch, np, tmp: Path, launches: dict) -> None:
+    """(a) of the evaluate phase: the INT8 bundle (plain, --int16_io, and
+    twice through --cache_dir) and the train phase's run (float32, --bf16)
+    on the card, then the INT8, float32 and bf16 commands on the CPU."""
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+
+    linear = frontend_kernel.kernel_name("linear", "none")
+    subset = tmp / "eval"
+    for folder in sorted(d for d in (tmp / "data").iterdir() if d.name != "noise")[:EVAL_CLASSES]:
+        (subset / folder.name).mkdir(parents=True)
+        (subset / folder.name / "0.wav").write_bytes((folder / "0.wav").read_bytes())
+    models = {"int8": [str(FLAGSHIP_TFLITE)], "float32": [str(tmp / "run")],
+              "bf16": [str(tmp / "run"), "--bf16"]}
+    cache = tmp / "eval_cache"
+    legs = {"int8": (models["int8"], "cuda"),
+            "int8 --int16_io": (models["int8"] + ["--int16_io"], "cuda"),
+            "int8 --cache_dir (miss)": (models["int8"] + ["--cache_dir", str(cache)], "cuda"),
+            "int8 --cache_dir (hit)": (models["int8"] + ["--cache_dir", str(cache)], "cuda"),
+            "float32": (models["float32"], "cuda"), "bf16": (models["bf16"], "cuda"),
+            "int8 cpu": (models["int8"], "cpu"), "float32 cpu": (models["float32"], "cpu"),
+            "bf16 cpu": (models["bf16"], "cpu")}
+    runs = {}
+    for i, (leg, (model, device)) in enumerate(legs.items()):
+        out_dir = tmp / "eval_out" / str(i)
+        frontend_kernel.launches.clear()
+        r = run_evaluate(["--model_path", *model, "--data_path_test", str(subset),
+                          "--output_dir", str(out_dir), "--device", device, *EVAL_FLAGS])
+        r["launches"] = dict(frontend_kernel.launches)
+        runs[leg] = r
+        m, y = r["metrics"], r["y_scores"]
+        chunks = m["total_chunks"]
+        print(json.dumps({"evaluate_leg": leg, "files": len(r["per_file"]), "chunks": chunks,
+                          "wall_s": r["wall_s"], "chunks_per_s": chunks / r["wall_s"],
+                          **{k: m.get(k) for k in ("roc-auc", "cmAP", "mAP", "precision",
+                                                   "recall", "f1", "latency_mean_ms",
+                                                   "blocking_read_floor_ms", "peak_rss_mb")},
+                          "kernel_launches": r["launches"]}))
+        if len(r["per_file"]) != EVAL_CLASSES or y.shape != (EVAL_CLASSES, 100) or \
+                not np.isfinite(y).all():
+            fail(f"evaluate {leg}: {len(r['per_file'])} files, scores {y.shape}")
+        values = [m[k] for k in ("roc-auc", "cmAP", "mAP", "precision", "recall", "f1")]
+        if not all(np.isfinite(v) for v in values + list(m["ap_per_class"])):
+            fail(f"evaluate {leg}: a metric is not finite: {values}")
+        for name in EVAL_REPORTS:
+            if not (out_dir / name).exists():
+                fail(f"evaluate {leg}: no {name}")
+        if device == "cuda":
+            # One launch per device batch, the --benchmark_latency warm-up
+            # batch included; no other frontend kernel.
+            want = -(-chunks // B) + 1
+            if r["launches"] != {linear: want}:
+                fail(f"evaluate {leg}: launches {r['launches']}, want {{{linear!r}: {want}}}")
+            launches[f"evaluate {leg}"] = want
+    int8 = runs["int8"]["y_scores"]
+    for leg in ("int8 --int16_io", "int8 --cache_dir (miss)", "int8 --cache_dir (hit)"):
+        if not np.array_equal(runs[leg]["y_scores"], int8):
+            fail(f"evaluate {leg}: pooled scores differ from the plain INT8 run's")
+    if len(list(cache.glob("*.npy"))) != EVAL_CLASSES:
+        fail(f"evaluate --cache_dir: {len(list(cache.glob('*.npy')))} cache entries")
+    report = {}
+    for leg in ("int8", "float32", "bf16"):
+        card_run, cpu_run = runs[leg], runs[f"{leg} cpu"]
+        if [f["file"] for f in card_run["per_file"]] != [f["file"] for f in cpu_run["per_file"]]:
+            fail(f"evaluate {leg}: the card and the CPU evaluated other files")
+        a, b = card_run["y_scores"].astype(np.float64), cpu_run["y_scores"].astype(np.float64)
+        cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+        report[leg] = {"max_abs": float(np.abs(a - b).max()), "min_cosine": float(cos.min()),
+                       **{f"{k}_diff": abs(card_run["metrics"][k] - cpu_run["metrics"][k])
+                          for k in ("roc-auc", "cmAP", "mAP")}}
+    print(json.dumps({"evaluate_chunks_per_s": {
+        leg: r["metrics"]["total_chunks"] / r["wall_s"] for leg, r in runs.items()},
+        "evaluate_card_vs_cpu": report, "card": card()}))
+    for leg, r in report.items():
+        if leg == "float32" and not r["max_abs"] <= EVAL_F32_ATOL:
+            fail(f"evaluate {leg}: card vs CPU pooled scores {r['max_abs']:.3e} > {EVAL_F32_ATOL}")
+        if not r["min_cosine"] >= EVAL_MIN_COSINE:
+            fail(f"evaluate {leg}: card vs CPU cosine {r['min_cosine']} < {EVAL_MIN_COSINE}")
+        for k in ("roc-auc", "cmAP", "mAP"):
+            if not r[f"{k}_diff"] <= EVAL_METRIC_ATOL:
+                fail(f"evaluate {leg}: card vs CPU {k} differs by {r[k + '_diff']:.3e}")
+
+
+def run_benchmark_verb(args: list[str]) -> tuple[str, dict]:
+    """`benchmark` in this process: its standard output and the summary its
+    driver returns (unrounded wall seconds, real-time factor, chunks/s)."""
+    from birdnet_stm32_tpu_torch.cli import benchmark
+
+    seen = {}
+
+    def spying(driver):
+        def spy(*a, **k):
+            result = driver(*a, **k)
+            seen.update(result)
+            return result
+        return spy
+
+    real = benchmark.run_benchmark, benchmark.run_benchmark_pipelined
+    benchmark.run_benchmark, benchmark.run_benchmark_pipelined = map(spying, real)
+    try:
+        out = run_verb("benchmark", args)
+    finally:
+        benchmark.run_benchmark, benchmark.run_benchmark_pipelined = real
+    return out, {k: seen[k] for k in ("files", "chunks", "wall_s", "rtf", "chunks_per_sec")}
+
+
+def benchmark_checks(np, tmp: Path, launches: dict) -> Path:
+    """(b) and (c) of the evaluate phase: `benchmark` over the serve phase's
+    six files in BENCH_MODES, then `board-test` from a TOML deploy config.
+    Returns the files' directory."""
+    import csv
+
+    from birdnet_stm32_tpu_torch.config import ModelConfig
+    from birdnet_stm32_tpu_torch.models.serving import decode_for_classify
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+
+    linear = frontend_kernel.kernel_name("linear", "none")
+    audio = tmp / "bench"
+    audio.mkdir()
+    write_serve_files(np, audio)
+    cfg = ModelConfig.load(FLAGSHIP_TFLITE.parent / "model_config.json")
+    chunks = {resample: [len(decode_for_classify(audio / f[0], cfg, device_resample=resample)[0])
+                         for f in SERVE_FILES] for resample in (False, True)}
+    rates = len({f[1] for f in SERVE_FILES} | {cfg.sample_rate})
+    rows, timing = {}, {}
+    for mode, extra in BENCH_MODES.items():
+        if mode == "trace":
+            extra = extra + [str(tmp / "trace")]
+        csv_path = tmp / f"bench_{mode}.csv"
+        frontend_kernel.launches.clear()
+        out, timing[mode] = run_benchmark_verb(["--model_path", str(FLAGSHIP_TFLITE),
+                                                "--audio_dir", str(audio), "--csv",
+                                                str(csv_path), *extra])
+        counts = dict(frontend_kernel.launches)
+        n = chunks[mode == "device_resample"]
+        # Each batch once, plus one warm-up batch per source rate; the
+        # pipelined driver packs every file's chunks into shared batches.
+        want = (-(-sum(n) // B) + 1 if mode == "pipeline"
+                else sum(-(-k // B) for k in n) + (rates if mode == "device_resample" else 1))
+        if counts != {linear: want}:
+            fail(f"benchmark {mode}: launches {counts}, want {{{linear!r}: {want}}}")
+        launches[f"benchmark {mode}"] = want
+        if out.count("[BENCH] read:") != len(SERVE_FILES) or "=== DONE ===" not in out:
+            fail(f"benchmark {mode}: {out.count('[BENCH] read:')} [BENCH] lines:\n{out[-1500:]}")
+        rows[mode] = list(csv.DictReader(open(csv_path)))
+    serial, piped = rows["serial"], rows["pipeline"]
+    top1_equal = [a["top1"] == b["top1"] for a, b in zip(serial, piped)]
+    score_diff = max(abs(float(a["score"]) - float(b["score"])) for a, b in zip(serial, piped))
+    trace = tmp / "trace" / "benchmark_trace.json"
+    trace_names_kernel = trace.exists() and "frontend_linear_kernel" in trace.read_text()
+    print(json.dumps({"benchmark_done": timing, "pipelined_vs_serial": {
+        "top1_equal": all(top1_equal), "max_score_diff": score_diff},
+        "trace_bytes": trace.stat().st_size if trace.exists() else None, "card": card()}))
+    if [a["file"] for a in serial] != [b["file"] for b in piped] or not all(top1_equal) \
+            or not score_diff <= PIPELINE_ATOL:
+        fail(f"benchmark --pipeline differs from serial: top-1 {top1_equal}, score {score_diff}")
+    if not trace_names_kernel:
+        fail(f"benchmark --trace_dir: {trace} is missing or names no frontend_linear_kernel")
+
+    toml = tmp / "deploy.toml"
+    toml.write_text(f'[serving]\nmodel_path = "{FLAGSHIP_TFLITE}"\naudio_dir = "{audio}"\n'
+                    f"batch_size = {B}\n")
+    frontend_kernel.launches.clear()
+    run_verb("board-test", ["--config", str(toml), "--save_results", str(tmp / "board.csv")])
+    want = launches["benchmark serial"]
+    if dict(frontend_kernel.launches) != {linear: want}:
+        fail(f"board-test: launches {dict(frontend_kernel.launches)}, want {want}")
+    launches["board-test"] = want
+    board = list(csv.reader(open(tmp / "board.csv")))
+    if board[0] != ["file", "top_label", "top_score"] or len(board) != len(SERVE_FILES) + 1 \
+            or not all(r[1] in cfg.class_names and 0 <= float(r[2]) <= 1 for r in board[1:]):
+        fail(f"board-test --save_results: {board}")
+    return audio
+
+
+def evaluate_phase(torch, np, flagship, tmp: Path) -> dict:
+    """The `evaluate`, `benchmark`, `board-test` and `profile` verbs on
+    CUDA, (a)-(e) of the module docstring; returns the linear kernel's
+    launches by run."""
+    import re
+
+    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn
+
+    launches = {}
+    evaluate_checks(torch, np, tmp, launches)
+    benchmark_checks(np, tmp, launches)
+    out = run_verb("profile", ["--config_path",
+                               str(FLAGSHIP_TFLITE.parent / "model_config.json")])
+    params = int(re.search(r"Total params: ([\d,]+)", out).group(1).replace(",", ""))
+    want = sum(p.numel() for p in build_dscnn(flagship, device="cuda").parameters())
+    print(json.dumps({"profile_params": params, "dscnn_params": want}))
+    if params != want:
+        fail(f"profile: {params} parameters, the port's DS-CNN has {want}")
+    return launches
+
+
 def main() -> None:
+    import tempfile
+
     import numpy as np
     import torch
 
@@ -1637,7 +1917,9 @@ def main() -> None:
                       timed("fuzz", fuzz_phase, torch, np)]
     timed("prepass", prepass_phase, torch, np)
     serve_launches = timed("serve", serve_phase, torch, np)
-    train_launches = timed("train", train_phase, torch, np, flagship)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches = timed("train", train_phase, torch, np, flagship, Path(tmp))
+        evaluate_launches = timed("evaluate", evaluate_phase, torch, np, flagship, Path(tmp))
     tile_entries = timed("tile", tile_phase, torch, np, quant, entries)
     bench_launches = timed("bench", bench_phase, torch)
     print(json.dumps({"phase_seconds": seconds}))
@@ -1662,6 +1944,10 @@ def main() -> None:
             if entry["name"] == (mel_pwl if path == "librosa_pwl" else linear):
                 entry["launches"] += n
                 entry.setdefault("train_launches", {})[path] = n
+        # The evaluate, benchmark and board-test runs (linear kernel).
+        if entry["name"] == linear:
+            entry["launches"] += sum(evaluate_launches.values())
+            entry["evaluate_launches"] = evaluate_launches
     for entry in tile_entries:
         entry["launches"] = bench_launches.get(entry["name"], 0)
     entries += tile_entries

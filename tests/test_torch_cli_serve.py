@@ -213,7 +213,8 @@ def test_guards(tmp_path):
     """The int16 / mu-law mutual exclusion in the CLI and in
     decode_for_classify; --bf16 with a .tflite is accepted and ignored, as
     in the JAX package (the same TSV as without it); verbs not ported
-    exit 2 (and `train`, ported, exits 2 on its missing required flag)."""
+    exit 2 (and the ported verbs with a required flag, `train`, `evaluate`
+    and `benchmark`, exit 2 through argparse when it is missing)."""
     audio_dir = tmp_path / "audio"
     save_wav(_chirp(7, 3.0, SR)[:, 0], audio_dir / "x.wav", SR)
     with pytest.raises(SystemExit, match="mutually exclusive"):
@@ -225,11 +226,12 @@ def test_guards(tmp_path):
     assert main(_serve_args(audio_dir, tmp_path / "bf16.txt", "--bf16")) == 0
     plain = (tmp_path / "plain.txt").read_text()
     assert plain and (tmp_path / "bf16.txt").read_text() == plain
-    for verb in ("evaluate", "benchmark", "nonsense"):
+    for verb in ("convert", "deploy", "nonsense"):
         assert main([verb]) == 2
-    with pytest.raises(SystemExit) as exc:
-        main(["train"])
-    assert exc.value.code == 2
+    for verb in ("train", "evaluate", "benchmark"):
+        with pytest.raises(SystemExit) as exc:
+            main([verb])
+        assert exc.value.code == 2
     assert not (tmp_path / "r.txt").exists()
 
 

@@ -102,8 +102,7 @@ def test_loaders_and_class_weights_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--qat"], ["--qat_act"], ["--linear_probe"], ["--find_lr"],
-                                  ["--tune"], ["--tune", "3"], ["--mixed_precision"],
-                                  ["--cache_dir", "x"]])
+                                  ["--tune"], ["--tune", "3"], ["--mixed_precision"]])
 def test_unported_options_exit_2(flag, tmp_path, capsys):
     assert main(["train", "--data_path_train", str(tmp_path), *flag]) == 2
     err = capsys.readouterr().err

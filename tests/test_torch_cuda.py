@@ -622,3 +622,59 @@ def test_train_cli_on_card(cuda, tmp_path):
                  str(data / "a"), "--results_file", str(results), "--once"]) == 0
     rows = [line.split("\t") for line in results.read_text().splitlines()]
     assert len(rows) == 4 and all(len(r) == 4 for r in rows)
+
+
+@pytest.mark.cuda
+def test_evaluate_and_benchmark_on_card(cuda, tmp_path):
+    """`evaluate` of the committed bundle on CUDA against --device cpu on
+    the same files: pooled scores at cosine >= 0.999 per file, one linear
+    launch per batch of 4 and nothing else; `benchmark` on CUDA, serial and
+    --pipeline 2: a [BENCH] line per file and the same top-1."""
+    import contextlib
+    import io
+
+    from birdnet_stm32_tpu_torch.__main__ import main
+    from birdnet_stm32_tpu_torch.audio.io import save_wav
+    from birdnet_stm32_tpu_torch.evaluation import metrics
+
+    cfg = ModelConfig.load(FLAGSHIP_TFLITE.parent / "model_config.json")
+    data = tmp_path / "data"
+    rng = np.random.default_rng(33)
+    for ci, cls in enumerate(cfg.class_names[:3]):
+        for i in range(2):
+            t = np.arange(int(22050 * rng.uniform(3.0, 7.0))) / 22050
+            save_wav(0.5 * np.sin(2 * np.pi * (500 + 700 * ci) * t) + rng.normal(0, 0.05, t.size),
+                     data / cls / f"{i}.wav", 22050)
+    real, seen = metrics.evaluate, {}
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        seen[k["device"].type] = out
+        return out
+
+    metrics.evaluate = spy
+    try:
+        for device in ("cuda", "cpu"):
+            frontend_kernel.launches.clear()
+            assert main(["evaluate", "--model_path", str(FLAGSHIP_TFLITE), "--data_path_test",
+                         str(data), "--output_dir", str(tmp_path / device), "--batch_size", "4",
+                         "--device", device]) == 0
+            if device == "cuda":
+                chunks = seen["cuda"][0]["total_chunks"]
+                assert dict(frontend_kernel.launches) == {kernel_name("linear", "none"):
+                                                          -(-chunks // 4)}
+    finally:
+        metrics.evaluate = real
+    assert seen["cuda"][1] == [{**r, "scores": s["scores"]}
+                               for r, s in zip(seen["cpu"][1], seen["cuda"][1])]
+    assert _row_cosines(seen["cuda"][3], seen["cpu"][3]).min() >= 0.999
+    tops = []
+    for extra in ([], ["--pipeline", "2"]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert main(["benchmark", "--model_path", str(FLAGSHIP_TFLITE), "--audio_dir",
+                         str(data), "--batch_size", "4", *extra]) == 0
+        assert out.getvalue().count("[BENCH] read:") == 6 and "=== DONE ===" in out.getvalue()
+        tops.append([line.split("top: ")[1].split(" (")[0]
+                     for line in out.getvalue().splitlines() if line.startswith("file: ")])
+    assert tops[0] == tops[1]

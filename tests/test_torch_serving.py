@@ -162,17 +162,21 @@ def _port_sources():
 
 # TFLiteInterpreterRunner (graphs that are not full-int8) is the TFLite
 # interpreter itself, so it imports TensorFlow, inside its constructor only:
-# the module imports without it, and the card machine has none.
-LAZY_IMPORTS = {"birdnet_stm32_tpu_torch/models/runners.py": {"tensorflow"}}
+# the module imports without it, and the card machine has none. Plots import
+# matplotlib inside evaluation/reporting.py's functions only, which skip
+# without it (the card machine has none either).
+LAZY_IMPORTS = {"birdnet_stm32_tpu_torch/models/runners.py": {"tensorflow"},
+                "birdnet_stm32_tpu_torch/evaluation/reporting.py": {"matplotlib"}}
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_no_jax(path):
     """No module of the port, not chip_smoke.py and not the test helpers it
-    imports jax, flax, tensorflow, flatbuffers or the JAX package
-    (matched on the exact top-level name); the one exception is
+    imports jax, flax, tensorflow, flatbuffers, sklearn, matplotlib or the
+    JAX package (matched on the exact top-level name); the exceptions are
     LAZY_IMPORTS, and only inside a function body."""
-    banned = {"jax", "flax", "tensorflow", "flatbuffers", "birdnet_stm32_tpu"}
+    banned = {"jax", "flax", "tensorflow", "flatbuffers", "sklearn", "matplotlib",
+              "birdnet_stm32_tpu"}
     tree = ast.parse(path.read_text())
     in_function = {id(n) for f in ast.walk(tree)
                    if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
@@ -207,6 +211,16 @@ def test_port_sources_cover_the_train_slice():
     for module in ("cli/train.py", "utils/prng.py", "audio/activity.py", "data/augment.py",
                    "data/pipeline.py", "parallel/steps.py", "training/losses.py",
                    "training/optimizer.py", "training/checkpoint.py", "training/trainer.py"):
+        assert f"birdnet_stm32_tpu_torch/{module}" in scanned
+
+
+def test_port_sources_cover_the_evaluate_slice():
+    """The scan reaches every module of the evaluate, benchmark, board-test
+    and profile verbs."""
+    scanned = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for module in ("cli/evaluate.py", "cli/benchmark.py", "cli/board_test.py", "cli/profile.py",
+                   "deploy/config.py", "evaluation/pooling.py", "evaluation/ranking.py",
+                   "evaluation/reporting.py", "models/registry.py", "models/profiler.py"):
         assert f"birdnet_stm32_tpu_torch/{module}" in scanned
 
 

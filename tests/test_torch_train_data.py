@@ -142,8 +142,8 @@ def test_loader_workers(folder):
 
 
 def test_loader_config_guards():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LoaderConfig(cache_dir="/nonexistent")
+    # The decoded-waveform cache is ported (tests/test_torch_waveform_cache.py).
+    assert LoaderConfig(cache_dir="/nonexistent").cache_dir == "/nonexistent"
     cfg = LoaderConfig(ship_int16=True, ship_ulaw=True)
     with pytest.raises(ValueError, match="mutually exclusive"):
         process_file(("x.wav", np.zeros(2, np.float32), cfg, 0))

@@ -88,3 +88,17 @@ def write_wav_folder(root, sample_rate: int = 4000, classes=("a", "b", "c"),
                 x = x + 0.5 * np.sin(2 * np.pi * (250 + 350 * ci + 20 * i) * t * (1 + 0.1 * t))
             save_wav(x.astype(np.float32), root / cls / f"{cls}_{i}.wav", sample_rate)
     return root
+
+
+def write_run_dir(run_dir, seed: int = 0, **overrides):
+    """A run directory of the port's format (best/state_dict.pt, the config
+    and labels sidecars, train_state.json marking a multilabel run, so
+    load_model_runner gives a sigmoid head) holding the Flax weights of
+    pair(seed, **overrides). Returns (sigmoid-head JAX model, its
+    variables, JAX cfg, port cfg)."""
+    from birdnet_stm32_tpu_torch.training.checkpoint import save_checkpoint, save_train_state
+
+    _, variables, model, jcfg, cfg = pair(seed, **overrides)
+    save_checkpoint(run_dir, model.state_dict(), cfg)
+    save_train_state(run_dir, 1, multilabel=True)
+    return j_build_dscnn(jcfg, class_activation="sigmoid"), variables, jcfg, cfg
