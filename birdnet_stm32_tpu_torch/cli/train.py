@@ -1,5 +1,5 @@
 """Train CLI: dataset discovery -> loaders -> training loop -> run directory
-(port of cli/train.py, the standard path).
+(port of cli/train.py).
 
     python -m birdnet_stm32_tpu_torch train --data_path_train DIR [--device cpu] ...
 
@@ -8,21 +8,33 @@ CUDA by default (`--device cpu` for the CPU); `--no_mesh` is accepted and
 changes nothing. The feed is int16 by default (`--train_feed`): the
 batcher dequantizes on the device, then the frontend kernel computes the
 features. `--cache_dir` serves the decode from the decoded-waveform cache
-(audio/io.py::cached_waveform). The QAT, linear-probe, LR-finder, tuning
-and mixed-precision options are not ported yet (ROADMAP.md Queue 1 item 9)
-and exit with code 2.
+(audio/io.py::cached_waveform).
+
+The other modes, as in the JAX package:
+- `--mixed_precision`: the step's forward and backward in bf16 on float32
+  masters, bf16 features from the batcher;
+- `--qat` fine-tunes the run in --run_dir with fake-quantized weights into
+  `<run>_qat` (`--qat_act`: activations too), on its geometry, without
+  upsampling or augmentation, at --qat_learning_rate (else
+  --learning_rate if given, else 1e-5);
+- `--linear_probe` trains a fresh head on the run's backbone into
+  `<run>_probe`;
+- `--find_lr` sweeps the learning rate and prints the suggestion;
+- `--tune [N]` runs N trials of the search space (training/tuner.py) into
+  `<run>/trial_N` and writes `<run>/best_params.json`.
+The LR finder and the tuner train on the float32 feed.
 """
 
 from __future__ import annotations
 
 import argparse
-import sys
 from pathlib import Path
 
 import numpy as np
+import torch
 
-NOT_PORTED_FLAGS = ("qat", "qat_act", "linear_probe", "find_lr", "tune",
-                    "mixed_precision")
+GEOMETRY = ("sample_rate", "chunk_duration", "num_mels", "spec_width", "fft_length",
+            "audio_frontend", "mag_scale")
 
 
 def get_args(argv=None):
@@ -90,7 +102,9 @@ def get_args(argv=None):
                    help="SpecAugment max frequency-mask width (bins)")
     p.add_argument("--time_mask_max", type=int, default=25,
                    help="SpecAugment max time-mask width (frames)")
-    p.add_argument("--mixed_precision", action="store_true", help="not ported yet")
+    p.add_argument("--mixed_precision", action="store_true",
+                   help="bf16 forward and backward; master weights, loss and optimizer "
+                        "stay float32")
     p.add_argument("--loss", default="auto", choices=["auto", "bce", "cce", "focal"],
                    help="override the auto-selected loss")
     p.add_argument("--max_duration", type=float, default=30.0,
@@ -118,15 +132,19 @@ def get_args(argv=None):
                    help="accepted; the port trains on one device")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu for the CPU)")
-    # Modes of the JAX package not ported yet
-    p.add_argument("--qat", action="store_true", help="not ported yet")
-    p.add_argument("--qat_act", action="store_true", help="not ported yet")
-    p.add_argument("--qat_learning_rate", type=float, default=None)
-    p.add_argument("--linear_probe", action="store_true", help="not ported yet")
-    p.add_argument("--find_lr", action="store_true", help="not ported yet")
+    # Modes
+    p.add_argument("--qat", action="store_true",
+                   help="QAT fine-tune of the run in --run_dir into <run>_qat")
+    p.add_argument("--qat_act", action="store_true",
+                   help="with --qat: fake-quantize the input, activations and logits too")
+    p.add_argument("--qat_learning_rate", type=float, default=None,
+                   help="QAT learning rate (default: --learning_rate when given, else 1e-5)")
+    p.add_argument("--linear_probe", action="store_true",
+                   help="train a fresh head on the run's backbone into <run>_probe")
+    p.add_argument("--find_lr", action="store_true", help="run the LR finder and exit")
     p.add_argument("--tune", type=int, nargs="?", const=-1, default=0, metavar="N",
-                   help="not ported yet")
-    p.add_argument("--n_trials", type=int, default=20)
+                   help="search N trials (bare --tune takes --n_trials)")
+    p.add_argument("--n_trials", type=int, default=20, help="trial count for bare --tune")
     args = p.parse_args(argv)
     if args.tune and args.tune < 0:
         args.tune = args.n_trials
@@ -138,11 +156,11 @@ def get_args(argv=None):
     return args
 
 
-def build_loaders(args, ship: str = "float32"):
-    """Discover files, split, upsample, and build the train and validation
-    loaders. ship: the training feed, 'float32' | 'int16' | 'ulaw';
-    validation always ships float32 (one chunk per file, fixed offsets,
-    5x the activity threshold, FIFO)."""
+def build_loaders(args, for_qat: bool = False, ship: str = "float32"):
+    """Discover files, split, upsample (not for QAT), and build the train
+    and validation loaders. ship: the training feed, 'float32' | 'int16' |
+    'ulaw'; validation always ships float32 (one chunk per file, fixed
+    offsets, 5x the activity threshold, FIFO)."""
     import dataclasses
 
     from birdnet_stm32_tpu_torch.data.dataset import (
@@ -174,7 +192,8 @@ def build_loaders(args, ship: str = "float32"):
         paths = [paths[i] for i in idx[n_val:]]
         labels = [labels[i] for i in idx[n_val:]]
 
-    if not args.no_upsample and args.upsample_ratio and 0 < args.upsample_ratio < 1.0:
+    if (not args.no_upsample and not for_qat
+            and args.upsample_ratio and 0 < args.upsample_ratio < 1.0):
         # Ratios >= 1 would duplicate every class past the former maximum.
         paths, labels = upsample_minority_classes(paths, labels, args.upsample_ratio, rng)
 
@@ -212,28 +231,39 @@ def balanced_class_weights(labels: list[str], class_names: list[str]) -> np.ndar
     return (total / (len(class_names) * counts)).astype(np.float32)
 
 
+
+
+def _train_then_close(loader, fn):
+    """fn(iterator of loader); the iterator is closed afterwards, which stops
+    the loader's worker processes."""
+    batches = iter(loader)
+    try:
+        return fn(batches)
+    finally:
+        batches.close()
+
+
 def main(argv=None) -> int:
     args = get_args(argv)
-    unported = [f"--{f}" for f in NOT_PORTED_FLAGS if getattr(args, f) not in (None, False, 0)]
-    if unported:
-        print(f"train {' '.join(unported)}: not ported yet (ROADMAP.md Queue 1 item 9)",
-              file=sys.stderr)
-        return 2
 
     from birdnet_stm32_tpu_torch.config import ModelConfig, normalize_frontend_name
     from birdnet_stm32_tpu_torch.data.pipeline import make_train_batcher
     from birdnet_stm32_tpu_torch.data.species import save_species_list
     from birdnet_stm32_tpu_torch.device import resolve_device
     from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn, init_model
+    from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import frontend_input
     from birdnet_stm32_tpu_torch.training.losses import make_loss_fn
     from birdnet_stm32_tpu_torch.training.trainer import AdaptiveLoaderTuner, train_model
+    from birdnet_stm32_tpu_torch.utils.logging import info, ok
     from birdnet_stm32_tpu_torch.utils.prng import set_global_seed
 
     device = resolve_device(args.device)
     set_global_seed(args.seed)
     args.audio_frontend = normalize_frontend_name(args.audio_frontend)
     # The reference's head rule: mixup's label-union targets are multilabel,
-    # so the head is sigmoid and the loss BCE whenever mixup is on.
+    # so the head is sigmoid and the loss BCE whenever mixup is on. The QAT
+    # and probe branches take the head from the base run instead.
+    explicit_multilabel = args.multilabel
     if not args.no_mixup and args.mixup_probability > 0:
         args.multilabel = True
     run_dir = Path(args.run_dir)
@@ -244,12 +274,47 @@ def main(argv=None) -> int:
         # <stem>_labels.txt there.
         keras_stem = run_dir.stem
         run_dir = run_dir.parent
-        print(f"[train] --checkpoint_path file mapped to run dir {run_dir}")
+        args.run_dir = str(run_dir)
+        info("train", f"--checkpoint_path file mapped to run dir {run_dir}")
 
-    feed = args.train_feed
-    train_loader, val_loader, class_names, raw_labels = build_loaders(args, ship=feed)
-    cfg = ModelConfig(
-        num_classes=len(class_names), class_names=class_names,
+    if args.qat_act and not args.qat:
+        raise SystemExit("--qat_act requires --qat (it extends the QAT "
+                         "fine-tune step; plain training never fake-quantizes)")
+
+    def wave_features(batches, cfg):
+        """(wave, labels) -> (features on the device, labels)."""
+        for wave, labels in batches:
+            yield frontend_input(torch.as_tensor(wave).to(device), cfg), labels
+
+    if args.qat:
+        from birdnet_stm32_tpu_torch.quant.qat import run_qat
+        from birdnet_stm32_tpu_torch.training.checkpoint import _is_multilabel
+
+        # The QAT fine-tune keeps the base run's head, geometry and feed;
+        # no mixup, no augmentation, no upsampling.
+        args.multilabel = explicit_multilabel or _is_multilabel(run_dir)
+        cfg = ModelConfig.load(run_dir / "model_config.json")
+        for f in GEOMETRY:
+            setattr(args, f, getattr(cfg, f))
+        train_loader, val_loader, class_names, _ = build_loaders(
+            args, for_qat=True, ship=args.train_feed)
+        qat_batcher = None
+        if args.train_feed != "float32":
+            qat_batcher = make_train_batcher(cfg, spec_augment=False, mixup_probability=0.0,
+                                             input_dtype=args.train_feed)
+        qat_lr = args.qat_learning_rate
+        if qat_lr is None:
+            qat_lr = args.learning_rate if args.lr_given else 1e-5
+        _train_then_close(train_loader, lambda batches: run_qat(
+            run_dir, batches, lambda: iter(val_loader),
+            out_dir=(run_dir / f"{keras_stem}_qat") if keras_stem else None,
+            epochs=args.epochs, steps_per_epoch=args.steps_per_epoch or 100,
+            learning_rate=qat_lr, multilabel=args.multilabel,
+            num_classes=len(class_names), seed=args.seed, batcher=qat_batcher,
+            monitor=args.monitor, act_fq=args.qat_act, device=device))
+        return 0
+
+    cfg_kwargs = dict(
         sample_rate=args.sample_rate, chunk_duration=args.chunk_duration,
         fft_length=args.fft_length, num_mels=args.num_mels, spec_width=args.spec_width,
         audio_frontend=args.audio_frontend, mag_scale=args.mag_scale,
@@ -261,10 +326,51 @@ def main(argv=None) -> int:
         use_attention_pooling=args.attention_pooling,
         frontend_trainable=not args.no_frontend_trainable,
         n_mfcc=args.n_mfcc)
-    print(f"[train] {len(train_loader.paths)} train files, {len(val_loader.paths)} val "
-          f"files, {len(class_names)} classes, on {device}")
+
+    if args.linear_probe:
+        from birdnet_stm32_tpu_torch.training.checkpoint import load_checkpoint
+        from birdnet_stm32_tpu_torch.training.linear_probe import run_linear_probe
+
+        # The probe's head trains without mixup: only --multilabel makes it
+        # sigmoid. Its loaders read at the base run's geometry.
+        args.multilabel = explicit_multilabel
+        _, base_sd, base_cfg = load_checkpoint(run_dir, class_activation="none",
+                                               device=device)
+        for f in GEOMETRY:
+            setattr(args, f, getattr(base_cfg, f))
+        train_loader, val_loader, class_names, _ = build_loaders(args)
+        out = ((run_dir / f"{keras_stem}_probe") if keras_stem
+               else run_dir.with_name(run_dir.name + "_probe"))
+        _train_then_close(train_loader, lambda batches: run_linear_probe(
+            base_sd, base_cfg, class_names, wave_features(batches, base_cfg),
+            lambda: wave_features(iter(val_loader), base_cfg), out,
+            epochs=args.epochs, steps_per_epoch=args.steps_per_epoch or 50,
+            learning_rate=args.learning_rate, multilabel=args.multilabel,
+            seed=args.seed, device=device))
+        return 0
+
+    # The LR finder and the tuner feed model inputs without the dequantizing
+    # batcher: float32 waves.
+    feed = args.train_feed if not (args.find_lr or args.tune) else "float32"
+    train_loader, val_loader, class_names, raw_labels = build_loaders(args, ship=feed)
+    cfg = ModelConfig(num_classes=len(class_names), class_names=class_names, **cfg_kwargs)
+    info("train", f"{len(train_loader.paths)} train files, {len(val_loader.paths)} val "
+                  f"files, {len(class_names)} classes, on {device}")
+
+    if args.tune:
+        return _run_tuning(args, cfg_kwargs, class_names, device)
 
     model = init_model(build_dscnn(cfg, class_activation="none", device=device), seed=args.seed)
+
+    if args.find_lr:
+        from birdnet_stm32_tpu_torch.training.lr_finder import run_lr_finder
+
+        out = _train_then_close(train_loader, lambda batches: run_lr_finder(
+            model, wave_features(batches, cfg),
+            make_loss_fn(multilabel=args.multilabel, device=device)))
+        ok("lr_finder", f"suggested learning rate: {out['suggested_lr']:.2e}")
+        return 0
+
     steps = args.steps_per_epoch or max(
         20, train_loader.estimate_samples_per_epoch() // args.batch_size)
     # Smoothing is applied in the loss only (mixup never smooths).
@@ -272,6 +378,8 @@ def main(argv=None) -> int:
         cfg, spec_augment=not args.no_spec_augment, mixup_alpha=args.mixup_alpha,
         mixup_probability=0.0 if args.no_mixup else args.mixup_probability,
         freq_mask_max=args.freq_mask_max, time_mask_max=args.time_mask_max,
+        stft_precision="high" if args.mixed_precision else "highest",
+        feature_dtype=torch.bfloat16 if args.mixed_precision else None,
         input_dtype=feed if feed != "float32" else None)
     class_weights = None if args.no_class_weights else balanced_class_weights(
         raw_labels, class_names)
@@ -291,22 +399,73 @@ def main(argv=None) -> int:
         cfg.save(run_dir / f"{keras_stem}_model_config.json")
         save_species_list(class_names, run_dir / f"{keras_stem}_labels.txt")
 
-    train_batches = iter(train_loader)
-    try:
-        train_model(
-            model, cfg, train_batches, lambda: iter(val_loader), run_dir,
-            epochs=args.epochs, steps_per_epoch=steps,
-            learning_rate=args.learning_rate, optimizer=args.optimizer,
-            weight_decay=args.weight_decay, gradient_clip_norm=args.gradient_clip_norm,
-            patience=args.patience, multilabel=args.multilabel,
-            focal_gamma=args.focal_gamma, label_smoothing=args.label_smoothing,
-            class_weights=class_weights, batcher=batcher,
-            resume=args.resume, resume_weights_only=args.resume_weights_only,
-            seed=args.seed, loader_tuner=AdaptiveLoaderTuner(train_loader.loader_control),
-            loss_fn_override=loss_fn_override, monitor=args.monitor, device=device)
-    finally:
-        train_batches.close()  # stops the loader's worker processes
-    print(f"[train] artifacts in {run_dir}")
+    _train_then_close(train_loader, lambda batches: train_model(
+        model, cfg, batches, lambda: iter(val_loader), run_dir,
+        epochs=args.epochs, steps_per_epoch=steps,
+        learning_rate=args.learning_rate, optimizer=args.optimizer,
+        weight_decay=args.weight_decay, gradient_clip_norm=args.gradient_clip_norm,
+        patience=args.patience, multilabel=args.multilabel,
+        focal_gamma=args.focal_gamma, label_smoothing=args.label_smoothing,
+        class_weights=class_weights, batcher=batcher,
+        resume=args.resume, resume_weights_only=args.resume_weights_only,
+        seed=args.seed, loader_tuner=AdaptiveLoaderTuner(train_loader.loader_control),
+        loss_fn_override=loss_fn_override, monitor=args.monitor, device=device,
+        mixed_precision=args.mixed_precision))
+    ok("train", f"artifacts in {run_dir}")
+    return 0
+
+
+def _run_tuning(args, cfg_kwargs: dict, class_names: list[str], device) -> int:
+    """The tuner's study over the search space: each trial trains
+    max(2, epochs // 5) epochs into <run_dir>/trial_N, reports its
+    validation ROC-AUC per epoch (median pruning) and scores its best one."""
+    from birdnet_stm32_tpu_torch.config import ModelConfig
+    from birdnet_stm32_tpu_torch.data.pipeline import make_train_batcher
+    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn, init_model
+    from birdnet_stm32_tpu_torch.training.trainer import train_model
+    from birdnet_stm32_tpu_torch.training.tuner import run_tuning
+    from birdnet_stm32_tpu_torch.utils.logging import info, ok
+
+    def objective(trial):
+        p = trial.params
+        kw = dict(cfg_kwargs)
+        kw.update(
+            alpha=p["alpha"], depth_multiplier=p["depth_multiplier"],
+            embeddings_size=p["embeddings_size"], dropout_rate=p["dropout_rate"],
+            use_se=p["use_se"], se_reduction=p.get("se_reduction", 8),
+            use_inverted_residual=p["use_inverted_residual"],
+            expansion_factor=p.get("expansion_factor", 2),
+            use_attention_pooling=p["use_attention_pooling"])
+        cfg = ModelConfig(num_classes=len(class_names), class_names=class_names, **kw)
+        args.batch_size = p["batch_size"]
+        train_loader, val_loader, _, _ = build_loaders(args)
+        model = init_model(build_dscnn(cfg, class_activation="none", device=device),
+                           seed=args.seed + trial.number)
+        batcher = make_train_batcher(cfg, mixup_probability=p["mixup_probability"])
+        info("tune", f"trial {trial.number}: {p}")
+
+        def report_epoch(epoch_i, metrics):
+            # Median pruning at the epoch boundary, indexed by report count
+            # so that a skipped nan epoch does not shift later ones.
+            auc = metrics.get("val_roc_auc", float("nan"))
+            if not np.isnan(auc):
+                trial.report(auc, len(trial.intermediate))
+
+        _, history = _train_then_close(train_loader, lambda batches: train_model(
+            model, cfg, batches, lambda: iter(val_loader),
+            Path(args.run_dir) / f"trial_{trial.number}",
+            epochs=max(2, args.epochs // 5), steps_per_epoch=args.steps_per_epoch or 50,
+            learning_rate=p["learning_rate"], optimizer=p["optimizer"],
+            weight_decay=p["weight_decay"], gradient_clip_norm=p["gradient_clip_norm"],
+            multilabel=args.multilabel, label_smoothing=p["label_smoothing"],
+            batcher=batcher, seed=args.seed, on_epoch_end=report_epoch,
+            monitor=args.monitor, device=device))
+        return max((h["val_roc_auc"] for h in history
+                    if not np.isnan(h["val_roc_auc"])), default=0.0)
+
+    best = run_tuning(objective, args.tune, args.run_dir, seed=args.seed)
+    ok("tune", f"best trial {best.number}: auc={best.value:.4f} -> "
+               f"{Path(args.run_dir) / 'best_params.json'}")
     return 0
 
 

@@ -251,6 +251,8 @@ def make_train_batcher(
     label_smoothing: float = 0.0,
     freq_mask_max: int = 8,
     time_mask_max: int = 25,
+    stft_precision: str = "highest",
+    feature_dtype: torch.dtype | None = None,
     input_dtype: str | None = None,
 ):
     """Device transform of one training batch:
@@ -264,6 +266,12 @@ def make_train_batcher(
     kernel on CUDA, its plain version on the CPU, the composition for the
     'raw' frontend), SpecAugment (not for 'raw') and mixup, each drawing
     from `generator`. Plain eager PyTorch; the batcher needs no gradient.
+
+    stft_precision goes to frontend_input (the kernels compute the same
+    float32 for each; the composition serving 'raw' and the geometries the
+    kernels do not take follows it). feature_dtype=torch.bfloat16 (mixed
+    precision) casts the batch once, after mixup: the augmentation
+    computes in float32 and the step gets bf16 features.
     """
     from birdnet_stm32_tpu_torch.models.serving import _dequantize_int16, _dequantize_ulaw
     from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import frontend_input
@@ -277,11 +285,12 @@ def make_train_batcher(
     def batcher(generator: torch.Generator, wave: torch.Tensor, labels: torch.Tensor):
         if dequantize is not None:
             wave = dequantize(wave)
-        x = frontend_input(wave, cfg)
+        x = frontend_input(wave, cfg, stft_precision=stft_precision)
         if spec_augment and cfg.audio_frontend != "raw":
             x = apply_spec_augment(generator, x, freq_mask_max=freq_mask_max,
                                    time_mask_max=time_mask_max)
-        return apply_mixup(generator, x, labels, alpha=mixup_alpha,
-                           probability=mixup_probability, label_smoothing=label_smoothing)
+        x, labels = apply_mixup(generator, x, labels, alpha=mixup_alpha,
+                                probability=mixup_probability, label_smoothing=label_smoothing)
+        return (x if feature_dtype is None else x.to(feature_dtype)), labels
 
     return batcher

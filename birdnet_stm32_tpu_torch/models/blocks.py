@@ -13,9 +13,21 @@ Train mode is the module's `.train()`: BN normalises with the batch
 statistics and updates its running statistics the Keras / Flax way (with
 the biased batch variance), and the blocks' SpatialDropout2D drops whole
 channels. `.eval()` serves: BN on its running statistics, dropout off.
+
+Dtypes follow Flax's layers (dtype=None): each layer computes in the result
+type of its input and its parameters, so a float32 input meeting bf16
+parameters computes in float32 (`promote`). BN computes its batch
+statistics in float32 whatever its input.
+
+The activation fake-quant hook (quant/fake_quant.py::activation_fake_quant)
+is a ContextVar: while it is set, every hookable relu6 output runs through
+it. The raw frontend's relu6 opts out.
 """
 
 from __future__ import annotations
+
+import contextvars
+import functools
 
 import torch
 import torch.nn as nn
@@ -34,8 +46,51 @@ def make_divisible(v: float, divisor: int = 8) -> int:
     return max(divisor, int(v + divisor / 2) // divisor * divisor)
 
 
-def relu6(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(x, 0.0, 6.0)
+# Set by quant/fake_quant.py::activation_fake_quant: a function applied to
+# every hookable relu6 output (the QAT step's activation fake-quant).
+ACT_FQ: contextvars.ContextVar = contextvars.ContextVar("act_fq", default=None)
+
+
+class _ReLU6(torch.autograd.Function):
+    """clamp(x, 0, 6) (one launch) with the gradient of JAX's
+    min(max(x, 0), 6): half the incoming gradient where x is exactly 0 or
+    6 (torch.clamp passes all of it). The activation fake-quant makes such
+    ties: a window of zeroed codes gives a pre-activation of exactly 0."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        return torch.clamp(x, 0.0, 6.0)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (x,) = ctx.saved_tensors
+        # (sign(x) - sign(x - 6)) / 2: 0 outside [0, 6], 1 inside, 1/2 at 0 and 6.
+        return g * ((torch.sign(x) - torch.sign(x - 6.0)) * 0.5)
+
+
+def relu6(x: torch.Tensor, hookable: bool = True) -> torch.Tensor:
+    """ReLU6; hookable=False opts a call site out of the activation
+    fake-quant hook (the frontend's)."""
+    y = _ReLU6.apply(x)
+    fq = ACT_FQ.get() if hookable else None
+    return fq(y) if fq is not None else y
+
+
+def promote(x: torch.Tensor, *params: torch.Tensor | None) -> list:
+    """x and params cast to their result dtype (None stays None), as a Flax
+    layer with dtype=None computes. A cast happens only where the dtypes
+    differ."""
+    dt = functools.reduce(torch.promote_types,
+                          (p.dtype for p in params if p is not None), x.dtype)
+    return [t if t is None or t.dtype == dt else t.to(dt) for t in (x, *params)]
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in the result dtype of its input and weights."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(*promote(x, self.weight, self.bias))
 
 
 def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
@@ -61,21 +116,37 @@ class Conv2dSame(nn.Conv2d):
         wl, wh = same_pads(x.shape[3], kw, sw)
         if hl or hh or wl or wh:
             x = F.pad(x, (wl, wh, hl, hh))
-        return super().forward(x)
+        return self._conv_forward(*promote(x, self.weight), None)
 
 
 class _KerasBatchNorm(nn.modules.batchnorm._BatchNorm):
     """BatchNorm whose train mode updates the running variance with the
     biased batch variance, as Keras and Flax do (torch's BatchNorm uses the
-    unbiased one, n / (n - 1) larger). In eval mode it is torch's."""
+    unbiased one, n / (n - 1) larger), from float32 batch statistics.
+
+    As Flax's: the output has the result dtype of the input, scale and
+    bias. Train mode normalises in float32 at least and rounds once (Flax's
+    batch statistics are float32, and x - mean promotes); eval mode in the
+    result dtype of all five tensors (float32 running statistics under bf16
+    parameters normalise in float32). torch's batch_norm with bf16 scale
+    and bias rounds between its steps and differs from Flax's train mode
+    in about half the outputs.
+    """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out_dtype = promote(x, self.weight, self.bias)[0].dtype
         if not self.training:
-            return super().forward(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            xx, w, b, mean, var = promote(x, self.weight, self.bias,
+                                          self.running_mean, self.running_var)
+            return F.batch_norm(xx, mean, var, w, b, False, 0.0, self.eps).to(out_dtype)
+        # float32 scale and bias under a bf16 input: torch's mixed-type
+        # batch_norm, which computes in float32 and rounds once.
+        w, b = (t.to(torch.promote_types(t.dtype, torch.float32))
+                for t in (self.weight, self.bias))
+        y = F.batch_norm(x.to(out_dtype), None, None, w, b, True, 0.0, self.eps)
         with torch.no_grad():
             dims = [0, *range(2, x.dim())]
-            var, mean = torch.var_mean(x.detach(), dim=dims, correction=0)
+            var, mean = torch.var_mean(x.detach().float(), dim=dims, correction=0)
             keep = 1.0 - self.momentum
             self.running_mean.mul_(keep).add_(self.momentum * mean)
             self.running_var.mul_(keep).add_(self.momentum * var)
@@ -139,8 +210,8 @@ def ds_conv_block(parent: nn.Module, x: torch.Tensor, name: str) -> torch.Tensor
 def add_se_block(parent: nn.Module, name: str, channels: int, reduction: int = 8) -> int:
     """Squeeze-and-Excite: '<name>_reduce' and '<name>_expand' dense layers."""
     se_ch = max(1, channels // reduction)
-    parent.add_module(f"{name}_reduce", nn.Linear(channels, se_ch, bias=False))
-    parent.add_module(f"{name}_expand", nn.Linear(se_ch, channels, bias=False))
+    parent.add_module(f"{name}_reduce", Linear(channels, se_ch, bias=False))
+    parent.add_module(f"{name}_expand", Linear(se_ch, channels, bias=False))
     return channels
 
 
@@ -182,7 +253,7 @@ def inverted_residual_block(parent: nn.Module, x: torch.Tensor, name: str) -> to
 
 
 def add_attention_pooling(parent: nn.Module, name: str, channels: int) -> int:
-    parent.add_module(f"{name}_score", nn.Linear(channels, 1, bias=False))
+    parent.add_module(f"{name}_score", Linear(channels, 1, bias=False))
     return channels
 
 

@@ -27,6 +27,7 @@ import torch.nn as nn
 from birdnet_stm32_tpu_torch.config import ModelConfig
 from birdnet_stm32_tpu_torch.device import resolve_device
 from birdnet_stm32_tpu_torch.models.blocks import (
+    Linear,
     add_attention_pooling,
     add_conv_bn,
     add_ds_conv_block,
@@ -112,7 +113,7 @@ class DSCNN(nn.Module):
         if use_attention_pooling:
             add_attention_pooling(self, "attn_pool", ch)
         self.dropout = nn.Dropout(dropout_rate)
-        self.pred = nn.Linear(ch, num_classes)
+        self.pred = Linear(ch, num_classes)
         self.blocks = tuple(blocks)
 
     def train(self, mode: bool = True, freeze_bn: bool = False,

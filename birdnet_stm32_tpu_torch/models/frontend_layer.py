@@ -23,7 +23,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from birdnet_stm32_tpu_torch.models.blocks import BN_EPS, BN_MOMENTUM, BatchNorm1d, relu6
+from birdnet_stm32_tpu_torch.models.blocks import (
+    BN_EPS,
+    BN_MOMENTUM,
+    BatchNorm1d,
+    promote,
+    relu6,
+)
 from birdnet_stm32_tpu_torch.ops.magnitude import db_compress
 from birdnet_stm32_tpu_torch.ops.mel import hz_to_mel, mel_filterbank
 
@@ -84,6 +90,23 @@ class MagnitudeScaling(nn.Module):
         return y
 
 
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """softplus as jax.nn.softplus computes it, logaddexp(x, 0):
+    max(x, 0) + log1p(exp(-|x|)), each operation rounded to x's dtype."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _running_sums(v: torch.Tensor) -> list[torch.Tensor]:
+    """[0, v0, v0 + v1, ...] added in index order in v's dtype. XLA's CPU
+    reduce and cumsum add up to 17 values so (torch's CPU cumsum
+    accumulates in float64); past that XLA vectorizes them, and one float32
+    ulp of a breakpoint (~50 mel) moves the triangles by up to ~2e-5."""
+    run = [v.new_zeros(())]
+    for k in range(v.shape[0]):
+        run.append(run[-1] + v[k])
+    return run
+
+
 def tri_mel_matrix(seg_logits: torch.Tensor, sample_rate: int, fft_length: int,
                    mel_bins: int) -> torch.Tensor:
     """[F, M] float32 triangular mel weights from learnable segment logits
@@ -92,7 +115,13 @@ def tri_mel_matrix(seg_logits: torch.Tensor, sample_rate: int, fft_length: int,
     Softplus segment widths normalized over the [150 Hz, sr//2] Slaney-mel
     range, cumsum to M+2 breakpoints, triangles evaluated at the FFT bins'
     mel positions, column-normalized. Zero logits give near-uniform mel
-    spacing. Computed in float32 whatever the dtype of `seg_logits`.
+    spacing.
+
+    The dtypes are JAX's: the segment widths, their normalisation and their
+    cumsum compute in the logits' dtype (the sum in float32, rounded back),
+    then the breakpoints are float32 (the concatenation with a float32 zero
+    promotes them), and so is everything after. bf16 logits therefore give
+    a float32 matrix of bf16-rounded breakpoints.
     """
     eps = 1e-6
     freqs = np.linspace(0.0, sample_rate / 2.0, fft_length // 2 + 1)
@@ -101,19 +130,12 @@ def tri_mel_matrix(seg_logits: torch.Tensor, sample_rate: int, fft_length: int,
     mel_fmin = float(hz_to_mel(150.0))
     mel_fmax = float(hz_to_mel(float(sample_rate // 2)))  # floors, as the reference
 
-    seg = F.softplus(seg_logits.float()) + 1e-3  # [M+1]
-    # Float32 running sums in index order: XLA's CPU reduce and cumsum add
-    # up to 17 values so (torch's CPU cumsum accumulates in float64); past
-    # that XLA vectorizes them, and one ulp of a breakpoint (~50 mel) moves
-    # the triangles by up to ~2e-5.
-    run = [seg.new_zeros(())]
-    for k in range(seg.shape[0]):
-        run.append(run[-1] + seg[k])
-    seg = seg / (run[-1] + eps) * (mel_fmax - mel_fmin)
-    run = [seg.new_zeros(())]
-    for k in range(seg.shape[0]):
-        run.append(run[-1] + seg[k])
-    p_full = mel_fmin + torch.stack(run)  # [M+2]
+    # Constants in the logits' dtype, as JAX's weak-typed Python scalars.
+    const = seg_logits.new_tensor
+    seg = _softplus(seg_logits) + const(1e-3)  # [M+1]
+    total = _running_sums(seg.float())[-1].to(seg.dtype)
+    seg = seg / (total + const(eps)) * const(mel_fmax - mel_fmin)
+    p_full = mel_fmin + torch.stack(_running_sums(seg)).float()  # [M+2]
     M = mel_bins
     left, center, right = p_full[:M], p_full[1: M + 1], p_full[2: M + 2]
     up = (bins_mel[:, None] - left[None, :]) / torch.clamp(center - left, min=eps)
@@ -161,11 +183,11 @@ class AudioFrontend(nn.Module):
             self.mag = MagnitudeScaling(mag_scale, mel_bins)
 
     def mixer(self) -> torch.Tensor:
-        """The hybrid mel mixer [F, M] in the parameters' dtype."""
+        """The hybrid mel mixer [F, M]: the parameter, or with
+        learn_mel_scale the float32 triangles of the segment logits."""
         if self.learn_mel_scale:
-            tri = tri_mel_matrix(self.mel_seg_logits, self.sample_rate, self.fft_length,
-                                 self.mel_bins)
-            return tri.to(self.mel_seg_logits.dtype)
+            return tri_mel_matrix(self.mel_seg_logits, self.sample_rate, self.fft_length,
+                                  self.mel_bins)
         return self.mel_mixer
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -177,11 +199,14 @@ class AudioFrontend(nn.Module):
                                  f"{tuple(x.shape)}")
             y = x[:, :, : self.spec_width, 0].transpose(1, 2)  # [B, W, F]
             # Full-precision accumulation (callers hold TF32 and bf16
-            # reduced-precision reductions off), as the reference's HIGHEST.
-            y = torch.relu(y @ self.mixer())  # [B, W, M]
+            # reduced-precision reductions off), as the reference's HIGHEST;
+            # bf16 features times a float32 mixer give float32.
+            y, mixer = promote(y, self.mixer())
+            y = torch.relu(y @ mixer)  # [B, W, M]
             y = y / (y.amax(dim=(1, 2), keepdim=True) + 1e-6)
         else:  # raw: [B, T, 1] -> [B, W, M]
             y = F.pad(x[:, : self.raw_samples, 0], self.raw_pad)[:, None]  # [B, 1, T']
-            y = relu6(self.raw_fb_bn(self.raw_fb(y))).transpose(1, 2)
+            # The frontend opts out of the activation fake-quant hook.
+            y = relu6(self.raw_fb_bn(self.raw_fb(y)), hookable=False).transpose(1, 2)
         y = self.mag(y)
         return y.transpose(1, 2)[..., None]  # [B, M, W, 1]

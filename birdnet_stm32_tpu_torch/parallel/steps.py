@@ -7,6 +7,15 @@ the freeze mask on the gradients, the optimizer (training/optimizer.py),
 the freeze mask on the updates, p + u, then the NonNeg clamp of the
 hybrid mel mixer. Convolutions and matmuls run in full float32
 (device.full_fp32: no TF32).
+
+Mixed precision (compute_dtype=torch.bfloat16) is the JAX step's in-graph
+cast: the forward and backward run on bf16 copies of the parameters
+(torch.func.functional_call, so the gradients reach the float32 masters
+through the casts) and on bf16 inputs; the BN running statistics stay the
+model's float32 buffers, the logits are cast to float32 before the loss,
+and the L2 term, the optimizer and the masters stay float32. Layers
+compute in the result dtype of their input and parameters
+(models/blocks.py::promote), as Flax's do.
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+from torch.func import functional_call
 
 from birdnet_stm32_tpu_torch.device import full_fp32
 
@@ -90,43 +100,64 @@ def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tree.values()))))
 
 
+def loss_and_grads(loss: torch.Tensor, params: dict[str, torch.Tensor]):
+    """(detached loss, {name: gradient}) with zeros for parameters the
+    loss does not reach."""
+    names = list(params)
+    grads = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(params[k]) if g is None else g
+                           for k, g in zip(names, grads)}
+
+
+@torch.no_grad()
+def apply_gradients(state: TrainState, tx, grads: dict[str, torch.Tensor],
+                    keep: dict[str, bool] | None = None) -> torch.Tensor:
+    """The keep-mask on the gradients, the optimizer, the mask on the
+    updates, p + u in place, the NonNeg clamp; advances state.step and
+    returns the (masked) gradients' global norm."""
+    if keep is not None:
+        grads = _masked(grads, keep)
+    grad_norm = global_norm(grads)
+    updates = tx.update(grads, state.opt_state, state.params)
+    if keep is not None:
+        updates = _masked(updates, keep)
+    torch._foreach_add_([state.params[k] for k in updates], list(updates.values()))
+    _project_nonneg_mel_mixer(state.params)
+    state.step += 1
+    return grad_norm
+
+
 def make_train_step(
     model: torch.nn.Module,
     tx,
     loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     frontend_trainable: bool = True,
     kernel_l2: float = 1e-4,
+    compute_dtype: torch.dtype | None = None,
 ):
     """step(state, x, y) -> (state, {"loss", "grad_norm"}) for a DSCNN
     built with class_activation='none'. frontend_trainable=False zeroes
     the frontend's gradients and updates and keeps its BN on running
-    statistics. kernel_l2 is the L2 coefficient (0 disables). Full float32
-    only: mixed precision is not ported yet (ROADMAP.md Queue 1 item 9)."""
+    statistics. kernel_l2 is the L2 coefficient (0 disables).
+    compute_dtype=torch.bfloat16 is mixed precision (module docstring);
+    None is full float32."""
 
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
-        names = list(state.params)
         model.train(freeze_frontend_bn=not frontend_trainable)
         with full_fp32():
-            logits = model(x)
+            if compute_dtype is None:
+                logits = model(x)
+            else:
+                # Differentiable casts: the gradients reach the masters.
+                p16 = {k: v.to(compute_dtype) for k, v in state.params.items()}
+                logits = functional_call(model, p16, (x.to(compute_dtype),)).float()
             loss = loss_fn(logits, y)
             if kernel_l2 > 0:
                 loss = loss + conv_kernel_l2(state.params, kernel_l2)
-            grads = torch.autograd.grad(loss, [state.params[k] for k in names],
-                                        allow_unused=True)
-        with torch.no_grad():
-            grads = {k: torch.zeros_like(state.params[k]) if g is None else g
-                     for k, g in zip(names, grads)}
-            if not frontend_trainable:
-                keep = freeze_mask(state.params, frontend_trainable)
-                grads = _masked(grads, keep)
-            grad_norm = global_norm(grads)
-            updates = tx.update(grads, state.opt_state, state.params)
-            if not frontend_trainable:
-                updates = _masked(updates, keep)
-            torch._foreach_add_([state.params[k] for k in updates], list(updates.values()))
-            _project_nonneg_mel_mixer(state.params)
-        state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+            loss, grads = loss_and_grads(loss, state.params)
+        keep = None if frontend_trainable else freeze_mask(state.params, frontend_trainable)
+        grad_norm = apply_gradients(state, tx, grads, keep)
+        return state, {"loss": loss, "grad_norm": grad_norm}
 
     return step
 

@@ -1,2 +1,3 @@
 """Training of the port (port of birdnet_stm32_tpu/training): losses,
-optimizers, checkpoints and the training loop."""
+optimizers, checkpoints, the training loop, the linear probe, the LR
+finder, the tuner and distillation."""

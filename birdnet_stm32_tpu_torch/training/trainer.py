@@ -28,11 +28,8 @@ from birdnet_stm32_tpu_torch.parallel.steps import TrainState, make_eval_step, m
 from birdnet_stm32_tpu_torch.training import checkpoint as ckpt
 from birdnet_stm32_tpu_torch.training.losses import make_loss_fn
 from birdnet_stm32_tpu_torch.training.optimizer import build_optimizer, cosine_schedule
+from birdnet_stm32_tpu_torch.utils.logging import info, ok, warn
 from birdnet_stm32_tpu_torch.utils.prng import generator
-
-
-def _log(tag: str, msg: str) -> None:
-    print(f"[{tag}] {msg}", flush=True)
 
 
 def macro_roc_auc(y_true: np.ndarray, y_score: np.ndarray) -> float:
@@ -102,6 +99,9 @@ def train_model(
     on_epoch_end=None,
     monitor: str = "val_loss",
     device: str | torch.device = "cuda",
+    qat: bool = False,
+    qat_act: bool = False,
+    mixed_precision: bool = False,
 ) -> tuple[dict, list[dict]]:
     """Train `model` (a DSCNN built with class_activation='none', moved to
     `device`, default CUDA) and return (best state_dict, history).
@@ -117,6 +117,15 @@ def train_model(
     drives early stopping after `patience` stale epochs. resume continues
     from run_dir: best/ weights, epoch, best-value watermark and (unless
     resume_weights_only) the full state of last/.
+
+    qat=True trains with the QAT step (quant/qat.py: straight-through
+    fake-quant weights, every BN frozen), qat_act=True with activation
+    fake-quant as well. mixed_precision=True runs the step's forward and
+    backward in bf16 on float32 masters (parallel/steps.py). The
+    validation pass is float32 either way. loss_fn_override replaces the
+    loss (distillation's [B, 2C] targets); on_epoch_end(epoch, metrics)
+    runs after each epoch's bookkeeping and may raise (the tuner's
+    pruning).
     """
     dev = resolve_device(device)
     model.to(dev)
@@ -129,7 +138,7 @@ def train_model(
     initial_epoch = 0
     resumed_best_val = float("inf") if lower_better else float("-inf")
     if resume and (run_dir / "best").exists():
-        _log("resume", f"loading checkpoint from {run_dir}")
+        info("resume", f"loading checkpoint from {run_dir}")
         _, state_dict, _ = ckpt.load_checkpoint(run_dir, class_activation="none", device="cpu")
         model.load_state_dict(state_dict, strict=True)
         tstate = ckpt.load_train_state(run_dir)
@@ -139,16 +148,16 @@ def train_model(
             if tstate.get("monitor", "val_loss") == monitor:
                 resumed_best_val = float(tstate["best_val"])
             else:
-                _log("resume", f"previous run monitored {tstate.get('monitor', 'val_loss')!r}, "
+                warn("resume", f"previous run monitored {tstate.get('monitor', 'val_loss')!r}, "
                      f"this one {monitor!r}: best-checkpoint watermark reset, so the "
                      "existing best/ may be replaced by the first epoch that improves "
                      "on the new metric")
-        _log("resume", f"resuming from epoch {initial_epoch}")
+        info("resume", f"resuming from epoch {initial_epoch}")
 
     total_steps = (epochs - initial_epoch) * steps_per_epoch
     bn_settle = int(3.0 / max(1e-6, 1.0 - BN_MOMENTUM))  # ~300 at 0.99
-    if not resume and total_steps < bn_settle:
-        _log("train", f"only {total_steps} total steps: BatchNorm running statistics "
+    if not resume and not qat and total_steps < bn_settle:  # QAT freezes BN
+        warn("train", f"only {total_steps} total steps: BatchNorm running statistics "
              f"(momentum {BN_MOMENTUM}) need ~{bn_settle} steps to wash out their "
              "init, so val metrics and saved checkpoints under-report the model until "
              "then. Raise --epochs/--steps_per_epoch for real runs.")
@@ -157,18 +166,26 @@ def train_model(
     loss_fn = loss_fn_override if loss_fn_override is not None else make_loss_fn(
         multilabel=multilabel, focal_gamma=focal_gamma,
         label_smoothing=label_smoothing, class_weights=class_weights, device=dev)
-    step_fn = make_train_step(model, tx, loss_fn, frontend_trainable=cfg.frontend_trainable,
-                              kernel_l2=kernel_l2)
+    if qat:
+        from birdnet_stm32_tpu_torch.quant.qat import make_qat_train_step
+
+        step_fn = make_qat_train_step(model, tx, loss_fn, kernel_l2=kernel_l2,
+                                      frontend_trainable=cfg.frontend_trainable,
+                                      act_fq=qat_act)
+    else:
+        step_fn = make_train_step(
+            model, tx, loss_fn, frontend_trainable=cfg.frontend_trainable,
+            kernel_l2=kernel_l2, compute_dtype=torch.bfloat16 if mixed_precision else None)
     eval_fn = make_eval_step(model, loss_fn, activation="sigmoid" if multilabel else "softmax")
 
     gen = generator(seed, dev)
     state = TrainState.create(model, tx)
     if resume and initial_epoch > 0 and not resume_weights_only:
         if ckpt.restore_full_state(run_dir, state, gen) is not None:
-            _log("resume", f"optimizer state restored (step {state.step}: moments and "
+            info("resume", f"optimizer state restored (step {state.step}: moments and "
                  "schedule position continue)")
         else:
-            _log("resume", "no full-state checkpoint; the optimizer restarts fresh")
+            info("resume", "no full-state checkpoint; the optimizer restarts fresh")
 
     if batcher is None:
         def batcher(_generator, wave, labels):
@@ -240,29 +257,29 @@ def train_model(
         ckpt.save_full_state(run_dir, state, gen)
         if on_epoch_end is not None:
             on_epoch_end(epoch, epoch_metrics)
-        _log("train", f"epoch {epoch + 1}/{epochs} loss={train_loss:.4f} "
+        info("train", f"epoch {epoch + 1}/{epochs} loss={train_loss:.4f} "
              f"val_loss={val_loss:.4f} val_auc={auc:.4f}")
 
         if improved:
             best_val = mval
             best_variables = state.variables()
             ckpt.save_checkpoint(run_dir, best_variables, cfg)
-            _log("train", f"new best {monitor}={mval:.4f}, checkpoint saved")
+            ok("train", f"new best {monitor}={mval:.4f}, checkpoint saved")
             saved_any = True
             bad_epochs = 0
         else:
             if not lower_better and not np.isfinite(mval) and not saved_any:
-                _log("train", f"{monitor} is NaN (degenerate validation labels?): "
+                warn("train", f"{monitor} is NaN (degenerate validation labels?): "
                      "no best checkpoint saved yet")
             bad_epochs += 1
             if bad_epochs >= patience:
-                _log("train", f"early stopping after {patience} stale epochs")
+                warn("train", f"early stopping after {patience} stale epochs")
                 break
 
     if not saved_any and not (resume and (run_dir / "best").exists()):
         # A metric that never went finite must not leave the run without
         # best/: save the final epoch's weights and say so.
-        _log("train", f"{monitor} never improved/went finite: saving the FINAL "
+        warn("train", f"{monitor} never improved/went finite: saving the FINAL "
              "epoch's weights as best/ so the run stays usable")
         best_variables = state.variables()
         ckpt.save_checkpoint(run_dir, best_variables, cfg)

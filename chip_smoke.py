@@ -191,9 +191,46 @@ It imports nothing of JAX. In order it:
    (e) prints each evaluate leg's chunks/s and each benchmark mode's
        `=== DONE ===` wall, real-time factor and chunks/s, with the card's
        name and power limit;
-13. prints the `kernels` JSON line (the linear and mel + pwl entries with
-   `train_launches`, the linear entry with `evaluate_launches`), the
-   card's name and power limit, and last the `ok` JSON line.
+13. train-options phase (after the evaluate phase, on the train phase's
+   folder and run directory): the `train` options in this process on CUDA
+   at the flagship's full width, batch 64, reading the WAVs in-process
+   (`--num_workers 0`; the LR finder with the default pool); every run
+   counts its train steps and validation batches, and the linear kernel
+   must launch once per each and nothing else:
+   (a) `train --mixed_precision`, 1 epoch x 8 steps: the masters float32
+       on CUDA, the batcher's features bf16, the stem convolution's input
+       and weight bf16 in training and float32 in validation (a dtype
+       spy), the step losses finite and falling (second half below the
+       first); one bf16 step's loss within MIXED_LOSS_RTOL of the float32
+       step's from the trained run's state on the first int16 batch;
+   (b) `train --qat`, then `--qat --qat_act`, each 2 epochs x 4 steps on
+       the trained run: `<run>_qat` written, every BN tensor equal to the
+       base run's and every kernel moved, finite losses; `serve` of
+       `<run>_qat`; quantize_params (per channel and per tensor) of the
+       run's weights and fake_quantize_act on the card bit-equal to the
+       CPU; one QAT step from the run's weights card vs CPU on the card's
+       features at the train phase's step gates; train_model with QAT and
+       activation fake-quant on librosa + pwl, 2 steps and a validation
+       batch (the features kernel, 3 launches);
+   (c) `train --linear_probe`, 1 epoch x 4 steps: every backbone tensor
+       of `<run>_probe` bit-identical to the run's, the head moved;
+   (d) `train --find_lr` (the 100-step sweep, float32 feed): one batch and
+       one launch per learning rate of the sweep, a finite suggestion
+       inside it;
+   (e) `train --tune 2`, each trial 2 epochs x 4 steps: trial_0, trial_1
+       and best_params.json;
+   (f) run_distillation (the API; there is no CLI option) of a fresh
+       student against the trained run (sigmoid head), 1 epoch x 4 steps
+       on the float32 feed: finite losses, the student's run directory;
+   (g) prints the float32, mixed-precision and QAT (activation fake-quant
+       off and on) adam steps' median ms over 7 CUDA-event timings at
+       batch 64 from the trained run's state, each with its CUDA launches
+       and device-busy ms (torch.profiler), and the card's name and power
+       limit;
+14. prints the `kernels` JSON line (the linear and mel + pwl entries with
+   `train_launches` and `train_options_launches`, the linear entry with
+   `evaluate_launches`), the card's name and power limit, and last
+   the `ok` JSON line.
 
 Any failed check exits non-zero before the `ok` line.
 """
@@ -268,6 +305,21 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_median(torch, fn, n: int = 7, warmup: int = 2) -> float:
+    """Median of n CUDA-event timings of fn() after `warmup` calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[n // 2]
 
 
 def flagship_wave(torch):
@@ -1346,64 +1398,115 @@ def write_train_folder(np, root: Path, class_names: list[str]) -> None:
             save_wav(x, root / name / f"{i}.wav", sr)
 
 
-def train_args(data: Path, run_dir: Path, epochs: int) -> list[str]:
+def loader_args(data: Path, workers: int):
+    """cli/train.py::build_loaders' arguments for the train folder: the
+    flagship's rate and chunk, batch TRAIN_BATCH, the CLI's defaults."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(
+        seed=0, data_path_train=str(data), data_path_val=None, val_split=0.2,
+        top_n_classes=None, max_samples_per_class=None, upsample_ratio=0.5,
+        no_upsample=False, sample_rate=22050, chunk_duration=3.0, max_chunks_per_file=2,
+        snr_threshold=0.1, max_duration=30.0, batch_size=TRAIN_BATCH, num_workers=workers)
+
+
+def train_args(data: Path, run_dir: Path, epochs: int, steps: int = TRAIN_STEPS,
+               workers: str = "4") -> list[str]:
     """The flagship's full width (hybrid, pwl, n_fft 512, 64 mels, 256
     frames, alpha 1.0, embeddings 256, plain DS blocks, no SE) with the
-    defaults otherwise: int16 feed, mixup, SpecAugment, 4 loader workers."""
+    defaults otherwise: int16 feed, mixup, SpecAugment, 4 loader workers
+    (`workers`)."""
     return ["--data_path_train", str(data), "--run_dir", str(run_dir),
             "--sample_rate", "22050", "--chunk_duration", "3.0", "--fft_length", "512",
             "--num_mels", "64", "--spec_width", "256", "--audio_frontend", "hybrid",
             "--mag_scale", "pwl", "--alpha", "1.0", "--embeddings_size", "256",
             "--no_se", "--no_inverted_residual", "--batch_size", str(TRAIN_BATCH),
-            "--epochs", str(epochs), "--steps_per_epoch", str(TRAIN_STEPS), "--seed", "0"]
+            "--epochs", str(epochs), "--steps_per_epoch", str(steps), "--seed", "0",
+            "--num_workers", workers]
+
+
+def counted(seen: dict, key: str, batches):
+    """Yield from `batches`, counting them in seen[key]."""
+    for b in batches:
+        seen[key] = seen.get(key, 0) + 1
+        yield b
 
 
 def run_train(torch, args: list[str], seen: dict) -> None:
     """`python -m birdnet_stm32_tpu_torch train ...` in this process on
-    CUDA (the default device), with train_model wrapped to record where the
-    model's parameters and the batcher's tensors live."""
+    CUDA (the default device), with train_model wrapped to record, over
+    every call (a tuning run makes one per trial): the devices and dtypes
+    of the model's parameters and of the batcher's tensors, the batcher's
+    calls ("steps") and the validation batches ("val"), the stem
+    convolution's input and weight dtypes, each step's loss and each
+    call's history."""
     import contextlib
     import io
 
     from birdnet_stm32_tpu_torch.__main__ import main as port_main
     from birdnet_stm32_tpu_torch.training import trainer
 
-    real = trainer.train_model
+    real, real_step = trainer.train_model, trainer.make_train_step
 
     def spy(model, cfg, train_batches, val_batches, run_dir, batcher=None, **kw):
         def spy_batcher(gen, wave, labels):
             x, y = batcher(gen, wave, labels)
             seen.setdefault("batch", set()).update(
                 (t.device.type, str(t.dtype)) for t in (wave, x, y))
+            seen["steps"] = seen.get("steps", 0) + 1
             return x, y
 
-        out = real(model, cfg, train_batches, val_batches, run_dir, batcher=spy_batcher, **kw)
+        hook = model.stem_conv.register_forward_pre_hook(
+            lambda m, a: seen.setdefault("stem", set()).add((str(a[0].dtype), str(m.weight.dtype))))
+        try:
+            out = real(model, cfg, train_batches, lambda: counted(seen, "val", val_batches()),
+                       run_dir, batcher=spy_batcher, **kw)
+        finally:
+            hook.remove()
         seen["params"] = {p.device.type for p in model.parameters()}
+        seen["param_dtypes"] = {str(p.dtype) for p in model.parameters()}
+        seen.setdefault("histories", []).append(out[1])
         return out
 
-    trainer.train_model = spy
+    def spy_step(*a, **k):
+        step = real_step(*a, **k)
+
+        def step_and_record(state, x, y):
+            state, metrics = step(state, x, y)
+            seen.setdefault("step_losses", []).append(metrics["loss"])
+            return state, metrics
+
+        return step_and_record
+
+    trainer.train_model, trainer.make_train_step = spy, spy_step
     out = io.StringIO()
     try:
         with contextlib.redirect_stdout(out):
             rc = port_main(["train", *args])
     finally:
-        trainer.train_model = real
+        trainer.train_model, trainer.make_train_step = real, real_step
     if rc != 0:
         fail(f"train {args} exited {rc}:\n{out.getvalue()}")
+    seen["stdout"] = out.getvalue()
 
 
-def train_step_check(torch, cfg, wave, labels) -> None:
+def train_step_check(torch, cfg, wave, labels, qat: bool = False,
+                     state_dict: dict | None = None) -> None:
     """One train step from the same state and int16 batch (STEP_ROWS rows),
     the card against the port's CPU path: dropout 0, no augmentation, SGD,
-    the L2 term on."""
+    the L2 term on. qat=True takes the QAT step (quant/qat.py) from
+    `state_dict` (a trained run's weights: its BN statistics are what the
+    frozen BN runs on)."""
     import copy
 
     from birdnet_stm32_tpu_torch.data.pipeline import make_train_batcher
     from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn, init_model
     from birdnet_stm32_tpu_torch.parallel.steps import TrainState, make_train_step
+    from birdnet_stm32_tpu_torch.quant.qat import make_qat_train_step
     from birdnet_stm32_tpu_torch.training.losses import make_loss_fn
     from birdnet_stm32_tpu_torch.training.optimizer import build_optimizer
 
+    make_step = make_qat_train_step if qat else make_train_step
     wave, labels = wave[:STEP_ROWS], labels[:STEP_ROWS]
     batcher = make_train_batcher(cfg, spec_augment=False, mixup_probability=0.0,
                                  input_dtype="int16")
@@ -1413,6 +1516,8 @@ def train_step_check(torch, cfg, wave, labels) -> None:
     xg, yg = batcher(None, torch.as_tensor(wave).cuda(), torch.as_tensor(labels).cuda())
     xc, _ = batcher(None, torch.as_tensor(wave), torch.as_tensor(labels))
     gpu = init_model(build_dscnn(cfg, class_activation="none", device="cuda"), seed=3)
+    if state_dict is not None:
+        gpu.load_state_dict(state_dict, strict=True)
     res = {}
     for dev, model in (("cuda", gpu), ("cpu", copy.deepcopy(gpu).to("cpu"))):
         for m in model.modules():
@@ -1420,7 +1525,7 @@ def train_step_check(torch, cfg, wave, labels) -> None:
                 m.p = 0.0
         before = {k: v.detach().clone() for k, v in model.state_dict().items()}
         tx = build_optimizer("sgd", 1e-2, gradient_clip_norm=1.0)
-        step = make_train_step(model, tx, make_loss_fn(multilabel=True))
+        step = make_step(model, tx, make_loss_fn(multilabel=True))
         _, metrics = step(TrainState.create(model, tx), xg.to(dev), yg.to(dev))
         after = model.state_dict()
         res[dev] = ({k: float(v) for k, v in metrics.items()},
@@ -1441,22 +1546,25 @@ def train_step_check(torch, cfg, wave, labels) -> None:
         "bn_stats_rel": max(float((sg[k] - sc[k]).abs().max() / sc[k].abs().max().clamp_min(1e-30))
                             for k in sc),
     }
-    print(json.dumps({"train_step_card_vs_cpu": got, "rows": STEP_ROWS,
+    label = "qat_step_card_vs_cpu" if qat else "train_step_card_vs_cpu"
+    print(json.dumps({label: got, "rows": STEP_ROWS,
                       "worst_tensors": {k: per_tensor[k] for k in worst}}))
     gates = {"features_max_abs": KERNEL_TOL["linear"], "loss_rel": STEP_LOSS_RTOL,
              "grad_norm_rel": STEP_GRAD_NORM_RTOL, "tensor_update_rel": STEP_TENSOR_UPDATE_RTOL,
              "update_rel": STEP_UPDATE_RTOL, "bn_stats_rel": STEP_STATS_RTOL}
     for k, tol in gates.items():
         if not got[k] <= tol:
-            fail(f"train step card vs CPU: {k} {got[k]:.3e} > {tol:.0e}")
+            fail(f"{label}: {k} {got[k]:.3e} > {tol:.0e}")
 
 
-def features_train_check(torch, np, flagship, wave, labels, tmp: Path) -> int:
+def features_train_check(torch, np, flagship, wave, labels, tmp: Path,
+                         key: str = "train_librosa_pwl", **train_kw) -> int:
     """train_model (the API under `train`) on the librosa + pwl config at
     full width, whose features come from the features kernel: two train
     steps on one int16 loader batch with SpecAugment and mixup, and one
-    validation batch. The kernel launches once per step and per validation
-    batch, and nothing else launches; returns its launches."""
+    validation batch; train_kw picks the step (qat=, qat_act=). The kernel
+    launches once per step and per validation batch, and nothing else
+    launches; returns its launches."""
     from birdnet_stm32_tpu_torch.data.pipeline import make_train_batcher
     from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn, init_model
     from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
@@ -1468,15 +1576,14 @@ def features_train_check(torch, np, flagship, wave, labels, tmp: Path) -> int:
     name = frontend_kernel.kernel_name("mel", "pwl")
     frontend_kernel.launches.clear()
     _, history = train_model(
-        model, cfg, iter([(wave, labels)] * 2), lambda: [(deq, labels)], tmp / "librosa",
+        model, cfg, iter([(wave, labels)] * 2), lambda: [(deq, labels)], tmp / key,
         epochs=1, steps_per_epoch=2, batcher=make_train_batcher(cfg, input_dtype="int16"),
-        multilabel=True, device="cuda")
+        multilabel=True, device="cuda", **train_kw)
     counts = dict(frontend_kernel.launches)
     if counts != {name: 3} or not np.isfinite(history[0]["loss"]):
-        fail(f"librosa + pwl training: launches {counts} (want {{{name!r}: 3}}), "
+        fail(f"librosa + pwl training ({key}): launches {counts} (want {{{name!r}: 3}}), "
              f"history {history}")
-    print(json.dumps({"train_librosa_pwl": {"launches": counts[name],
-                                            "loss": history[0]["loss"]}}))
+    print(json.dumps({key: {"launches": counts[name], "loss": history[0]["loss"]}}))
     return counts[name]
 
 
@@ -1500,22 +1607,8 @@ def train_timing(torch, cfg, wave, labels) -> dict:
     state = TrainState.create(model, tx)
     gen = generator(0, "cuda")
     x, y = batcher(gen, wave, labels)
-
-    def median_ms(fn, n=7, warmup=2):
-        for _ in range(warmup):
-            fn()
-        times = []
-        for _ in range(n):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return sorted(times)[n // 2]
-
-    batcher_ms = median_ms(lambda: batcher(gen, wave, labels))
-    step_ms = median_ms(lambda: step(state, x, y))
+    batcher_ms = cuda_ms_median(torch, lambda: batcher(gen, wave, labels))
+    step_ms = cuda_ms_median(torch, lambda: step(state, x, y))
     activity = {"batcher": device_activity(torch, lambda: batcher(gen, wave, labels)),
                 "train_step": device_activity(torch, lambda: step(state, x, y))}
     return {"batch": int(wave.shape[0]), "batcher_ms": round(batcher_ms, 4),
@@ -1523,15 +1616,15 @@ def train_timing(torch, cfg, wave, labels) -> dict:
             "device_chunks_per_s": round(wave.shape[0] * 1000.0 / (batcher_ms + step_ms), 1)}
 
 
-def train_phase(torch, np, flagship, tmp: Path) -> dict:
+def train_phase(torch, np, flagship, tmp: Path) -> tuple[dict, tuple]:
     """The port's `train` entry point at the flagship's full width on a
     seeded WAV folder (tmp/data, the run in tmp/run, both kept for the
-    evaluate phase): two epochs of TRAIN_STEPS, then --resume for a third;
-    the run directory, losses and launches; one step card vs CPU; the
-    trained run served by `serve`; step and batcher times. Returns the
-    linear kernel's launches by run."""
+    evaluate and train-options phases): two epochs of TRAIN_STEPS, then
+    --resume for a third; the run directory, losses and launches; one step
+    card vs CPU; the trained run served by `serve`; step and batcher times.
+    Returns the linear kernel's launches by run and the first int16 batch
+    (FIFO) the checks used."""
     import csv
-    from types import SimpleNamespace
 
     from birdnet_stm32_tpu_torch.cli.train import build_loaders
     from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
@@ -1542,12 +1635,8 @@ def train_phase(torch, np, flagship, tmp: Path) -> dict:
     t0 = time.perf_counter()
     write_train_folder(np, data, flagship.class_names)
     write_s = time.perf_counter() - t0
-    loader_args = SimpleNamespace(
-        seed=0, data_path_train=str(data), data_path_val=None, val_split=0.2,
-        top_n_classes=None, max_samples_per_class=None, upsample_ratio=0.5,
-        no_upsample=False, sample_rate=22050, chunk_duration=3.0, max_chunks_per_file=2,
-        snr_threshold=0.1, max_duration=30.0, batch_size=TRAIN_BATCH, num_workers=4)
-    train_loader, val_loader, class_names, _ = build_loaders(loader_args, ship="int16")
+    train_loader, val_loader, class_names, _ = build_loaders(loader_args(data, 4),
+                                                             ship="int16")
     if class_names != sorted(flagship.class_names):
         fail("train folder: the classes found are not the flagship's")
     val_batches = -(-len(val_loader.paths) // TRAIN_BATCH)
@@ -1631,7 +1720,7 @@ def train_phase(torch, np, flagship, tmp: Path) -> dict:
     train_step_check(torch, flagship, wave, labels)
     timing = train_timing(torch, flagship, wave, labels)
     print(json.dumps({"train_timing": timing, "card": card()}))
-    return launches
+    return launches, (wave, labels)
 
 
 # The evaluate phase's subset of the train phase's folder: the first file
@@ -1879,6 +1968,318 @@ def evaluate_phase(torch, np, flagship, tmp: Path) -> dict:
     return launches
 
 
+# The train-options phase: the QAT, probe, tuning and distillation runs
+# train OPT_STEPS steps per epoch, and read their WAVs in-process
+# (OPT_WORKERS: the train phase holds the spawn pool; a pool's start-up
+# would be most of these short runs), the LR finder's 100-step sweep with
+# the default pool. The mixed-precision step's loss against the float32
+# step's from the trained run's state on one batch: a bf16 forward rounds
+# every activation to 8 bits of mantissa. Readings on an H100 80GB HBM3 at
+# 700 W, three runs: 9.7e-5 to 3.9e-4 relative; the gate stands 13-50x
+# above them. The QAT step card vs CPU keeps the train phase's gates
+# (readings: loss 6.3e-8, gradient norm <= 9.5e-6, worst tensor <= 1.4e-3,
+# whole update <= 5.0e-4).
+OPT_STEPS = 4
+OPT_WORKERS = "0"
+MIXED_LOSS_RTOL = 5e-3
+TUNE_TRIALS = 2
+
+
+def check_launches(name: str, seen: dict, steps: int) -> int:
+    """The linear kernel launched once per train step and per validation
+    batch and nothing else launched; returns its launches."""
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+
+    linear = frontend_kernel.kernel_name("linear", "none")
+    counts = dict(frontend_kernel.launches)
+    want = seen.get("steps", 0) + seen.get("val", 0)
+    if seen.get("steps") != steps or counts != {linear: want}:
+        fail(f"{name}: {seen.get('steps')} steps (want {steps}), {seen.get('val')} validation "
+             f"batches, launches {counts} (want {{{linear!r}: {want}}})")
+    return want
+
+
+def best_weights(run: Path) -> dict:
+    """A run directory's best/ state_dict, on the CPU."""
+    import torch
+
+    return torch.load(run / "best/state_dict.pt", map_location="cpu", weights_only=True)
+
+
+def mixed_precision_checks(torch, np, tmp: Path, wave, labels) -> int:
+    """(a): `train --mixed_precision`, 1 epoch of TRAIN_STEPS, and one
+    mixed step's loss against the float32 step's from the same state."""
+    import copy
+
+    from birdnet_stm32_tpu_torch.data.pipeline import make_train_batcher
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from birdnet_stm32_tpu_torch.parallel.steps import TrainState, make_train_step
+    from birdnet_stm32_tpu_torch.training.checkpoint import load_checkpoint
+    from birdnet_stm32_tpu_torch.training.losses import make_loss_fn
+    from birdnet_stm32_tpu_torch.training.optimizer import build_optimizer
+
+    seen = {}
+    frontend_kernel.launches.clear()
+    run_train(torch, train_args(tmp / "data", tmp / "run_mixed", 1, workers=OPT_WORKERS)
+              + ["--mixed_precision"], seen)
+    n = check_launches("train --mixed_precision", seen, TRAIN_STEPS)
+    f32, b16 = "torch.float32", "torch.bfloat16"
+    losses = [float(v) for v in seen["step_losses"]]
+    if seen["params"] != {"cuda"} or seen["param_dtypes"] != {f32}:
+        fail(f"mixed precision: masters {seen['params']} {seen['param_dtypes']}")
+    if ("cuda", b16) not in seen["batch"] or seen["stem"] != {(b16, b16), (f32, f32)}:
+        fail(f"mixed precision: batches {seen['batch']}, stem conv (input, weight) "
+             f"{seen['stem']} (want bf16 in training, float32 in validation)")
+    half = len(losses) // 2
+    if not (np.isfinite(losses).all() and np.mean(losses[half:]) < np.mean(losses[:half])):
+        fail(f"mixed precision: step losses {losses} are not finite and falling")
+    # One step from the trained run's state, mixed against float32.
+    model, _, cfg = load_checkpoint(tmp / "run", class_activation="none", device="cuda")
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Dropout, torch.nn.Dropout2d)):
+            m.p = 0.0
+    batcher = make_train_batcher(cfg, spec_augment=False, mixup_probability=0.0,
+                                 input_dtype="int16")
+    x, y = batcher(None, torch.as_tensor(wave).cuda(), torch.as_tensor(labels).cuda())
+    step_loss = {}
+    for dt in (None, torch.bfloat16):
+        m = copy.deepcopy(model)
+        tx = build_optimizer("adam", 1e-3, gradient_clip_norm=1.0)
+        _, metrics = make_train_step(m, tx, make_loss_fn(multilabel=True), compute_dtype=dt)(
+            TrainState.create(m, tx), x if dt is None else x.to(dt), y)
+        step_loss[str(dt)] = float(metrics["loss"])
+    rel = abs(step_loss[str(torch.bfloat16)] - step_loss["None"]) / step_loss["None"]
+    print(json.dumps({"mixed_precision": {"launches": n, "step_losses": losses,
+                                          "step_loss_bf16_vs_fp32_rel": rel,
+                                          "step_loss": step_loss}}))
+    if not rel <= MIXED_LOSS_RTOL:
+        fail(f"mixed precision: the bf16 step's loss is {rel:.3e} from the float32 "
+             f"step's (> {MIXED_LOSS_RTOL:.0e})")
+    return n
+
+
+def qat_checks(torch, np, tmp: Path, wave, labels) -> dict:
+    """(b): `train --qat`, then `--qat --qat_act`, each 2 epochs of
+    OPT_STEPS on the trained run; `serve` of <run>_qat; fake-quant card vs
+    CPU; one QAT step card vs CPU."""
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from birdnet_stm32_tpu_torch.quant.fake_quant import fake_quantize_act, quantize_params
+
+    launches = {}
+    base, qat = best_weights(tmp / "run"), tmp / "run_qat"
+    for name, extra in (("qat", ["--qat"]), ("qat_act", ["--qat", "--qat_act"])):
+        seen = {}
+        frontend_kernel.launches.clear()
+        run_train(torch, train_args(tmp / "data", tmp / "run", 2, OPT_STEPS, OPT_WORKERS) + extra,
+                  seen)
+        launches[name] = check_launches(f"train {' '.join(extra)}", seen, 2 * OPT_STEPS)
+        tuned = best_weights(qat)
+        bn = [k for k in base if "_bn." in k]
+        if not all(torch.equal(tuned[k], base[k]) for k in bn):
+            fail(f"{name}: a BN tensor moved")
+        kernels = [k for k in base if k.endswith(".weight") and base[k].ndim >= 2]
+        still = [k for k in kernels if torch.equal(tuned[k], base[k])]
+        if still:
+            fail(f"{name}: kernels did not move: {still[:5]}")
+        losses = [h["loss"] for hs in seen["histories"] for h in hs]
+        if not np.isfinite(losses).all() or seen["param_dtypes"] != {"torch.float32"}:
+            fail(f"{name}: losses {losses}, parameters {seen['param_dtypes']}")
+        print(json.dumps({name: {"launches": launches[name], "epoch_losses": losses,
+                                 "bn_tensors_equal": len(bn), "kernels_moved": len(kernels)}}))
+    frontend_kernel.launches.clear()
+    run_verb("serve", ["--model_path", str(qat), "--audio_dir", str(tmp / "serve"), "--once",
+                       "--results_file", str(tmp / "served_qat.tsv")])
+    launches["qat_serve"] = sum(frontend_kernel.launches.values())
+    if set(frontend_kernel.launches) != {frontend_kernel.kernel_name("linear", "none")}:
+        fail(f"serve of the QAT run: launches {dict(frontend_kernel.launches)}")
+    served = tsv_rows(np, tmp / "served_qat.tsv")
+    if len(served) != 2 or not all(v.shape == (100,) and np.isfinite(v).all()
+                                   for _, v in served.values()):
+        fail(f"serve of the QAT run: {served}")
+    # Fake-quant on the card, bit for bit the CPU's.
+    gpu = {k: v.cuda() for k, v in base.items()}
+    mismatches = 0
+    for per_channel in (True, False):
+        qc, qg = (quantize_params(t, per_channel=per_channel, ste=False) for t in (base, gpu))
+        mismatches += sum(not torch.equal(qg[k].cpu(), qc[k]) for k in qc)
+    x = torch.as_tensor(wave[:8, :-1].astype(np.float32) / 32767.0)
+    for t in (x, x.abs() * 6.0):
+        mismatches += not torch.equal(fake_quantize_act(t.cuda()).cpu(), fake_quantize_act(t))
+    print(json.dumps({"fake_quant_card_vs_cpu_mismatched_tensors": mismatches,
+                      "quantizable_tensors": sum(k.endswith(".weight") and v.ndim >= 2
+                                                 for k, v in base.items())}))
+    if mismatches:
+        fail(f"fake-quant: {mismatches} tensors differ between the card and the CPU")
+    train_step_check(torch, tmp_cfg(tmp), wave, labels, qat=True, state_dict=base)
+    # The features kernel under the QAT step with activation fake-quant.
+    launches["qat_librosa_pwl"] = features_train_check(
+        torch, np, tmp_cfg(tmp), wave, labels, tmp, key="qat_librosa_pwl", qat=True,
+        qat_act=True)
+    return launches
+
+
+def tmp_cfg(tmp: Path):
+    from birdnet_stm32_tpu_torch.config import ModelConfig
+
+    return ModelConfig.load(tmp / "run" / "model_config.json")
+
+
+def probe_and_lr_checks(torch, np, tmp: Path) -> dict:
+    """(c) `--linear_probe` (1 epoch of OPT_STEPS) and (d) `--find_lr`
+    (the default 100-step sweep), each with its batches counted."""
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from birdnet_stm32_tpu_torch.training import linear_probe, lr_finder
+
+    launches, seen = {}, {}
+    real_probe, real_lr = linear_probe.run_linear_probe, lr_finder.run_lr_finder
+
+    def probe(sd, cfg, classes, train_batches, val_batches, run_dir, **kw):
+        return real_probe(sd, cfg, classes, counted(seen, "steps", train_batches),
+                          lambda: counted(seen, "val", val_batches()), run_dir, **kw)
+
+    def sweep(model, batches, loss_fn, **kw):
+        seen["sweep"] = real_lr(model, counted(seen, "steps", batches), loss_fn, **kw)
+        return seen["sweep"]
+
+    linear_probe.run_linear_probe, lr_finder.run_lr_finder = probe, sweep
+    try:
+        frontend_kernel.launches.clear()
+        run_verb("train", [*train_args(tmp / "data", tmp / "run", 1, OPT_STEPS, OPT_WORKERS),
+                           "--linear_probe"])
+        launches["probe"] = check_launches("train --linear_probe", seen, OPT_STEPS)
+        base, probed = best_weights(tmp / "run"), best_weights(tmp / "run_probe")
+        moved = [k for k in base if not k.startswith("pred.") and not torch.equal(
+            base[k].reshape(-1).view(torch.uint8), probed[k].reshape(-1).view(torch.uint8))]
+        if moved or torch.equal(base["pred.weight"], probed["pred.weight"]):
+            fail(f"linear probe: backbone tensors moved {moved[:5]}, or the head did not")
+        seen.clear()
+        frontend_kernel.launches.clear()
+        out = run_verb("train", [*train_args(tmp / "data", tmp / "run_lr", 1), "--find_lr"])
+    finally:
+        linear_probe.run_linear_probe, lr_finder.run_lr_finder = real_probe, real_lr
+    sweep_out = seen["sweep"]
+    lr, lrs = sweep_out["suggested_lr"], sweep_out["lrs"]
+    # One batch and one launch per learning rate of the sweep.
+    launches["find_lr"] = check_launches("train --find_lr", dict(seen, val=0), len(lrs))
+    print(json.dumps({"linear_probe": {"launches": launches["probe"],
+                                       "backbone_tensors": len(base) - 2},
+                      "find_lr": {"launches": launches["find_lr"], "steps": len(lrs),
+                                  "suggested_lr": lr, "printed": out.strip().splitlines()[-1]}}))
+    if not (np.isfinite(lr) and min(lrs) <= lr <= max(lrs)):
+        fail(f"find_lr: suggestion {lr} outside the sweep {min(lrs)}..{max(lrs)}")
+    return launches
+
+
+def tune_and_distill_checks(torch, np, tmp: Path) -> dict:
+    """(e) `--tune 2`: two trials of 2 epochs x OPT_STEPS; (f)
+    run_distillation with the trained run as the teacher, 1 epoch x
+    OPT_STEPS on the float32 feed."""
+    from birdnet_stm32_tpu_torch.cli.train import build_loaders
+    from birdnet_stm32_tpu_torch.device import full_fp32
+    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn, init_model
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from birdnet_stm32_tpu_torch.training.checkpoint import load_checkpoint
+    from birdnet_stm32_tpu_torch.training.distillation import run_distillation
+
+    launches, seen = {}, {}
+    frontend_kernel.launches.clear()
+    run_train(torch, train_args(tmp / "data", tmp / "tune", 2, OPT_STEPS, OPT_WORKERS)
+              + ["--tune", str(TUNE_TRIALS)], seen)
+    launches["tune"] = check_launches("train --tune", seen, TUNE_TRIALS * 2 * OPT_STEPS)
+    best = json.loads((tmp / "tune/best_params.json").read_text())
+    trials = [json.loads((tmp / f"tune/trial_{i}/model_config.json").read_text())
+              for i in range(TUNE_TRIALS)]
+    if best["trial"] not in range(TUNE_TRIALS) or len(seen["histories"]) != TUNE_TRIALS:
+        fail(f"tune: best_params {best}, {len(seen['histories'])} trials")
+    print(json.dumps({"tune": {"launches": launches["tune"], "best": best,
+                               "trial_blocks": [{k: c[k] for k in (
+                                   "alpha", "depth_multiplier", "use_se",
+                                   "use_inverted_residual", "use_attention_pooling")}
+                                   for c in trials]}}))
+
+    teacher, _, cfg = load_checkpoint(tmp / "run", device="cuda")
+
+    def teacher_fn(x):
+        with full_fp32():
+            return teacher(x)
+
+    student = init_model(build_dscnn(cfg, class_activation="none", device="cuda"), seed=7)
+    train_loader, val_loader, _, _ = build_loaders(loader_args(tmp / "data", int(OPT_WORKERS)))
+    seen = {}
+    batches = iter(train_loader)
+    frontend_kernel.launches.clear()
+    try:
+        _, history = run_distillation(
+            student, cfg, teacher_fn, counted(seen, "steps", batches),
+            lambda: counted(seen, "val", iter(val_loader)), tmp / "distill",
+            epochs=1, steps_per_epoch=OPT_STEPS, multilabel=True, device="cuda")
+    finally:
+        batches.close()
+    launches["distill"] = check_launches("run_distillation", seen, OPT_STEPS)
+    print(json.dumps({"distillation": {"launches": launches["distill"], "history": history}}))
+    if not (np.isfinite(history[0]["loss"]) and np.isfinite(history[0]["val_loss"])
+            and (tmp / "distill/best/state_dict.pt").exists()):
+        fail(f"distillation: history {history}")
+    return launches
+
+
+def options_timing(torch, tmp: Path, wave, labels) -> dict:
+    """(g): the float32, mixed-precision and QAT (activation fake-quant off
+    and on) adam steps on one batch of TRAIN_BATCH from the trained run's
+    state, each the median of seven CUDA-event timings after two warm-up
+    calls, with the CUDA launches and device-busy ms of one call."""
+    import copy
+
+    from birdnet_stm32_tpu_torch.data.pipeline import make_train_batcher
+    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn
+    from birdnet_stm32_tpu_torch.parallel.steps import TrainState, make_train_step
+    from birdnet_stm32_tpu_torch.quant.qat import make_qat_train_step
+    from birdnet_stm32_tpu_torch.training.losses import make_loss_fn
+    from birdnet_stm32_tpu_torch.training.optimizer import build_optimizer
+    from birdnet_stm32_tpu_torch.utils.prng import generator
+
+    cfg = tmp_cfg(tmp)
+    model = build_dscnn(cfg, class_activation="none", device="cuda")
+    model.load_state_dict(best_weights(tmp / "run"))
+    wave, labels = torch.as_tensor(wave).cuda(), torch.as_tensor(labels).cuda()
+    x, y = make_train_batcher(cfg, input_dtype="int16")(generator(0, "cuda"), wave, labels)
+    steps = {
+        "fp32": (lambda m, tx, lf: make_train_step(m, tx, lf), x),
+        "mixed_bf16": (lambda m, tx, lf: make_train_step(m, tx, lf,
+                                                        compute_dtype=torch.bfloat16),
+                       x.to(torch.bfloat16)),
+        "qat": (lambda m, tx, lf: make_qat_train_step(m, tx, lf), x),
+        "qat_act": (lambda m, tx, lf: make_qat_train_step(m, tx, lf, act_fq=True), x),
+    }
+    out = {}
+    for name, (make, xx) in steps.items():
+        m = copy.deepcopy(model)
+        tx = build_optimizer("adam", 1e-3, gradient_clip_norm=1.0)
+        step = make(m, tx, make_loss_fn(multilabel=True))
+        st = TrainState.create(m, tx)
+        out[name] = {"ms": round(cuda_ms_median(torch, lambda: step(st, xx, y)), 4),
+                     **device_activity(torch, lambda: step(st, xx, y))}
+    return out
+
+
+def train_options_phase(torch, np, tmp: Path, wave, labels) -> dict:
+    """The `train` options at the flagship's full width on the train
+    phase's folder and run (tmp/data, tmp/run), (a)-(g) of the module
+    docstring; returns the linear kernel's launches by run."""
+    seconds, launches = {}, {}
+    for name, fn, args in (("mixed", mixed_precision_checks, (wave, labels)),
+                           ("qat", qat_checks, (wave, labels)),
+                           ("probe_find_lr", probe_and_lr_checks, ()),
+                           ("tune_distill", tune_and_distill_checks, ())):
+        t0 = time.perf_counter()
+        out = fn(torch, np, tmp, *args)
+        launches.update(out if isinstance(out, dict) else {name: out})
+        seconds[name] = round(time.perf_counter() - t0, 3)
+    print(json.dumps({"train_options_timing": options_timing(torch, tmp, wave, labels),
+                      "batch": TRAIN_BATCH, "card": card(), "seconds": seconds}))
+    return launches
+
+
 def main() -> None:
     import tempfile
 
@@ -1918,8 +2319,10 @@ def main() -> None:
     timed("prepass", prepass_phase, torch, np)
     serve_launches = timed("serve", serve_phase, torch, np)
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches = timed("train", train_phase, torch, np, flagship, Path(tmp))
+        train_launches, batch = timed("train", train_phase, torch, np, flagship, Path(tmp))
         evaluate_launches = timed("evaluate", evaluate_phase, torch, np, flagship, Path(tmp))
+        options_launches = timed("train_options", train_options_phase, torch, np, Path(tmp),
+                                 *batch)
     tile_entries = timed("tile", tile_phase, torch, np, quant, entries)
     bench_launches = timed("bench", bench_phase, torch)
     print(json.dumps({"phase_seconds": seconds}))
@@ -1944,10 +2347,16 @@ def main() -> None:
             if entry["name"] == (mel_pwl if path == "librosa_pwl" else linear):
                 entry["launches"] += n
                 entry.setdefault("train_launches", {})[path] = n
-        # The evaluate, benchmark and board-test runs (linear kernel).
+        # The evaluate, benchmark and board-test runs (linear kernel), and
+        # the train options (the QAT run on librosa + pwl on the features
+        # kernel, every other run on the linear kernel).
         if entry["name"] == linear:
             entry["launches"] += sum(evaluate_launches.values())
             entry["evaluate_launches"] = evaluate_launches
+        for path, n in options_launches.items():
+            if entry["name"] == (mel_pwl if path.endswith("librosa_pwl") else linear):
+                entry["launches"] += n
+                entry.setdefault("train_options_launches", {})[path] = n
     for entry in tile_entries:
         entry["launches"] = bench_launches.get(entry["name"], 0)
     entries += tile_entries

@@ -196,3 +196,35 @@ def test_bf16_embedder_matches_jax():
     assert got.dtype == np.float32 and got.shape == ref.shape
     assert _row_cosines(got, ref).min() >= MIN_COSINE
     assert _row_cosines(got, f32).min() >= MIN_COSINE
+
+
+def test_bf16_learn_mel_scale_follows_jax_dtypes():
+    """The hybrid frontend with learn_mel_scale in bf16, against JAX's bf16
+    make_infer_fn (variables cast to bf16), with nonzero segment logits:
+    as JAX's jaxpr shows, the segment arithmetic runs in bf16, the mixer
+    is float32 and the network computes in float32 from the mixer product
+    on, on bf16-rounded parameters. Logits (no head) at cosine >= 0.999
+    (the bf16 flagship's gate; a network kept in bf16 reads 0.998 here)
+    and the float32 flow from the mixer on."""
+    from birdnet_stm32_tpu.parallel.steps import make_infer_fn
+    from tests.torch_train_fixtures import TINY
+
+    jcfg, cfg = JaxModelConfig(**TINY), ModelConfig(**TINY)
+    jmodel = j_build_dscnn(jcfg, class_activation="none", learn_mel_scale=True)
+    from birdnet_stm32_tpu.models.dscnn import init_model as j_init_model
+
+    v = jax.device_get(j_init_model(jmodel, jcfg, jax.random.key(0)))
+    rng = np.random.default_rng(0)
+    v["params"]["audio_frontend"]["mel_seg_logits"] = rng.normal(0, 1.0, 17).astype(np.float32)
+    x = rng.random((4, *cfg.input_shape())).astype(np.float32)
+    v16 = jax.tree_util.tree_map(lambda a: jnp.asarray(a).astype(jnp.bfloat16), v)
+    ref = np.asarray(make_infer_fn(jmodel, v16, dtype=jnp.bfloat16)(jnp.asarray(x)))
+    model = build_dscnn(cfg, class_activation="none", learn_mel_scale=True, device="cpu")
+    model.load_state_dict(flax_to_state_dict(v), strict=True)
+    r16 = TorchRunner(model, cfg, device="cpu", dtype=BF16)
+    got = r16.predict(x)
+    assert _row_cosines(got, ref).min() >= MIN_COSINE
+    fe = r16.model.audio_frontend
+    assert fe.mixer().dtype == torch.float32
+    feats = fe(torch.from_numpy(x).to(BF16))
+    assert feats.dtype == torch.float32

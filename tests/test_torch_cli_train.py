@@ -6,9 +6,9 @@ seeded folder of mono PCM16 WAVs at the model rate writes a run directory
 history.csv); `serve` on that directory writes a TSV with the head
 train_state.json records (sigmoid: mixup makes the run multilabel). The
 arguments and defaults, build_loaders' file split and
-balanced_class_weights equal the JAX package's; the options not ported yet
-exit 2; without --device the verb asks for CUDA and raises where there is
-none.
+balanced_class_weights equal the JAX package's; the mode options parse as
+the JAX package's; without --device the verb asks for CUDA and raises where
+there is none.
 """
 
 import json
@@ -103,10 +103,21 @@ def test_loaders_and_class_weights_match_jax(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--qat"], ["--qat_act"], ["--linear_probe"], ["--find_lr"],
                                   ["--tune"], ["--tune", "3"], ["--mixed_precision"]])
-def test_unported_options_exit_2(flag, tmp_path, capsys):
-    assert main(["train", "--data_path_train", str(tmp_path), *flag]) == 2
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP" in err
+def test_unported_options_exit_2(flag, tmp_path):
+    """Each mode option parses to the JAX package's values, and --qat_act
+    without --qat stops with JAX's message (each branch runs in
+    tests/test_torch_cli_train_options.py)."""
+    argv = ["--data_path_train", str(tmp_path), *flag]
+    got, ref = vars(PT.get_args(argv)), vars(JT.get_args(argv))
+    assert got.pop("device") == "cuda"
+    assert got == ref
+    if flag == ["--qat_act"]:
+        with pytest.raises(SystemExit) as port_exit:
+            main(["train", *argv, "--device", "cpu"])
+        with pytest.raises(SystemExit) as jax_exit:
+            JT.main(argv)
+        assert str(port_exit.value) == str(jax_exit.value) and "requires --qat" in str(
+            port_exit.value)
 
 
 def test_default_device_is_cuda(tmp_path):

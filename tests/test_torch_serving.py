@@ -214,6 +214,16 @@ def test_port_sources_cover_the_train_slice():
         assert f"birdnet_stm32_tpu_torch/{module}" in scanned
 
 
+def test_port_sources_cover_the_train_options_slice():
+    """The scan reaches every module of the train options (mixed precision,
+    QAT, linear probe, LR finder, tuner) and distillation."""
+    scanned = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for module in ("quant/fake_quant.py", "quant/qat.py", "training/linear_probe.py",
+                   "training/lr_finder.py", "training/tuner.py", "training/distillation.py",
+                   "utils/logging.py", "models/blocks.py"):
+        assert f"birdnet_stm32_tpu_torch/{module}" in scanned
+
+
 def test_port_sources_cover_the_evaluate_slice():
     """The scan reaches every module of the evaluate, benchmark, board-test
     and profile verbs."""

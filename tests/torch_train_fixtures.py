@@ -16,6 +16,7 @@ import functools
 
 import jax
 import numpy as np
+import pytest
 import torch
 from flax import linen as fnn
 
@@ -33,6 +34,18 @@ TINY = dict(sample_rate=4000, num_mels=16, spec_width=32, fft_length=128,
             chunk_duration=1.0, embeddings_size=32, num_classes=3,
             class_names=["a", "b", "c"], audio_frontend="hybrid", mag_scale="pwl",
             alpha=0.25, use_se=False, use_inverted_residual=False, dropout_rate=0.0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One torch CPU thread for a module's tests (autouse where imported).
+    The tiny models' steps are thousands of small ops; under tier-1's six
+    workers on the host's cores, torch's intra-op threads only wait on each
+    other. The previous count is restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _dropout_identity(next_fun, args, kwargs, context):
