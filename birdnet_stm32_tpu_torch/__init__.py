@@ -5,9 +5,14 @@ its module paths and names so each counterpart is easy to find, and returns
 the same results on the same inputs (tests/test_torch_*.py hold it to that).
 It imports torch and numpy, never jax, flax or the JAX package.
 
-Ported so far: the float32 serving path — fused waveform -> |STFT| frontend
-(a hand-written CUDA kernel for Hopper, ops/csrc/frontend_kernel.cu) and
-the DS-CNN classifier — behind models/serving.py::make_fused_classifier.
+Ported: every verb of the JAX package (serve, train, evaluate, benchmark,
+board-test, profile, convert, deploy) and the modules behind them. The
+fused waveform -> |STFT| frontend runs as hand-written CUDA kernels for
+Hopper (ops/csrc/frontend_kernel.cu); the INT8 leg is the port's own
+bit-exact integer executor (quant/tflite_import.py). ROADMAP.md lists what
+is still missing (the .keras transplant, a portable export, compressed
+audio, multi-GPU training).
+
 Public functions keep the JAX layouts: features [B, bins, W, 1], scores
 [B, C]. Entry points take `device=` and default to "cuda".
 """

@@ -1,10 +1,11 @@
 """CLI dispatch: python -m birdnet_stm32_tpu_torch <command> [args].
 
-The port's verbs: `serve`, `train`, `evaluate`, `benchmark`, `board-test`
-and `profile`, each on CUDA by default (`--device cpu` for the CPU;
-`profile` is analytical and runs nowhere). `convert` and `deploy` need
-TensorFlow and a StableHLO export, are not ported yet (ROADMAP.md) and
-exit with code 2.
+The port's verbs: `serve`, `train`, `evaluate`, `benchmark`, `board-test`,
+`profile`, `convert` and `deploy`, each on CUDA by default (`--device cpu`
+for the CPU; `profile` is analytical and runs nowhere). `convert` needs
+TensorFlow for its TFLite export and exits with code 2 where it cannot be
+imported; `convert --stablehlo` and `deploy --stablehlo` exit with code 2
+(ROADMAP.md Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -24,8 +25,11 @@ COMMANDS = {
                    "The board test's loop on the local device, from a deploy config"),
     "profile": ("birdnet_stm32_tpu_torch.cli.profile",
                 "Analytical per-layer parameters, MACs and activation bytes"),
+    "convert": ("birdnet_stm32_tpu_torch.cli.convert",
+                "Run directory -> INT8 TFLite with the cosine gate (needs TensorFlow)"),
+    "deploy": ("birdnet_stm32_tpu_torch.cli.deploy",
+               "Package a model, sidecars and firmware headers into a bundle"),
 }
-NOT_PORTED = ("convert", "deploy")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -37,9 +41,8 @@ def main(argv: list[str] | None = None) -> int:
         return 0 if argv else 2
     cmd = argv[0].replace("_", "-")
     if cmd not in COMMANDS:
-        what = ("is not ported yet" if cmd in NOT_PORTED
-                else f"is unknown (expected one of {', '.join(COMMANDS)})")
-        print(f"command {argv[0]!r} {what}", file=sys.stderr)
+        print(f"command {argv[0]!r} is unknown (expected one of {', '.join(COMMANDS)})",
+              file=sys.stderr)
         return 2
     import importlib
 

@@ -1,5 +1,4 @@
-"""Species list readers and writer (port of data/species.py::
-load_species_list, open_species_list and save_species_list)."""
+"""Species list readers and writers (port of data/species.py, a copy)."""
 
 from __future__ import annotations
 
@@ -31,3 +30,23 @@ def save_species_list(species: list[str], path: str | Path) -> None:
     p = Path(path)
     p.parent.mkdir(parents=True, exist_ok=True)
     p.write_text("".join(f"{s}\n" for s in species), encoding="utf-8")
+
+
+def combine_species_lists(
+    file_list: list[str | Path],
+    output_file: str | Path,
+    max_species: int | None = None,
+) -> list[str]:
+    """Round-robin merge of several lists, dedupe, cap, sort, save."""
+    queues = [list(dict.fromkeys(load_species_list(fname))) for fname in file_list]
+    combined: list[str] = []
+    while any(queues):
+        for q in queues:
+            if q:
+                combined.append(q.pop(0))
+    combined = list(dict.fromkeys(combined))
+    if max_species is not None:
+        combined = combined[:max_species]
+    combined.sort()
+    save_species_list(combined, output_file)
+    return combined

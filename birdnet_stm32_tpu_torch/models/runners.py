@@ -4,7 +4,7 @@ models/runners.py), and load_model_runner, which picks one from a model
 file.
 
 Not ported yet (ROADMAP.md, Queue 1): meshes, and loading reference
-.keras files (item 11). Run directories the port's `train` wrote load as
+.keras files (item 3). Run directories the port's `train` wrote load as
 TorchRunners.
 """
 
@@ -159,7 +159,7 @@ def load_model_runner(model_path: str | Path, dtype: torch.dtype | None = None,
     the JAX package.
 
     Reference .keras files raise NotImplementedError (their transplant is
-    ROADMAP.md Queue 1 item 11); a JAX (orbax) run directory raises
+    ROADMAP.md Queue 1 item 3); a JAX (orbax) run directory raises
     ValueError (training/checkpoint.py::load_checkpoint).
     """
     from birdnet_stm32_tpu_torch.training.checkpoint import keras_run_dir, load_checkpoint
@@ -177,6 +177,6 @@ def load_model_runner(model_path: str | Path, dtype: torch.dtype | None = None,
     if p.suffix == ".keras":
         raise NotImplementedError(
             f"{model_path}: reference .keras files are not loadable in the port yet "
-            "(ROADMAP.md Queue 1 item 11); serve a run directory of the port's train "
+            "(ROADMAP.md Queue 1 item 3); serve a run directory of the port's train "
             "or a .tflite")
     raise ValueError(f"Cannot infer runner type from {model_path}")

@@ -146,3 +146,26 @@ def _magnitude_f32(y: torch.Tensor, n_fft: int, hop: int, n_frames: int,
         out = frame_signal(y, n_fft, hop, n_frames, center=center) @ bases
     re, im = out[..., :nbin], out[..., nbin:]
     return torch.sqrt(re * re + im * im)
+
+
+def stft_magnitude_host(
+    y: np.ndarray,
+    n_fft: int,
+    hop: int,
+    center: bool = True,
+    n_frames: int | None = None,
+) -> np.ndarray:
+    """Numpy twin of stft_magnitude for host-side golden tests: [F, W]
+    (frequency-major, like librosa) for one 1-D waveform, by np.fft.rfft in
+    float64 of the Hann-windowed frames, rounded to float32 once."""
+    if n_frames is None:
+        n_frames = 1 + len(y) // hop if center else int(np.ceil(len(y) / hop))
+    if center:
+        pad = n_fft // 2
+        y = np.pad(y, (pad, pad))
+    needed = (n_frames - 1) * hop + n_fft
+    if needed > len(y):
+        y = np.pad(y, (0, needed - len(y)))
+    win = hann_window(n_fft).astype(np.float64)
+    frames = np.stack([y[k * hop : k * hop + n_fft] for k in range(n_frames)])
+    return np.abs(np.fft.rfft(frames * win, axis=-1)).T.astype(np.float32)

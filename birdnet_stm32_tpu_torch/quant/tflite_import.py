@@ -1176,3 +1176,10 @@ def build_executor(graph: TFLiteGraph, batch_size: int, device: str | torch.devi
 
     executor.steps = n_compute
     return executor
+
+
+def load_tflite_model(path, batch_size: int = 1, device: str | torch.device = "cuda"):
+    """Parse a .tflite file and return (graph, executor for `batch_size` on
+    `device`)."""
+    graph = TFLiteGraph(path)
+    return graph, build_executor(graph, batch_size, device=device)

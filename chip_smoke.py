@@ -71,7 +71,9 @@ It imports nothing of JAX. In order it:
    (a SOFTMAX graph may instead be within one output quantum, 1.5/256,
    with >= 95 % exact, and is then named); the float32 leg (TF32 off)
    within 1e-5 of the JAX scores, the bf16 leg at cosine >= 0.999 of the
-   JAX bf16 scores; each config's waveforms through make_fused_classifier
+   JAX bf16 scores, the float32 logits (class_activation "none") card vs
+   CPU within FUZZ_LOGIT_RTOL of each row's spread (the reading is
+   printed); each config's waveforms through make_fused_classifier
    on CUDA on the fp32, bf16 and INT8 legs: the kernel-fed features within
    the kernel phase's tolerance of the JAX features, the config's kernel
    launched (linear for hybrid, the features kernel for librosa, log_mel
@@ -227,10 +229,42 @@ It imports nothing of JAX. In order it:
        batch 64 from the trained run's state, each with its CUDA launches
        and device-busy ms (torch.profiler), and the card's name and power
        limit;
-14. prints the `kernels` JSON line (the linear and mel + pwl entries with
+14. convert phase (after the train-options phase, on the train phase's
+   WAV folder; tests/make_torch_convert_fixtures.py made the export where
+   TensorFlow is, from the flagship geometry with seeded weights):
+   (a) `convert` of a run directory of the committed weights: without
+       TensorFlow (the card machines this runs on have none) it exits 2 naming TensorFlow,
+       before it loads or calibrates anything (both are replaced by
+       raisers for the call); where TensorFlow imports, the real
+       conversion runs instead and a line says so;
+   (b) the verb's calibration features (stratified sampling,
+       representative_inputs: the composition) on CUDA and on the CPU: the
+       same kept count, features within CONVERT_FEATURE_TOL;
+   (c) the committed weights (TorchRunner) and the committed export
+       (TFLiteSimRunner) on CUDA and on the CPU over the card's validation
+       subset (the verb's seed): the executor bit-equal card vs CPU, the
+       float scores within CONVERT_FLOAT_RTOL of each row's spread,
+       validate_runners' stats within CONVERT_STATS_TOL card vs CPU and
+       within CONVERT_REPORT_TOL of the committed report's cosine_mean;
+   (d) get_spectrogram_from_audio (the composition) on one seeded
+       flagship chunk, linear and mel + pwl, on CUDA within
+       SPECTROGRAM_API_TOL of the CPU;
+   (e) prints one `convert_phase` line: calibration ms per device,
+       validation ms per leg, n_samples, the gaps;
+15. deploy phase: `deploy` in-process on CUDA of the committed flagship
+   bundle's .tflite (config and labels derived) into a temporary
+   directory: its manifest equal to the committed manifest.json (every
+   sha256 and size, the firmware headers the JAX package generated
+   included); validate_bundle launches the linear kernel once; the
+   deployed and the source .tflite classify one seeded batch bit-equal;
+   then `deploy` of the convert fixture's export: its headers, config and
+   labels hash as the flagship's, its .tflite as the committed file. Every
+   launch of the phase is counted from zero (4 linear launches). Prints
+   one `deploy_phase` line: files, validate ms, launches;
+16. prints the `kernels` JSON line (the linear and mel + pwl entries with
    `train_launches` and `train_options_launches`, the linear entry with
-   `evaluate_launches`), the card's name and power limit, and last
-   the `ok` JSON line.
+   `evaluate_launches`, `convert_launches` and `deploy_launches`), the
+   card's name and power limit, and last the `ok` JSON line.
 
 Any failed check exits non-zero before the `ok` line.
 """
@@ -1227,6 +1261,14 @@ def bf16_phase(torch, np, cfg) -> dict[str, int]:
     return {name: counts[name]}
 
 
+# The fuzz configs' float32 logits card vs CPU, as a share of each row's
+# spread (tests/torch_fuzz_fixtures.py::spread_error): cuDNN's and the
+# CPU's convolutions sum in other orders. The gate is 10x the port-vs-JAX
+# gate on the CPU (LOGIT_SPREAD_RTOL, 1e-4), as test_fuzz_configs_on_card
+# holds it; the phase prints each config's reading.
+FUZZ_LOGIT_RTOL = 1e-3
+
+
 def fuzz_phase(torch, np) -> dict[str, int]:
     """The nine fuzz configurations (tests/goldens/torch_fuzz, made by
     tests/make_torch_fuzz_fixtures.py with the JAX package): the CUDA
@@ -1246,6 +1288,7 @@ def fuzz_phase(torch, np) -> dict[str, int]:
         ONE_QUANTUM,
         all_fixtures,
         has_float_faithful_ops,
+        spread_error,
         within_one_quantum,
     )
 
@@ -1273,11 +1316,21 @@ def fuzz_phase(torch, np) -> dict[str, int]:
         r16 = TorchRunner(model, cfg, device="cuda", dtype=torch.bfloat16)
         f32_err = float(np.abs(r32.predict(f.features) - f.float_f32).max())
         bf16_cos = float(row_cosines(np, r16.predict(f.features), f.float_bf16).min())
-        report.update(float_f32_max_abs=f32_err, bf16_min_cosine_vs_jax=bf16_cos)
+        logits = {}
+        for dev in ("cuda", "cpu"):
+            m = build_dscnn(cfg, class_activation="none", device=dev)
+            m.load_state_dict(flax_to_state_dict(f.variables), strict=True)
+            logits[dev] = TorchRunner(m, cfg, device=dev).predict(f.features)
+        logit_err = spread_error(logits["cuda"], logits["cpu"])
+        report.update(float_f32_max_abs=f32_err, bf16_min_cosine_vs_jax=bf16_cos,
+                      f32_logits_spread_err_card_vs_cpu=logit_err)
         if not f32_err <= 1e-5:
             fail(f"fuzz {f.label}: float32 scores {f32_err} from the JAX golden > 1e-5")
         if not bf16_cos >= BF16_MIN_COSINE:
             fail(f"fuzz {f.label}: bf16 cosine {bf16_cos} vs the JAX bf16 golden")
+        if not logit_err <= FUZZ_LOGIT_RTOL:
+            fail(f"fuzz {f.label}: float32 logits card vs CPU {logit_err} of the row spread "
+                 f"> {FUZZ_LOGIT_RTOL}")
 
         # The waveform -> scores path on CUDA, counted from zero.
         mode = frontend_kernel.FRONTEND_MODES.get(cfg.audio_frontend)
@@ -1341,9 +1394,8 @@ def prepass_phase(torch, np) -> None:
         fail("the layout pre-passes changed the flagship graph's scores")
 
 
-# The train phase's seeded WAV folder: a folder per flagship class plus a
-# noise folder, TRAIN_FILES mono PCM16 files at 22.05 kHz of 4-7 s each.
-TRAIN_FILES = 3
+# The train phase's seeded WAV folder is
+# tests/make_torch_convert_fixtures.py::write_train_folder's.
 TRAIN_BATCH = 64
 TRAIN_STEPS = 8
 # The card-vs-CPU train step: STEP_ROWS rows of the FIFO batch. Both steps
@@ -1373,29 +1425,6 @@ def card() -> str:
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     return smi.stdout.strip().splitlines()[0]
-
-
-def write_train_folder(np, root: Path, class_names: list[str]) -> None:
-    """One chirp-and-tone pattern per class (its own base frequency and
-    sweep) with noise; the noise folder holds noise only."""
-    from birdnet_stm32_tpu_torch.audio.io import save_wav
-
-    sr = 22050
-    rng = np.random.default_rng(8)
-    t = np.arange(7 * sr, dtype=np.float32) / np.float32(sr)
-    gate = np.sin(2 * np.pi * 2.0 * t) > 0
-    for ci, name in enumerate([*class_names, "noise"]):
-        f0 = np.float32(300.0 + 45.0 * ci)
-        if ci < len(class_names):
-            pattern = (0.4 * np.sin(2 * np.pi * f0 * t * (1.0 + 0.05 * (ci % 7) * t))
-                       + 0.2 * np.sin(2 * np.pi * 1.5 * f0 * t) * gate)
-            sigma = np.float32(0.05)
-        else:
-            pattern, sigma = np.zeros_like(t), np.float32(0.3)
-        for i in range(TRAIN_FILES):
-            n = int(sr * rng.uniform(4.0, 7.0))
-            x = pattern[:n] + sigma * rng.standard_normal(n, dtype=np.float32)
-            save_wav(x, root / name / f"{i}.wav", sr)
 
 
 def loader_args(data: Path, workers: int):
@@ -1628,12 +1657,13 @@ def train_phase(torch, np, flagship, tmp: Path) -> tuple[dict, tuple]:
 
     from birdnet_stm32_tpu_torch.cli.train import build_loaders
     from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from tests import make_torch_convert_fixtures as CF
 
     linear = frontend_kernel.kernel_name("linear", "none")
     launches = {}
     data, run_dir = tmp / "data", tmp / "run"
     t0 = time.perf_counter()
-    write_train_folder(np, data, flagship.class_names)
+    CF.write_train_folder(data, flagship.class_names)
     write_s = time.perf_counter() - t0
     train_loader, val_loader, class_names, _ = build_loaders(loader_args(data, 4),
                                                              ship="int16")
@@ -2280,6 +2310,216 @@ def train_options_phase(torch, np, tmp: Path, wave, labels) -> dict:
     return launches
 
 
+# The convert phase. The calibration features are the composition
+# (ops/frontend.py::inputs_for_config) on each device: float32 DFT matmuls
+# summed in another order, then min-max normalized to [0, 1]. The first
+# run on an H100 80GB HBM3 at 700 W read 1.2e-7 (one ulp below 1.0) on the
+# 100 flagship features; the gate stands 8x above it.
+CONVERT_FEATURE_TOL = 1e-6
+# The float runner's softmax scores card vs CPU, relative to each row's
+# spread (max - min; the scores spread 0.03 per row). Read: 2.4e-6.
+CONVERT_FLOAT_RTOL = 1e-5
+CONVERT_STATS_TOL = 1e-4
+CONVERT_REPORT_TOL = 1e-3
+# get_spectrogram_from_audio card vs CPU: the composition's gate against
+# JAX on the CPU (tests/test_torch_api_tail.py), 1e-5.
+SPECTROGRAM_API_TOL = 1e-5
+
+
+class Recorded:
+    """A runner that keeps what its predict() returned."""
+
+    def __init__(self, runner):
+        self.runner, self.outputs = runner, []
+
+    def predict(self, x):
+        y = self.runner.predict(x)
+        self.outputs.append(y)
+        return y
+
+
+def convert_verb_check(run: Path, data: Path, out: Path) -> dict:
+    """(a): the convert verb without TensorFlow exits 2 before loading or
+    calibrating; with it, the real conversion."""
+    import contextlib
+    import importlib.util
+    import io
+    from unittest import mock
+
+    from birdnet_stm32_tpu_torch.__main__ import main as port_main
+    from birdnet_stm32_tpu_torch.conversion import pipeline
+    from birdnet_stm32_tpu_torch.training import checkpoint
+
+    args = ["--model_path", str(run), "--data_path", str(data),
+            "--output_path", str(out / "model_quantized.tflite"), "--no_npz"]
+    if importlib.util.find_spec("tensorflow") is not None:
+        print(json.dumps({"convert_verb": "TensorFlow imports here: the real conversion runs"}))
+        run_verb("convert", args)
+        return {"verb": "converted",
+                "tflite_bytes": (out / "model_quantized.tflite").stat().st_size}
+
+    def forbidden(*a, **k):
+        raise AssertionError("convert loaded or calibrated without TensorFlow")
+
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with mock.patch.object(checkpoint, "load_checkpoint", forbidden), \
+            mock.patch.object(pipeline, "representative_inputs", forbidden), \
+            mock.patch.object(pipeline, "convert_model", forbidden), \
+            contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+        rc = port_main(["convert", *args])
+    ms = (time.perf_counter() - t0) * 1000
+    if rc != 2 or "TensorFlow" not in err.getvalue():
+        fail(f"convert without TensorFlow: exit {rc}, {err.getvalue()!r}")
+    return {"verb": "exit 2 without TensorFlow", "verb_ms": ms}
+
+
+def convert_phase(torch, np, tmp: Path) -> int:
+    """(14) of the module docstring; returns the frontend kernels' launches
+    in the phase (calibration is the composition: none)."""
+    from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner, TorchRunner
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from birdnet_stm32_tpu_torch.quant.validate import validate_runners
+    from birdnet_stm32_tpu_torch.training.checkpoint import save_checkpoint, save_train_state
+    from tests import make_torch_convert_fixtures as CF
+    from tests.torch_fuzz_fixtures import spread_error
+
+    frontend_kernel.launches.clear()
+    models = {dev: CF.load_model(dev) for dev in ("cuda", "cpu")}
+    cfg = models["cpu"][1]
+    run, data = tmp / "convert_run", tmp / "data"
+    save_checkpoint(run, models["cpu"][0].state_dict(), cfg)
+    save_train_state(run, 1, multilabel=False)  # the softmax head
+    report = convert_verb_check(run, data, tmp / "convert_out")
+
+    x, ms = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        x[dev] = CF.calibration_inputs(data, cfg, dev)
+        ms[f"calibration_{dev}"] = (time.perf_counter() - t0) * 1000
+    if x["cuda"].shape != x["cpu"].shape:
+        fail(f"convert: calibration kept {x['cuda'].shape} on the card, {x['cpu'].shape} "
+             "on the CPU")
+    feat_err = float(np.abs(x["cuda"] - x["cpu"]).max())
+
+    xv = CF.validation_subset(x["cuda"])
+    stats, legs = {}, {}
+    for dev in ("cuda", "cpu"):
+        legs[dev] = (Recorded(TorchRunner(models[dev][0], cfg, device=dev)),
+                     Recorded(TFLiteSimRunner(CF.TFLITE, device=dev)))
+        t0 = time.perf_counter()
+        stats[dev] = validate_runners(*legs[dev], xv)
+        ms[f"validation_{dev}"] = (time.perf_counter() - t0) * 1000
+    floats, quants = ({dev: np.concatenate(legs[dev][k].outputs) for dev in legs}
+                      for k in (0, 1))
+    float_err = spread_error(floats["cuda"], floats["cpu"])
+    quant_equal = bool(np.array_equal(quants["cuda"], quants["cpu"]))
+    stats_gap = max(abs(v - stats["cpu"][k]) for k, v in stats["cuda"].items())
+    committed = json.loads(CF.REPORT.read_text())["validation"]["cosine_mean"]
+    report_gap = abs(stats["cuda"]["cosine_mean"] - committed)
+    spec_err = spectrogram_api_check(np, cfg)
+    launches = sum(frontend_kernel.launches.values())
+    report.update(ms, n_samples=stats["cuda"]["n_samples"], kept=len(x["cuda"]),
+                  spectrogram_api_max_abs_card_vs_cpu=spec_err,
+                  feature_max_abs_card_vs_cpu=feat_err, float_spread_err_card_vs_cpu=float_err,
+                  int8_bit_equal_card_vs_cpu=quant_equal, stats_max_gap_card_vs_cpu=stats_gap,
+                  cosine_mean_card=stats["cuda"]["cosine_mean"], cosine_mean_committed=committed,
+                  convert_launches=launches)
+    print(json.dumps({"convert_phase": report}))
+    if not feat_err <= CONVERT_FEATURE_TOL:
+        fail(f"convert: calibration features card vs CPU {feat_err} > {CONVERT_FEATURE_TOL}")
+    if not quant_equal:
+        fail("convert: the committed export's executor differs card vs CPU")
+    if not float_err <= CONVERT_FLOAT_RTOL:
+        fail(f"convert: float scores card vs CPU {float_err} of the spread > {CONVERT_FLOAT_RTOL}")
+    if not stats_gap <= CONVERT_STATS_TOL:
+        fail(f"convert: validation stats card vs CPU differ by {stats_gap}")
+    if not report_gap <= CONVERT_REPORT_TOL:
+        fail(f"convert: cosine_mean {stats['cuda']['cosine_mean']} vs the committed {committed}")
+    if stats["cuda"]["n_samples"] != min(CF.VALIDATE_SAMPLES, len(x["cuda"])):
+        fail(f"convert: validated {stats['cuda']['n_samples']} samples")
+    for mode, err in spec_err.items():
+        if not err <= SPECTROGRAM_API_TOL:
+            fail(f"get_spectrogram_from_audio ({mode}) card vs CPU {err} > {SPECTROGRAM_API_TOL}")
+    return launches
+
+
+def spectrogram_api_check(np, cfg) -> dict[str, float]:
+    """audio/spectrogram.py::get_spectrogram_from_audio (the composition, no
+    kernel) on one seeded flagship chunk, on the card and on the CPU, in
+    linear and in mel + pwl mode: the max abs gap per mode."""
+    from birdnet_stm32_tpu_torch.audio.spectrogram import get_spectrogram_from_audio
+
+    wave = np.random.default_rng(12).normal(0, 0.1, cfg.chunk_samples).astype(np.float32)
+    gaps = {}
+    for mode, mag in (("linear", "none"), ("mel", "pwl")):
+        out = {dev: get_spectrogram_from_audio(
+            wave, sample_rate=cfg.sample_rate, n_fft=cfg.fft_length, mel_bins=cfg.num_mels,
+            spec_width=cfg.spec_width, mag_scale=mag, mode=mode, device=dev)
+            for dev in ("cuda", "cpu")}
+        if out["cuda"].shape != out["cpu"].shape or not np.isfinite(out["cuda"]).all():
+            fail(f"get_spectrogram_from_audio ({mode}): {out['cuda'].shape} on the card")
+        gaps[f"{mode}_{mag}"] = float(np.abs(out["cuda"] - out["cpu"]).max())
+    return gaps
+
+
+DEPLOY_LAUNCHES = 4  # validate x 2 bundles, and the two bundles' classify
+
+
+def deploy_phase(torch, np) -> int:
+    """(15) of the module docstring; returns the linear kernel's launches."""
+    import tempfile
+    from unittest import mock
+
+    from birdnet_stm32_tpu_torch.cli import deploy
+    from birdnet_stm32_tpu_torch.config import ModelConfig
+    from birdnet_stm32_tpu_torch.models.runners import load_model_runner
+    from birdnet_stm32_tpu_torch.models.serving import make_fused_classifier
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from tests import make_torch_convert_fixtures as CF
+
+    committed = json.loads((FLAGSHIP_TFLITE.parent / "manifest.json").read_text())
+    validated = []
+    validate = deploy.validate_bundle
+
+    def spy(*a, **k):
+        validated.append(validate(*a, **k))
+        return validated[-1]
+
+    linear = frontend_kernel.kernel_name("linear", "none")
+    frontend_kernel.launches.clear()
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.object(deploy, "validate_bundle", spy):
+        out = Path(tmp) / "flagship"
+        run_verb("deploy", ["--model_path", str(FLAGSHIP_TFLITE), "--output_dir", str(out)])
+        manifest = json.loads((out / "manifest.json").read_text())
+        if manifest != committed:
+            fail(f"deploy: manifest {manifest} differs from the committed one")
+        cfg = ModelConfig.load(out / "model_config.json")
+        wave = np.random.default_rng(11).normal(0, 0.1, (8, cfg.chunk_samples)).astype(np.float32)
+        scores = [make_fused_classifier(load_model_runner(p, device="cuda"), cfg,
+                                        device="cuda")(wave)
+                  for p in (FLAGSHIP_TFLITE, out / FLAGSHIP_TFLITE.name)]
+        if not np.array_equal(*scores) or not np.isfinite(scores[0]).all():
+            fail("deploy: the deployed bundle does not classify as the source bundle")
+        conv = Path(tmp) / "convert"
+        run_verb("deploy", ["--model_path", str(CF.TFLITE), "--output_dir", str(conv)])
+        files = json.loads((conv / "manifest.json").read_text())["files"]
+        want = {name: committed["files"][name] for name in
+                ("model_config.json", "labels.txt", "firmware/app_config.h",
+                 "firmware/app_labels.h")}
+        want[CF.TFLITE.name] = {"sha256": deploy._sha256(CF.TFLITE),
+                                "bytes": CF.TFLITE.stat().st_size}
+        if files != want:
+            fail(f"deploy of the convert export: manifest files {files}, want {want}")
+    counts = dict(frontend_kernel.launches)
+    print(json.dumps({"deploy_phase": {
+        "files": sorted(manifest["files"]), "validate_ms": [v["first_batch_ms"] for v in validated],
+        "validated_shapes": [v["output_shape"] for v in validated], "kernel_launches": counts}}))
+    if counts != {linear: DEPLOY_LAUNCHES} or len(validated) != 2:
+        fail(f"deploy: launches {counts}, want {{{linear!r}: {DEPLOY_LAUNCHES}}}")
+    return counts[linear]
+
+
 def main() -> None:
     import tempfile
 
@@ -2323,6 +2563,8 @@ def main() -> None:
         evaluate_launches = timed("evaluate", evaluate_phase, torch, np, flagship, Path(tmp))
         options_launches = timed("train_options", train_options_phase, torch, np, Path(tmp),
                                  *batch)
+        convert_launches = timed("convert", convert_phase, torch, np, Path(tmp))
+        deploy_launches = timed("deploy", deploy_phase, torch, np)
     tile_entries = timed("tile", tile_phase, torch, np, quant, entries)
     bench_launches = timed("bench", bench_phase, torch)
     print(json.dumps({"phase_seconds": seconds}))
@@ -2353,6 +2595,11 @@ def main() -> None:
         if entry["name"] == linear:
             entry["launches"] += sum(evaluate_launches.values())
             entry["evaluate_launches"] = evaluate_launches
+            # convert's card half runs no kernel (its calibration is the
+            # composition); deploy's validation and bundle checks do.
+            entry["launches"] += convert_launches + deploy_launches
+            entry["convert_launches"] = convert_launches
+            entry["deploy_launches"] = deploy_launches
         for path, n in options_launches.items():
             if entry["name"] == (mel_pwl if path.endswith("librosa_pwl") else linear):
                 entry["launches"] += n

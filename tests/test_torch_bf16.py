@@ -11,6 +11,11 @@ Tolerances:
   max 2^-9).
 - scores: per-row cosine >= 0.999, the gate of bench.py's bf16 headline,
   against JAX's FlaxRunner(dtype=bfloat16) and against the port's float32.
+  The fuzz configurations' scores are near-uniform, so that gate passes a
+  constant or class-shuffled vector too; their logits (class_activation
+  'none') are held as well, at per-row cosine >= BF16_LOGIT_MIN_COSINE
+  (tests/torch_fuzz_fixtures.py; tests/test_torch_fuzz_gates.py shows it
+  fails on both).
 """
 
 import numpy as np
@@ -41,7 +46,7 @@ from birdnet_stm32_tpu_torch.ops.frontend import inputs_for_config
 from birdnet_stm32_tpu_torch.ops.spectrogram import spectrogram_batch
 from birdnet_stm32_tpu_torch.ops.stft import stft_magnitude
 from tests.test_torch_cpu_warmup import warm_up
-from tests.torch_fuzz_fixtures import N_CONFIGS, load
+from tests.torch_fuzz_fixtures import N_CONFIGS, bf16_logits_match, load
 
 warm_up()
 
@@ -108,9 +113,10 @@ def test_spectrogram_bf16_matches_jax(mode, mag):
     np.testing.assert_allclose(got.float().numpy(), ref, atol=FEATURE_ATOL)
 
 
-def _port_model(f):
+def _port_model(f, class_activation=None):
     cfg = ModelConfig.from_dict(f.cfg)
-    model = build_dscnn(cfg, class_activation=f.class_activation, device="cpu")
+    model = build_dscnn(cfg, class_activation=class_activation or f.class_activation,
+                        device="cpu")
     model.load_state_dict(flax_to_state_dict(f.variables), strict=True)
     return cfg, model
 
@@ -149,6 +155,17 @@ def test_bf16_classifier_matches_jax(i):
     assert _row_cosines(got, ref).min() >= MIN_COSINE
     assert _row_cosines(got, f32).min() >= MIN_COSINE
     assert _row_cosines(r16.predict(f.features), f.float_bf16).min() >= MIN_COSINE
+    # The same three on logits, where a constant or shuffled vector fails.
+    _, logit_model = _port_model(f, "none")
+    jlogits = FlaxRunner(j_build_dscnn(jcfg, class_activation="none"),
+                         jax.tree_util.tree_map(jnp.asarray, f.variables), jcfg,
+                         dtype=jnp.bfloat16)
+    l16 = TorchRunner(logit_model, cfg, device="cpu", dtype=BF16)
+    got = make_fused_classifier(l16, cfg, device="cpu")(f.waves)
+    assert bf16_logits_match(got, j_make_fused_classifier(jlogits, jcfg)(f.waves))
+    assert bf16_logits_match(got, make_fused_classifier(
+        TorchRunner(logit_model, cfg, device="cpu"), cfg, device="cpu")(f.waves))
+    assert bf16_logits_match(l16.predict(f.features), np.asarray(jlogits.predict(f.features)))
 
 
 def test_stft_precision_default_rule():

@@ -5,12 +5,16 @@ and the analytical profiler, against the JAX package where it has a
 counterpart.
 
 The verbs run on a run directory of the port's format holding Flax weights
-(tests/torch_train_fixtures.py::write_run_dir) and on a committed fuzz
-.tflite with its config sidecar, over seeded 4 kHz WAVs. Checks: the
-output protocol lines and the report files; evaluate's predictions CSV
-equal to the API's pooled scores at its 3 decimals; benchmark's pipelined
-per-file top-1 and score equal to the serial driver's within 1e-5;
-board-test's three-column CSV; the int16 / mu-law exclusion; the deploy
+(tests/torch_train_fixtures.py::write_run_dir) over seeded 4 kHz WAVs, and
+on a copy of the committed flagship bundle (a trained 100-class INT8 graph
+whose pooled scores vary, 0.07-0.98 per file) over seeded 22.05 kHz WAVs
+of three of its classes. Checks: the output protocol lines and the report
+files; evaluate's predictions CSV equal to the API's pooled scores at its 3
+decimals; benchmark's and board-test's per-file top-1 and score equal to
+the API's (classify_in_batches over each whole file, mean-pooled), and the
+pipelined driver's to the serial one's within 1e-5; each of these score
+gates fails on a constant and on a class-shuffled score vector (the
+*_gate_bites tests); the int16 / mu-law exclusion; the deploy
 config's precedence cases of the JAX package's tests; profile_model,
 totals and check_n6_compatibility equal to the JAX package's for the
 flagship and the nine fuzz configs, and the parameter count equal to the
@@ -22,6 +26,7 @@ import csv
 import dataclasses
 import io
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -40,13 +45,15 @@ from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn
 from birdnet_stm32_tpu_torch.models.runners import load_model_runner
 from tests.int8_fixture import FLAGSHIP_TFLITE
 from tests.test_torch_cpu_warmup import warm_up
-from tests.torch_fuzz_fixtures import N_CONFIGS
+from tests.torch_fuzz_fixtures import N_CONFIGS, bad_outputs
 from tests.torch_fuzz_fixtures import load as load_fuzz
-from tests.torch_train_fixtures import write_run_dir, write_wav_folder
+from tests.torch_train_fixtures import one_torch_thread, write_run_dir  # noqa: F401
+from tests.torch_train_fixtures import write_wav_folder
 
 warm_up()
 
-FUZZ_GRAPH = 3  # the smallest committed fuzz graph (librosa + none, sigmoid)
+FLAGSHIP_CLASSES = json.loads((FLAGSHIP_TFLITE.parent / "model_config.json")
+                              .read_text())["class_names"]
 
 
 def run(*argv) -> tuple[int, str]:
@@ -61,13 +68,56 @@ def run(*argv) -> tuple[int, str]:
 def assets(tmp_path_factory):
     root = tmp_path_factory.mktemp("cli_evaluate")
     data = write_wav_folder(root / "data", files_per_class=2, seed=3)
+    data22 = write_wav_folder(root / "data22", sample_rate=22050,
+                              classes=FLAGSHIP_CLASSES[:3], files_per_class=2, seed=3)
     write_run_dir(root / "run", seed=1)
-    fx = load_fuzz(FUZZ_GRAPH)
-    model = root / "fuzz" / "model_quantized.tflite"
-    model.parent.mkdir()
-    model.write_bytes(fx.tflite)
-    (model.parent / "model_config.json").write_text(json.dumps(fx.cfg))
-    return {"root": root, "data": data, "run": root / "run", "tflite": model}
+    shutil.copytree(FLAGSHIP_TFLITE.parent, root / "flagship")
+    return {"root": root, "data": {"run": data, "tflite": data22}, "run": root / "run",
+            "tflite": root / "flagship" / FLAGSHIP_TFLITE.name}
+
+
+def _model(model: str) -> str:
+    return "tflite" if model == "tflite" else "run"
+
+
+def _api_pooled(assets, model: str) -> tuple[list, list, np.ndarray]:
+    """(files, classes, [F, C] pooled scores) through the API: each whole
+    file's chunks through the fused classifier, mean-pooled (the benchmark
+    and board-test loop). Computed once per model."""
+    key = ("pooled", model)
+    if key not in assets:
+        assets[key] = _pool(assets, model)
+    return assets[key]
+
+
+def _pool(assets, model: str):
+    from birdnet_stm32_tpu_torch.models.serving import (
+        classify_in_batches,
+        decode_for_classify,
+        make_fused_classifier,
+    )
+
+    path = assets[model]
+    cfg = ModelConfig.load((path if path.is_dir() else path.parent) / "model_config.json")
+    classify = make_fused_classifier(load_model_runner(path, device="cpu"), cfg, device="cpu")
+    files = sorted(str(p) for p in assets["data"][model].rglob("*.wav"))
+    pooled = [classify_in_batches(classify, decode_for_classify(f, cfg)[0], 8)[0].mean(axis=0)
+              for f in files]
+    return files, cfg.class_names, np.stack(pooled)
+
+
+def _top1_match(rows, files, classes, pooled, atol: float) -> bool:
+    """A driver's per-file (top1, score) rows against the API's pooled
+    scores: the same file order, top-1 label and score within atol."""
+    from birdnet_stm32_tpu_torch.models.serving import top_predictions
+
+    if [r[0] for r in rows] != files:
+        return False
+    for (_, top1, score), p in zip(rows, pooled):
+        i = top_predictions(p, 1, 0.0)[0]
+        if top1 != classes[i] or abs(float(score) - float(p[i])) > atol:
+            return False
+    return True
 
 
 EVAL_FLAGS = ["--device", "cpu", "--batch_size", "8", "--optimize_thresholds", "--bootstrap_ci",
@@ -78,9 +128,10 @@ EVAL_FLAGS = ["--device", "cpu", "--batch_size", "8", "--optimize_thresholds", "
 @pytest.mark.filterwarnings("ignore")
 @pytest.mark.parametrize("model", ["run", "run_bf16", "tflite"])
 def test_evaluate_cli_reports(assets, tmp_path, model):
-    path = assets["tflite" if model == "tflite" else "run"]
+    path = assets[_model(model)]
     extra = ["--bf16"] if model == "run_bf16" else []
-    rc, out = run("evaluate", "--model_path", str(path), "--data_path_test", str(assets["data"]),
+    rc, out = run("evaluate", "--model_path", str(path), "--data_path_test",
+                  str(assets["data"][_model(model)]),
                   "--output_dir", str(tmp_path), "--species_report", str(tmp_path / "sp.csv"),
                   "--save_embeddings", str(tmp_path / "emb.npz"), *EVAL_FLAGS, *extra)
     assert rc == 0
@@ -93,26 +144,55 @@ def test_evaluate_cli_reports(assets, tmp_path, model):
         assert (tmp_path / name).stat().st_size > 0, name
     report = json.loads((tmp_path / "benchmark.json").read_text())
     assert report["num_files"] == 6 and report["metrics"]["total_chunks"] > 0
-    assert set(json.loads((tmp_path / "thresholds.json").read_text())) <= {"a", "b", "c", "d"}
+    classes = FLAGSHIP_CLASSES if model == "tflite" else ["a", "b", "c"]
+    assert set(json.loads((tmp_path / "thresholds.json").read_text())) <= set(classes)
     # The predictions CSV holds the API's pooled scores at 3 decimals.
     cfg = ModelConfig.load((path if path.is_dir() else path.parent) / "model_config.json")
     import torch
 
     runner = load_model_runner(path, dtype=torch.bfloat16 if extra else None, device="cpu")
-    files = sorted(str(p) for p in assets["data"].rglob("*.wav"))
+    files = sorted(str(p) for p in assets["data"][_model(model)].rglob("*.wav"))
     _, per_file, _, _ = PM.evaluate(runner, files, cfg.class_names, cfg, batch_size=8,
                                     device="cpu")
     rows = list(csv.reader(open(tmp_path / "predictions.csv")))
     assert rows[0][:4] == ["file", "label", "top1_label", "top1_score"]
-    assert [r[0] for r in rows[1:]] == [r["file"] for r in per_file]
-    for row, ref in zip(rows[1:], per_file):
-        np.testing.assert_array_equal([float(v) for v in row[4:]],
-                                      [float(f"{s:.3f}") for s in ref["scores"]])
+    scores = np.array([r["scores"] for r in per_file])
+    assert _predictions_match(rows[1:], [r["file"] for r in per_file], scores)
+    if model == "tflite":
+        assert np.ptp(scores, axis=1).min() > 4 / 256  # scores that vary
     if model == "tflite":
         assert "--save_embeddings skipped" in out and not (tmp_path / "emb.npz").exists()
     else:
         emb = np.load(tmp_path / "emb.npz")
         assert emb["embeddings"].shape == (6, 32) and np.isfinite(emb["embeddings"]).all()
+
+
+def _predictions_match(rows, files, scores) -> bool:
+    """evaluate's predictions CSV rows against the API's pooled scores at
+    the CSV's 3 decimals."""
+    return [r[0] for r in rows] == files and all(
+        np.array_equal([float(v) for v in row[4:]], [float(f"{s:.3f}") for s in ref])
+        for row, ref in zip(rows, scores))
+
+
+@pytest.mark.filterwarnings("ignore")
+@pytest.mark.parametrize("variant", ["constant", "shuffled"])
+def test_evaluate_cli_gate_bites(assets, tmp_path, variant):
+    """The predictions-CSV gate fails when the API's scores are replaced by
+    a constant or a class-shuffled vector (the flagship bundle)."""
+    rc, _ = run("evaluate", "--model_path", str(assets["tflite"]), "--data_path_test",
+                str(assets["data"]["tflite"]), "--output_dir", str(tmp_path), "--device", "cpu",
+                "--batch_size", "8", "--save_csv")
+    assert rc == 0
+    cfg = ModelConfig.load(assets["tflite"].parent / "model_config.json")
+    files = sorted(str(p) for p in assets["data"]["tflite"].rglob("*.wav"))
+    _, per_file, _, _ = PM.evaluate(load_model_runner(assets["tflite"], device="cpu"), files,
+                                    cfg.class_names, cfg, batch_size=8, device="cpu")
+    rows = list(csv.reader(open(tmp_path / "predictions.csv")))[1:]
+    names = [r["file"] for r in per_file]
+    scores = np.array([r["scores"] for r in per_file])
+    assert _predictions_match(rows, names, scores)
+    assert not _predictions_match(rows, names, bad_outputs(scores)[variant])
 
 
 def test_evaluate_guards(assets, tmp_path):
@@ -136,10 +216,14 @@ def test_evaluate_guards(assets, tmp_path):
 
 def _bench(assets, model, csv_path, *extra):
     rc, out = run("benchmark", "--model_path", str(assets[model]), "--audio_dir",
-                  str(assets["data"]), "--device", "cpu", "--batch_size", "8", "--csv",
+                  str(assets["data"][model]), "--device", "cpu", "--batch_size", "8", "--csv",
                   str(csv_path), *extra)
     assert rc == 0
     return out, list(csv.DictReader(open(csv_path)))
+
+
+def _bench_rows(rows):
+    return [(r["file"], r["top1"], r["score"]) for r in rows]
 
 
 @pytest.mark.parametrize("model", ["run", "tflite"])
@@ -154,6 +238,22 @@ def test_benchmark_serial_and_pipelined(assets, tmp_path, model):
     assert [r["top1"] for r in serial] == [r["top1"] for r in piped]
     np.testing.assert_allclose([float(r["score"]) for r in piped],
                                [float(r["score"]) for r in serial], rtol=0, atol=1e-5)
+    # Both drivers' top-1 and score against the API's pooled scores.
+    files, classes, pooled = _api_pooled(assets, model)
+    for rows in (serial, piped):
+        assert _top1_match(_bench_rows(rows), files, classes, pooled, 1e-5)
+
+
+@pytest.mark.parametrize("variant", ["constant", "shuffled"])
+def test_benchmark_gate_bites(assets, tmp_path, variant):
+    """The top-1 gate fails on a constant or class-shuffled pooled vector in
+    place of the API's (the flagship bundle)."""
+    _, serial = _bench(assets, "tflite", tmp_path / "s.csv")
+    files, classes, pooled = _api_pooled(assets, "tflite")
+    assert np.ptp(pooled, axis=1).min() > 4 / 256  # scores that vary
+    assert _top1_match(_bench_rows(serial), files, classes, pooled, 1e-5)
+    assert not _top1_match(_bench_rows(serial), files, classes, bad_outputs(pooled)[variant],
+                           1e-5)
 
 
 def test_benchmark_modes_and_trace(assets, tmp_path):
@@ -173,17 +273,39 @@ def test_board_test_from_deploy_config(assets, tmp_path, fmt):
     if fmt == "toml":
         cfg = tmp_path / "deploy.toml"
         cfg.write_text(f'top_k = 2\n[serving]\nmodel_path = "{assets["tflite"]}"\n'
-                       f'audio_dir = "{assets["data"]}"\nbatch_size = 8\n')
+                       f'audio_dir = "{assets["data"]["tflite"]}"\nbatch_size = 8\n')
     else:
         cfg = tmp_path / "deploy.json"
         cfg.write_text(json.dumps({"model_path": str(assets["tflite"]),
-                                   "audio_dir": str(assets["data"]), "batch_size": 8}))
+                                   "audio_dir": str(assets["data"]["tflite"]),
+                                   "batch_size": 8}))
     rc, out = run("board-test", "--config", str(cfg), "--device", "cpu",
                   "--save_results", str(tmp_path / "r.csv"))
     assert rc == 0 and "=== DONE ===" in out and out.count("[BENCH] read:") == 8
     rows = list(csv.reader(open(tmp_path / "r.csv")))
     assert rows[0] == ["file", "top_label", "top_score"] and len(rows) == 9
-    assert all(r[1] in "abcd" and 0 <= float(r[2]) <= 1 for r in rows[1:])
+    # Its top label and 4-decimal score against the API's pooled scores.
+    files, classes, pooled = _api_pooled(assets, "tflite")
+    assert _top1_match(rows[1:], files, classes, pooled, BOARD_SCORE_ATOL)
+
+
+# board-test writes its scores at 4 decimals.
+BOARD_SCORE_ATOL = 5e-5 + 1e-7
+
+
+@pytest.mark.parametrize("variant", ["constant", "shuffled"])
+def test_board_test_gate_bites(assets, tmp_path, monkeypatch, variant):
+    """The board-test CSV gate fails on a constant or class-shuffled pooled
+    vector in place of the API's (the flagship bundle)."""
+    monkeypatch.chdir(tmp_path)
+    rc, _ = run("board-test", "--model_path", str(assets["tflite"]), "--audio_dir",
+                str(assets["data"]["tflite"]), "--batch_size", "8", "--device", "cpu",
+                "--save_results", str(tmp_path / "r.csv"))
+    assert rc == 0
+    rows = list(csv.reader(open(tmp_path / "r.csv")))[1:]
+    files, classes, pooled = _api_pooled(assets, "tflite")
+    assert _top1_match(rows, files, classes, pooled, BOARD_SCORE_ATOL)
+    assert not _top1_match(rows, files, classes, bad_outputs(pooled)[variant], BOARD_SCORE_ATOL)
 
 
 def test_board_test_errors(assets, tmp_path, monkeypatch):
@@ -191,7 +313,7 @@ def test_board_test_errors(assets, tmp_path, monkeypatch):
     assert run("board-test", "--device", "cpu")[0] == 1  # no model
     assert run("board-test", "--model_path", str(assets["tflite"]), "--device", "cpu")[0] == 1
     assert run("board-test", "--config", str(tmp_path / "none.toml"), "--device", "cpu")[0] == 1
-    monkeypatch.setenv("BIRDNET_TPU_AUDIO_DIR", str(assets["data"]))
+    monkeypatch.setenv("BIRDNET_TPU_AUDIO_DIR", str(assets["data"]["tflite"]))
     rc, out = run("board-test", "--model_path", str(assets["tflite"]), "--device", "cpu",
                   "--batch_size", "8", "--top_k", "1")
     assert rc == 0 and out.count("[BENCH] read:") == 8
@@ -332,10 +454,9 @@ def test_profile_verb_and_registry(assets, tmp_path):
 
 
 def test_verbs_registered():
-    for verb in ("serve", "train", "evaluate", "benchmark", "board-test", "profile"):
+    for verb in ("serve", "train", "evaluate", "benchmark", "board-test", "profile",
+                 "convert", "deploy"):
         assert verb in PMAIN.COMMANDS
-    assert PMAIN.NOT_PORTED == ("convert", "deploy")
-    for verb in ("convert", "deploy"):
-        assert PMAIN.main([verb]) == 2
+    assert PMAIN.main(["nope"]) == 2
     rc, out = run("--help")
     assert rc == 0 and all(verb in out for verb in PMAIN.COMMANDS)

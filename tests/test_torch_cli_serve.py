@@ -209,12 +209,13 @@ def test_thresholds(served, tmp_path, capsys):
         main(_serve_args(audio_dir, tmp_path / "r3.txt", "--thresholds", str(th)))
 
 
-def test_guards(tmp_path):
+def test_guards(tmp_path, monkeypatch):
     """The int16 / mu-law mutual exclusion in the CLI and in
     decode_for_classify; --bf16 with a .tflite is accepted and ignored, as
-    in the JAX package (the same TSV as without it); verbs not ported
-    exit 2 (and the ported verbs with a required flag, `train`, `evaluate`
-    and `benchmark`, exit 2 through argparse when it is missing)."""
+    in the JAX package (the same TSV as without it); an unknown verb exits
+    2, the verbs with a required flag (`train`, `evaluate`, `benchmark`,
+    `convert`) exit 2 through argparse when it is missing, and `deploy`
+    without a model exits 1, as the JAX verb does."""
     audio_dir = tmp_path / "audio"
     save_wav(_chirp(7, 3.0, SR)[:, 0], audio_dir / "x.wav", SR)
     with pytest.raises(SystemExit, match="mutually exclusive"):
@@ -226,12 +227,13 @@ def test_guards(tmp_path):
     assert main(_serve_args(audio_dir, tmp_path / "bf16.txt", "--bf16")) == 0
     plain = (tmp_path / "plain.txt").read_text()
     assert plain and (tmp_path / "bf16.txt").read_text() == plain
-    for verb in ("convert", "deploy", "nonsense"):
-        assert main([verb]) == 2
-    for verb in ("train", "evaluate", "benchmark"):
+    assert main(["nonsense"]) == 2
+    for verb in ("train", "evaluate", "benchmark", "convert"):
         with pytest.raises(SystemExit) as exc:
             main([verb])
         assert exc.value.code == 2
+    monkeypatch.chdir(tmp_path)  # no default deploy config here
+    assert main(["deploy"]) == 1
     assert not (tmp_path / "r.txt").exists()
 
 

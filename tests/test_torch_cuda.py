@@ -442,16 +442,27 @@ def test_op_graphs_on_card_match_cpu(cuda, requant):
 @pytest.mark.parametrize("i", range(9))
 def test_fuzz_configs_on_card(cuda, i):
     """The committed graph on its committed features equals the JAX golden
-    (exact and fast); the float32 leg is within 1e-5 of the JAX scores and
-    the bf16 leg at cosine >= 0.999 of the JAX bf16 ones."""
+    (exact and fast), and every tensor the CUDA executor computes equals
+    the CPU executor's (tests/torch_fuzz_fixtures.py::executor_tensors_match:
+    the goldens are one constant per graph in 7 of 9 configs, the int8
+    logits inside vary). The float32 leg is within 1e-5 of the JAX scores
+    and its logits within LOGIT_SPREAD_RTOL x 10 of the row spread of the
+    CPU logits (another summation order); the bf16 leg at cosine >= 0.999
+    of the JAX bf16 scores, and its logits at BF16_LOGIT_MIN_COSINE of the
+    CPU bf16 logits. tests/test_torch_fuzz_gates.py shows each logit and
+    tensor gate fails on a constant and a class-shuffled output."""
     from birdnet_stm32_tpu_torch.models.convert import flax_to_state_dict
     from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn
     from birdnet_stm32_tpu_torch.models.runners import TorchRunner
     from tests.torch_fuzz_fixtures import (
+        LOGIT_SPREAD_RTOL,
         MIN_EXACT_SHARE,
         ONE_QUANTUM,
+        bf16_logits_match,
+        executor_tensors_match,
         has_float_faithful_ops,
         load,
+        spread_error,
         within_one_quantum,
     )
 
@@ -463,6 +474,11 @@ def test_fuzz_configs_on_card(cuda, i):
         err, exact = within_one_quantum(got.cpu().numpy(), ref)
         assert exact == 1.0 or (has_float_faithful_ops(graph) and err <= ONE_QUANTUM
                                 and exact >= MIN_EXACT_SHARE), (f.label, requant, err, exact)
+        vals = build_executor(graph, len(f.features), device="cuda", requant=requant,
+                              return_all=True)(x)
+        cpu = build_executor(graph, len(f.features), device="cpu", requant=requant,
+                             return_all=True)(torch.from_numpy(f.features))
+        assert executor_tensors_match(vals, cpu, graph) == [], (f.label, requant)
     cfg = ModelConfig.from_dict(f.cfg)
     model = build_dscnn(cfg, class_activation=f.class_activation, device="cuda")
     model.load_state_dict(flax_to_state_dict(f.variables), strict=True)
@@ -470,6 +486,14 @@ def test_fuzz_configs_on_card(cuda, i):
                                f.float_f32, atol=1e-5)
     r16 = TorchRunner(model, cfg, device="cuda", dtype=torch.bfloat16)
     assert _row_cosines(r16.predict(f.features), f.float_bf16).min() >= 0.999
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        m = build_dscnn(cfg, class_activation="none", device=dev)
+        m.load_state_dict(flax_to_state_dict(f.variables), strict=True)
+        logits[dev] = [TorchRunner(m, cfg, device=dev, dtype=dt).predict(f.features)
+                       for dt in (None, torch.bfloat16)]
+    assert spread_error(logits["cuda"][0], logits["cpu"][0]) <= 10 * LOGIT_SPREAD_RTOL
+    assert bf16_logits_match(logits["cuda"][1], logits["cpu"][1])
 
 
 @pytest.mark.cuda
@@ -678,3 +702,84 @@ def test_evaluate_and_benchmark_on_card(cuda, tmp_path):
         tops.append([line.split("top: ")[1].split(" (")[0]
                      for line in out.getvalue().splitlines() if line.startswith("file: ")])
     assert tops[0] == tops[1]
+
+
+# --- The convert and deploy verbs: the card half of the convert chain on
+# the committed export (tests/goldens/torch_convert), and a deployed bundle.
+# chip_smoke.py's convert and deploy phases run the same checks. ---
+
+
+@pytest.mark.cuda
+def test_convert_chain_on_card(cuda, tmp_path):
+    """Calibration features (the composition) on the card within 1e-6 of the
+    CPU's with the same kept count (chip_smoke.py's CONVERT_FEATURE_TOL); the committed export's executor
+    bit-equal card vs CPU; the float runner card vs CPU within 1e-5;
+    validate_runners on the card within 1e-4 of the CPU's and within 1e-3
+    of the committed report's cosine_mean."""
+    import json
+
+    from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner, TorchRunner
+    from birdnet_stm32_tpu_torch.quant.validate import validate_runners
+    from tests import make_torch_convert_fixtures as CF
+
+    model, cfg = CF.load_model("cpu")
+    data = tmp_path / "data"
+    CF.write_train_folder(data, cfg.class_names)
+    x = {dev: CF.calibration_inputs(data, cfg, dev) for dev in ("cuda", "cpu")}
+    assert x["cuda"].shape == x["cpu"].shape
+    assert float(np.abs(x["cuda"] - x["cpu"]).max()) <= 1e-6
+    xv = CF.validation_subset(x["cuda"])
+    quant = {dev: TFLiteSimRunner(CF.TFLITE, device=dev) for dev in ("cuda", "cpu")}
+    np.testing.assert_array_equal(quant["cuda"].predict(xv[:32]), quant["cpu"].predict(xv[:32]))
+    floats = {"cpu": TorchRunner(model, cfg, device="cpu"),
+              "cuda": TorchRunner(CF.load_model("cuda")[0], cfg, device="cuda")}
+    np.testing.assert_allclose(floats["cuda"].predict(xv[:32]), floats["cpu"].predict(xv[:32]),
+                               rtol=0, atol=1e-5)
+    stats = {dev: validate_runners(floats[dev], quant[dev], xv) for dev in ("cuda", "cpu")}
+    for k, v in stats["cuda"].items():
+        assert abs(v - stats["cpu"][k]) <= 1e-4, k
+    report = json.loads(CF.REPORT.read_text())
+    assert abs(stats["cuda"]["cosine_mean"] - report["validation"]["cosine_mean"]) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,mag", [("linear", "none"), ("mel", "pwl"), ("mfcc", "none")])
+def test_get_spectrogram_from_audio_on_card(cuda, mode, mag):
+    """The host spectrogram API runs on the card by default, within 1e-5 of
+    the CPU (the composition's gate against JAX), at the flagship geometry."""
+    from birdnet_stm32_tpu_torch.audio.spectrogram import get_spectrogram_from_audio
+
+    cfg = ModelConfig.load(FLAGSHIP_CONFIG)
+    y = np.random.default_rng(12).normal(0, 0.1, cfg.chunk_samples).astype(np.float32)
+    kw = dict(sample_rate=cfg.sample_rate, n_fft=cfg.fft_length, mel_bins=cfg.num_mels,
+              spec_width=cfg.spec_width, mag_scale=mag, mode=mode)
+    got = get_spectrogram_from_audio(y, **kw)
+    ref = get_spectrogram_from_audio(y, device="cpu", **kw)
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_deploy_on_card(cuda, tmp_path):
+    """deploy on CUDA: the manifest's hashes equal the committed
+    manifest.json; validate_bundle launches the linear kernel once; the
+    deployed bundle classifies bit-equal to the source bundle."""
+    import json
+
+    from birdnet_stm32_tpu_torch.__main__ import main as verb
+    from birdnet_stm32_tpu_torch.models.runners import load_model_runner
+    from birdnet_stm32_tpu_torch.models.serving import make_fused_classifier
+
+    bundle = FLAGSHIP_TFLITE.parent
+    out = tmp_path / "bundle"
+    name = kernel_name("linear", "none")
+    before = frontend_kernel.launches[name]
+    assert verb(["deploy", "--model_path", str(FLAGSHIP_TFLITE), "--output_dir", str(out)]) == 0
+    assert frontend_kernel.launches[name] == before + 1
+    got = json.loads((out / "manifest.json").read_text())
+    assert got == json.loads((bundle / "manifest.json").read_text())
+    cfg = ModelConfig.load(bundle / "model_config.json")
+    wave = np.random.default_rng(5).normal(0, 0.1, (4, cfg.chunk_samples)).astype(np.float32)
+    scores = [make_fused_classifier(load_model_runner(p, device="cuda"), cfg, device="cuda")(wave)
+              for p in (FLAGSHIP_TFLITE, out / FLAGSHIP_TFLITE.name)]
+    np.testing.assert_array_equal(*scores)

@@ -19,12 +19,13 @@ Tolerances, each stated where it is checked:
   scores within 1e-5 for every pooling, ingress and decode option. Random
   weights give near-tied scores, so the two runs' metrics are not
   compared; the port's metrics are held within 1e-12 of scikit-learn on
-  the port's own pooled scores. INT8 leg on a committed fuzz graph:
+  the port's own pooled scores. INT8 leg on the committed flagship bundle:
   pooled scores at cosine >= 0.999 per file and within 2/256 (the JAX
   package feeds the executor from its XLA composition, the port from the
   kernel's plain version, which can move an entry code by one).
 """
 
+import json
 import math
 
 import jax.numpy as jnp
@@ -45,8 +46,9 @@ from birdnet_stm32_tpu_torch.evaluation import metrics as PM
 from birdnet_stm32_tpu_torch.evaluation import pooling as PP
 from birdnet_stm32_tpu_torch.evaluation import ranking as R
 from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner, load_model_runner
+from tests.int8_fixture import FLAGSHIP_TFLITE
 from tests.test_torch_cpu_warmup import warm_up
-from tests.torch_fuzz_fixtures import load as load_fuzz
+from tests.torch_fuzz_fixtures import bad_outputs
 from tests.torch_train_fixtures import write_run_dir, write_wav_folder
 
 warm_up()
@@ -299,32 +301,54 @@ def test_evaluate_latency_memory_and_guards(data):
                     data[4], device="cpu")
 
 
-# The smallest committed fuzz graph (librosa + none, sigmoid head, four
-# classes a-d at 4 kHz): the JAX executor compiles it fastest.
-FUZZ_GRAPH = 3
+# The INT8 leg runs the committed flagship bundle (a trained 100-class
+# graph at 22.05 kHz; its pooled scores vary, from 0.07 to 0.98 per file on
+# these WAVs) over three of its classes. The committed fuzz graphs would not
+# do: graph 3 scores 0.5 for every class on any input.
+FLAGSHIP_CLASSES = 3
+
+
+@pytest.fixture(scope="module")
+def int8_leg(tmp_path_factory):
+    """The port's and the JAX package's evaluate of the flagship bundle on
+    WAVs of three of its classes (and noise) at its rate."""
+    cfg_dict = json.loads((FLAGSHIP_TFLITE.parent / "model_config.json").read_text())
+    classes = cfg_dict["class_names"]
+    root = write_wav_folder(tmp_path_factory.mktemp("flagship") / "data", sample_rate=22050,
+                            classes=classes[:FLAGSHIP_CLASSES], files_per_class=2, seed=3)
+    files = sorted(str(p) for p in root.rglob("*.wav"))
+    port = PM.evaluate(TFLiteSimRunner(FLAGSHIP_TFLITE, device="cpu"), files, classes,
+                       ModelConfig.from_dict(cfg_dict), batch_size=8, device="cpu")
+    ref = JM.evaluate(JTFLiteSimRunner(FLAGSHIP_TFLITE), files, classes,
+                      JaxModelConfig.from_dict(cfg_dict), batch_size=8)
+    return port, ref
+
+
+def _int8_scores_match(y_scores, jy_scores) -> bool:
+    """The INT8 leg's gate: within 2/256 and per-file cosine >= 0.999."""
+    cos = (y_scores * jy_scores).sum(1) / (np.linalg.norm(y_scores, axis=1)
+                                           * np.linalg.norm(jy_scores, axis=1))
+    return bool(np.abs(y_scores - jy_scores).max() <= 2 / 256 and cos.min() >= 0.999)
 
 
 @pytest.mark.filterwarnings("ignore")
-def test_evaluate_int8_leg_matches_jax(data, tmp_path):
-    """The INT8 leg on a committed fuzz graph; class d has no file."""
-    files = data[0]
-    fx = load_fuzz(FUZZ_GRAPH)
-    path = tmp_path / "fuzz.tflite"
-    path.write_bytes(fx.tflite)
-    classes = fx.cfg["class_names"]
-    metrics, _, y_true, y_scores = PM.evaluate(
-        TFLiteSimRunner(fx.tflite, device="cpu"), files, classes, ModelConfig.from_dict(fx.cfg),
-        batch_size=8, device="cpu")
-    jm, _, jy_true, jy_scores = JM.evaluate(JTFLiteSimRunner(path), files, classes,
-                                            JaxModelConfig.from_dict(fx.cfg), batch_size=8)
+def test_evaluate_int8_leg_matches_jax(int8_leg):
+    """The INT8 leg on the flagship bundle; 97 of its classes have no file."""
+    (metrics, _, y_true, y_scores), (jm, _, jy_true, jy_scores) = int8_leg
     np.testing.assert_array_equal(y_true, jy_true)
     assert metrics["total_chunks"] == jm["total_chunks"]
-    np.testing.assert_allclose(y_scores, jy_scores, rtol=0, atol=2 / 256)
-    cos = (y_scores * jy_scores).sum(1) / (np.linalg.norm(y_scores, axis=1)
-                                           * np.linalg.norm(jy_scores, axis=1))
-    assert cos.min() >= 0.999
+    assert np.ptp(jy_scores, axis=1).min() > 4 / 256  # scores that vary
+    assert _int8_scores_match(y_scores, jy_scores)
     _hold_metrics_to_sklearn(metrics, y_true, y_scores)
-    assert metrics["ap_per_class"][3] == 0.0  # no positive: AP 0.0, averaged into cmAP
+    assert metrics["ap_per_class"][FLAGSHIP_CLASSES] == 0.0  # no positive: AP 0.0
+
+
+@pytest.mark.parametrize("variant", ["constant", "shuffled"])
+def test_evaluate_int8_gate_bites(int8_leg, variant):
+    """The gate above fails on a constant and on a class-shuffled score
+    vector in place of the port's."""
+    jy_scores = int8_leg[1][3]
+    assert not _int8_scores_match(bad_outputs(jy_scores)[variant], jy_scores)
 
 
 # --- the metric helpers on the JAX package's pooled scores ----------------

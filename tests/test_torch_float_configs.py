@@ -36,7 +36,7 @@ from birdnet_stm32_tpu_torch.models.dscnn import RAW_MAX_SAMPLES, build_dscnn
 from birdnet_stm32_tpu_torch.models.frontend_layer import AudioFrontend, tri_mel_matrix
 from birdnet_stm32_tpu_torch.ops.frontend import inputs_for_config
 from tests.test_torch_cpu_warmup import warm_up
-from tests.torch_fuzz_fixtures import N_CONFIGS, load
+from tests.torch_fuzz_fixtures import N_CONFIGS, load, logits_match
 
 warm_up()
 
@@ -52,7 +52,10 @@ def _port_model(cfg: ModelConfig, variables, class_activation, learn_mel_scale=F
 def test_fuzz_config_scores_match_flax(i):
     """The configuration's JAX variables, carried across by convert.py, give
     the Flax model's scores within 1e-5; the committed golden is the Flax
-    model's output too."""
+    model's output too. The scores are near-uniform (config 1 reads 0.5 +-
+    3e-8), so the logits are held too: within LOGIT_SPREAD_RTOL of each
+    row's spread (tests/torch_fuzz_fixtures.py), which a constant or
+    class-shuffled row fails (tests/test_torch_fuzz_gates.py)."""
     f = load(i)
     jcfg = JaxModelConfig.from_dict(f.cfg)
     jmodel = j_build_dscnn(jcfg, class_activation=f.class_activation)
@@ -65,6 +68,12 @@ def test_fuzz_config_scores_match_flax(i):
         got = model(torch.from_numpy(f.features)).numpy()
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, atol=1e-5)
+    jlogits = j_build_dscnn(jcfg, class_activation="none")
+    ref = np.asarray(jax.jit(lambda v, x: jlogits.apply(v, x, train=False))(
+        v, jnp.asarray(f.features)))
+    model = _port_model(ModelConfig.from_dict(f.cfg), f.variables, "none")
+    with torch.no_grad():
+        assert logits_match(model(torch.from_numpy(f.features)).numpy(), ref)
 
 
 @pytest.mark.parametrize("i", range(N_CONFIGS))

@@ -157,16 +157,21 @@ def _port_sources():
     # which has no JAX.
     return sorted((REPO / "birdnet_stm32_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "int8_fixture.py",
-        REPO / "tests" / "int8_op_graphs.py", REPO / "tests" / "torch_fuzz_fixtures.py"]
+        REPO / "tests" / "int8_op_graphs.py", REPO / "tests" / "torch_fuzz_fixtures.py",
+        REPO / "tests" / "make_torch_convert_fixtures.py"]
 
 
 # TFLiteInterpreterRunner (graphs that are not full-int8) is the TFLite
 # interpreter itself, so it imports TensorFlow, inside its constructor only:
 # the module imports without it, and the card machine has none. Plots import
 # matplotlib inside evaluation/reporting.py's functions only, which skip
-# without it (the card machine has none either).
+# without it (the card machine has none either). The TFLite export builds
+# its graph in TensorFlow inside its functions, and the convert verb imports
+# it inside main() to exit 2 where it cannot (and for --onnx).
 LAZY_IMPORTS = {"birdnet_stm32_tpu_torch/models/runners.py": {"tensorflow"},
-                "birdnet_stm32_tpu_torch/evaluation/reporting.py": {"matplotlib"}}
+                "birdnet_stm32_tpu_torch/evaluation/reporting.py": {"matplotlib"},
+                "birdnet_stm32_tpu_torch/conversion/export_tflite.py": {"tensorflow"},
+                "birdnet_stm32_tpu_torch/cli/convert.py": {"tensorflow"}}
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
@@ -231,6 +236,17 @@ def test_port_sources_cover_the_evaluate_slice():
     for module in ("cli/evaluate.py", "cli/benchmark.py", "cli/board_test.py", "cli/profile.py",
                    "deploy/config.py", "evaluation/pooling.py", "evaluation/ranking.py",
                    "evaluation/reporting.py", "models/registry.py", "models/profiler.py"):
+        assert f"birdnet_stm32_tpu_torch/{module}" in scanned
+
+
+def test_port_sources_cover_the_convert_and_deploy_slice():
+    """The scan reaches every module of the convert and deploy verbs and the
+    API tail that rode with them."""
+    scanned = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for module in ("quant/validate.py", "quant/calibrate.py", "models/convert.py",
+                   "conversion/__init__.py", "conversion/export_tflite.py",
+                   "conversion/pipeline.py", "cli/convert.py", "deploy/headers.py",
+                   "cli/deploy.py", "models/__init__.py", "audio/spectrogram.py"):
         assert f"birdnet_stm32_tpu_torch/{module}" in scanned
 
 
