@@ -4,8 +4,8 @@ The port's verbs: `serve`, `train`, `evaluate`, `benchmark`, `board-test`,
 `profile`, `convert` and `deploy`, each on CUDA by default (`--device cpu`
 for the CPU; `profile` is analytical and runs nowhere). `convert` needs
 TensorFlow for its TFLite export and exits with code 2 where it cannot be
-imported; `convert --stablehlo` and `deploy --stablehlo` exit with code 2
-(ROADMAP.md Queue 1 item 5).
+imported. `train` runs data-parallel under torchrun
+(parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ COMMANDS = {
     "profile": ("birdnet_stm32_tpu_torch.cli.profile",
                 "Analytical per-layer parameters, MACs and activation bytes"),
     "convert": ("birdnet_stm32_tpu_torch.cli.convert",
-                "Run directory -> INT8 TFLite with the cosine gate (needs TensorFlow)"),
+                "Run directory or .keras -> INT8 TFLite with the cosine gate (needs TensorFlow)"),
     "deploy": ("birdnet_stm32_tpu_torch.cli.deploy",
                "Package a model, sidecars and firmware headers into a bundle"),
 }

@@ -1,4 +1,4 @@
-"""WAV loading, resampling, chunking and saving (port of audio/io.py).
+"""Audio loading, resampling, chunking and saving (port of audio/io.py).
 
 A RIFF reader on numpy memmaps (chunk walker, PCM 8/16/24/32-bit and
 float32/64 to float32, mono downmix by the mean), the JAX package's window
@@ -6,12 +6,13 @@ policy, peak normalisation, polyphase resampling with
 `scipy.signal.resample_poly`, and overlap-aware chunking with a zero-padded
 tail. Any decode error returns an empty array, as in the JAX package.
 
-The JAX package decodes and resamples through its native library when it
-is built and falls back to this numpy code; the port has only the numpy
-code. Not ported (ROADMAP.md): compressed formats (the libav codec). A
-compressed file is a content miss everywhere: an empty array, and in the
-decoded-waveform cache a miss that is not persisted, as in the JAX package
-when its codec is absent.
+Where the JAX package uses its native library, the port uses its own
+(audio/native.py, built from the same C++ sources): the WAV window read
+and the resampler when the library builds, and the libav codec for
+compressed files (mp3, flac, ogg, m4a). Without the codec a compressed
+file is a content miss: an empty array, and in the decoded-waveform cache
+a miss that is not persisted, as in the JAX package when its codec is
+absent.
 
 The decoded-waveform cache (`cache_dir=`, `cached_waveform`): the whole
 file is decoded, downmixed and resampled to the target rate once, stored as
@@ -48,6 +49,10 @@ class WavInfo:
     def frames(self) -> int:
         bytes_per_frame = self.channels * (self.bits // 8)
         return self.data_bytes // bytes_per_frame if bytes_per_frame else 0
+
+    @property
+    def duration(self) -> float:
+        return self.frames / float(self.sample_rate) if self.sample_rate else 0.0
 
 
 def wav_info(path: str | Path) -> WavInfo:
@@ -116,9 +121,15 @@ def _decode_frames(info: WavInfo, start_frame: int, n_frames: int) -> np.ndarray
 
 
 def fast_resample(y: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
-    """Polyphase resampling with scipy.signal.resample_poly."""
+    """Polyphase resampling: the native resampler (audio/native.py) when its
+    library builds, else scipy.signal.resample_poly; both are scipy's
+    filter."""
     if sr_in == sr_out:
         return y.astype(np.float32, copy=False)
+    from birdnet_stm32_tpu_torch.audio import native
+
+    if native.available():
+        return native.resample_poly(y, sr_in, sr_out)
     # Imported here: scipy.signal takes seconds to import, and the loader's
     # spawn workers import this module whether or not they resample.
     from scipy.signal import resample_poly
@@ -174,9 +185,10 @@ def load_audio_window(
     rng: np.random.Generator | None = None,
     cache_dir: str | Path | None = None,
 ) -> np.ndarray:
-    """One contiguous mono window of a WAV: read -> downmix -> resample ->
-    peak-normalise. Returns an empty array on any error and for files that
-    are not WAV.
+    """One contiguous mono window: read -> downmix -> resample ->
+    peak-normalise. Returns an empty array on any error. Compressed files
+    (mp3, flac, ogg, m4a) decode through the libav codec when it is built,
+    and are empty without it.
 
     cache_dir serves the window from the decoded-waveform cache
     (cached_waveform), with the same offset, duration and peak policy; the
@@ -187,7 +199,8 @@ def load_audio_window(
             return _load_window_cached(path, sample_rate, max_duration, chunk_duration,
                                        random_offset, rng, cache_dir)
         if Path(path).suffix.lower() != ".wav":
-            return np.empty((0,), np.float32)
+            return _load_window_codec(path, sample_rate, max_duration, chunk_duration,
+                                      random_offset, rng)
         info = wav_info(path)
         if info.frames <= 0 or info.sample_rate <= 0:
             return np.empty((0,), np.float32)
@@ -196,10 +209,17 @@ def load_audio_window(
                                   random_offset, rng)
         if n <= 0:
             return np.empty((0,), np.float32)
-        frames = _decode_frames(info, start, n)
-        if frames.size == 0:
+        from birdnet_stm32_tpu_torch.audio import native
+
+        if native.available():
+            y = native.wav_read(path, start_frame=start, n_frames=n, downmix=True)
+        else:
+            frames = _decode_frames(info, start, n)
+            if frames.size == 0:
+                return np.empty((0,), np.float32)
+            y = frames.mean(axis=1).astype(np.float32, copy=False)
+        if y.size == 0:
             return np.empty((0,), np.float32)
-        y = frames.mean(axis=1).astype(np.float32, copy=False)
         if sr0 != sample_rate:
             y = fast_resample(y, sr0, sample_rate)
         peak = float(np.max(np.abs(y))) if y.size else 0.0
@@ -208,6 +228,32 @@ def load_audio_window(
         return y.astype(np.float32, copy=False)
     except Exception:
         return np.empty((0,), np.float32)
+
+
+def _load_window_codec(path, sample_rate, max_duration, chunk_duration, random_offset,
+                       rng) -> np.ndarray:
+    """load_audio_window of a compressed file through the libav codec: the
+    same window policy; the codec downmixes by the mean itself."""
+    from birdnet_stm32_tpu_torch.audio import native
+
+    if not native.codec_available():
+        return np.empty((0,), np.float32)
+    sr0, _, total_frames = native.codec_info(path)
+    if total_frames <= 0 or sr0 <= 0:
+        return np.empty((0,), np.float32)
+    start, n = _window_bounds(total_frames, sr0, max_duration, chunk_duration,
+                              random_offset, rng)
+    if n <= 0:
+        return np.empty((0,), np.float32)
+    y, sr0 = native.codec_decode(path, offset_frames=start, max_frames=n)
+    if y.size == 0:
+        return np.empty((0,), np.float32)
+    if sr0 != sample_rate:
+        y = fast_resample(y, sr0, sample_rate)
+    peak = float(np.max(np.abs(y))) if y.size else 0.0
+    if peak > 0.0:
+        y = y / peak
+    return y.astype(np.float32, copy=False)
 
 
 def _cache_key(path: Path, sample_rate: int) -> str:
@@ -225,13 +271,14 @@ def cached_waveform(path: str | Path, sample_rate: int, cache_dir: str | Path) -
     """The whole decoded mono waveform at `sample_rate`, through the .npy
     cache.
 
-    A hit returns a read-only memmap. A miss decodes the whole WAV,
-    downmixes and resamples it, and publishes the entry by an atomic
-    rename, so concurrent workers never see a torn file. A content failure
-    (an unparseable or empty file) is cached as an empty array; an OSError
-    or MemoryError is not persisted and returns empty for this call only.
-    A compressed file is a content miss that is not persisted: the port has
-    no codec, as the JAX package when its codec is not built.
+    A hit returns a read-only memmap. A miss decodes the whole file (a WAV
+    through the RIFF or native reader, a compressed file through the libav
+    codec), downmixes and resamples it, and publishes the entry by an
+    atomic rename, so concurrent workers never see a torn file. A content
+    failure (an unparseable or empty file) is cached as an empty array.
+    Environmental failures are not persisted and return empty for this call
+    only: an OSError, a MemoryError, or a compressed file while the codec
+    is not built (building it later recovers without wiping the cache).
     """
     path = Path(path)
     cache_dir = Path(cache_dir)
@@ -242,15 +289,27 @@ def cached_waveform(path: str | Path, sample_rate: int, cache_dir: str | Path) -
         except Exception:
             pass  # torn or corrupt entry: rebuild it
 
+    from birdnet_stm32_tpu_torch.audio import native
+
     y = np.empty((0,), np.float32)
-    if path.suffix.lower() != ".wav":
-        return y
     try:
-        info = wav_info(path)
-        if info.frames > 0 and info.sample_rate > 0:
-            y = _decode_frames(info, 0, info.frames).mean(axis=1).astype(np.float32, copy=False)
-            if y.size and info.sample_rate != sample_rate:
-                y = fast_resample(y, info.sample_rate, sample_rate)
+        if path.suffix.lower() == ".wav":
+            info = wav_info(path)
+            if info.frames > 0 and info.sample_rate > 0:
+                if native.available():
+                    y = native.wav_read(path, start_frame=0, n_frames=info.frames,
+                                        downmix=True)
+                else:
+                    y = _decode_frames(info, 0, info.frames).mean(axis=1).astype(
+                        np.float32, copy=False)
+                if y.size and info.sample_rate != sample_rate:
+                    y = fast_resample(y, info.sample_rate, sample_rate)
+        elif not native.codec_available():
+            return y  # environmental: the codec is not built
+        else:
+            data, sr0 = native.codec_decode(path, offset_frames=0, max_frames=0)
+            if data.size and sr0 > 0:
+                y = fast_resample(data, sr0, sample_rate) if sr0 != sample_rate else data
     except (OSError, MemoryError):
         return np.empty((0,), np.float32)  # environmental: retry next call
     except Exception:
@@ -313,11 +372,17 @@ def _load_window_cached(path, sample_rate, max_duration, chunk_duration, random_
 
 
 def audio_info(path: str | Path) -> WavInfo:
-    """Header probe of a supported audio file (WAV only in the port)."""
+    """WavInfo-shaped header probe of any supported audio file: WAVs
+    through the RIFF walker, compressed files through the libav codec (the
+    frame count is approximate for VBR streams; raises without the
+    codec)."""
     p = Path(path)
-    if p.suffix.lower() != ".wav":
-        raise ValueError(f"only WAV files are decoded by the port: {path}")
-    return wav_info(p)
+    if p.suffix.lower() == ".wav":
+        return wav_info(p)
+    from birdnet_stm32_tpu_torch.audio import native
+
+    sr, ch, frames = native.codec_info(p)
+    return WavInfo(str(p), sr, ch, 32, 3, 0, frames * ch * 4)
 
 
 def split_audio_into_chunks(

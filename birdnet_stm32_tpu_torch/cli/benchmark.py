@@ -377,7 +377,8 @@ def main(argv=None) -> int:
     dtype = torch.bfloat16 if args.bf16 else None
     device = resolve_device(args.device)
     args.config_path = resolve_config_path(args.model_path, args.config_path)
-    runner = load_model_runner(Path(args.model_path), dtype=dtype, device=device)
+    runner = load_model_runner(Path(args.model_path), dtype=dtype, device=device,
+                               config_path=args.config_path)
     cfg = getattr(runner, "cfg", None)
     if cfg is None:
         if args.config_path is None:

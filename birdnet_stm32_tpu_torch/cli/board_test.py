@@ -114,7 +114,7 @@ def main(argv=None) -> int:
 
         runner = TFLiteInterpreterRunner(model_p)
     else:
-        runner = load_model_runner(model_p, device=device)
+        runner = load_model_runner(model_p, device=device, config_path=config_path)
     from birdnet_stm32_tpu_torch.data.dataset import supported_audio_extensions
 
     files = sorted(str(p) for p in Path(dcfg.audio_dir).rglob("*")

@@ -1,5 +1,5 @@
-"""Convert CLI: a run directory of the port's `train` -> INT8 TFLite with the
-quality gate (port of cli/convert.py).
+"""Convert CLI: a run directory of the port's `train` or a reference .keras
+archive -> INT8 TFLite with the quality gate (port of cli/convert.py).
 
 Stratified calibration sampling, PTQ / dynamic / float conversion,
 validation with worst-case aggregation, the cosine gate, the validation
@@ -8,9 +8,11 @@ NPZ and the JSON report with the compression ratio. The port adds
 cpu for the CPU).
 
 The export needs TensorFlow: without it the verb exits with code 2 before
-it loads or calibrates anything. Reference .keras files (the transplant,
-ROADMAP.md Queue 1 item 3) and `--stablehlo` (Queue 1 item 5) exit with
-code 2 too.
+it loads or calibrates anything. A reference .keras archive is transplanted
+(models/transplant.py) with `--model_config` as its sidecar (default
+`<stem>_model_config.json`). `--stablehlo` also writes the portable serving
+module, a torch.export program, as `<out>.pt2` beside the .tflite
+(conversion/export_program.py).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ def get_args(argv=None):
     p = argparse.ArgumentParser("birdnet_stm32_tpu_torch convert")
     p.add_argument("--model_path", "--checkpoint_path", required=True,
                    help="run directory of the port's train (or the .keras name train "
-                        "mapped to one)")
+                        "mapped to one), or a reference .keras archive")
     p.add_argument("--data_path", "--data_path_train", default=None,
                    help="calibration audio directory (omitted: a random representative "
                         "dataset)")
@@ -46,7 +48,8 @@ def get_args(argv=None):
                    help="also write the structured conversion report here")
     p.add_argument("--no_npz", action="store_true")
     p.add_argument("--stablehlo", action="store_true",
-                   help="not available in the port (ROADMAP.md Queue 1 item 5); exits 2")
+                   help="also export the waveform -> scores serving module as a "
+                        "torch.export program (<out>.pt2)")
     p.add_argument("--onnx", "--export_onnx", action="store_true",
                    help="also export ONNX via tf2onnx when installed; prints a warning "
                         "and continues when it is not")
@@ -64,9 +67,6 @@ def _exit2(msg: str) -> int:
 
 def main(argv=None) -> int:
     args = get_args(argv)
-    if args.stablehlo:
-        return _exit2("--stablehlo is not ported: the port's portable module is a "
-                      "torch.export program (ROADMAP.md Queue 1 item 5)")
     try:
         import tensorflow  # noqa: F401
     except ImportError:
@@ -86,14 +86,19 @@ def main(argv=None) -> int:
     if run_equiv is not None:
         # train's --checkpoint_path name.keras trains into a run directory;
         # resolve the same way here.
-        run_dir, stem, out_default = run_equiv, model_path.stem, model_path.parent
+        stem, out_default = model_path.stem, model_path.parent
+        model, state_dict, cfg = load_checkpoint(run_equiv, device=args.device)
     elif model_path.suffix == ".keras":
-        return _exit2(f"{model_path}: reference .keras files cannot be loaded by the port "
-                      "yet (the transplant, ROADMAP.md Queue 1 item 3); convert a run "
-                      "directory of the port's train")
+        from birdnet_stm32_tpu_torch.models.transplant import load_reference_model
+
+        config_path = Path(args.model_config) if args.model_config else (
+            model_path.with_name(model_path.stem + "_model_config.json"))
+        model, state_dict, cfg = load_reference_model(model_path, config_path,
+                                                      device=args.device)
+        stem, out_default = model_path.stem, model_path.parent
     else:
-        run_dir, stem, out_default = model_path, model_path.name, model_path
-    model, state_dict, cfg = load_checkpoint(run_dir, device=args.device)
+        stem, out_default = model_path.name, model_path
+        model, state_dict, cfg = load_checkpoint(model_path, device=args.device)
 
     out_path = Path(args.output_path) if args.output_path else (
         out_default / f"{stem}_quantized.tflite")
@@ -129,6 +134,12 @@ def main(argv=None) -> int:
 
         Path(args.report_json).write_text(json.dumps(report, indent=2, default=float))
         ok("convert", f"conversion report -> {args.report_json}")
+    if args.stablehlo:
+        from birdnet_stm32_tpu_torch.conversion.export_program import export_serving_fn
+
+        program_path = out_path.with_suffix(".pt2")
+        program_path.write_bytes(export_serving_fn(model, cfg, device=args.device))
+        ok("convert", f"torch.export serving module -> {program_path}")
     if args.onnx:
         # Optional: an ONNX export failure never fails the conversion.
         try:

@@ -1,11 +1,15 @@
 """Deploy CLI: package a model into a deployment bundle (port of
 cli/deploy.py).
 
-The bundle holds the model (an INT8 .tflite, or a run directory of the
-port's `train`), its model_config.json and labels.txt, per-class
-thresholds when there are any, the reference STM32N6 firmware's
-`app_config.h` / `app_labels.h` (deploy/headers.py) and a manifest of every
-file's sha256 and size. Stages, as the reference's stedgeai flow:
+The bundle holds the model (an INT8 .tflite, a run directory of the port's
+`train` or a reference .keras archive), its model_config.json and
+labels.txt, per-class thresholds when there are any, the reference STM32N6
+firmware's `app_config.h` / `app_labels.h` (deploy/headers.py), with
+`--stablehlo` the portable serving module `serving_module.pt2` (a
+torch.export program of waveform -> scores at the deploy config's batch
+size: the INT8 executor for a .tflite, the float model otherwise;
+conversion/export_program.py), and a manifest of every file's sha256 and
+size. Stages, as the reference's stedgeai flow:
 
   generate  -> collect and copy the artifacts, generate the headers, write
                the manifest
@@ -15,9 +19,8 @@ file's sha256 and size. Stages, as the reference's stedgeai flow:
                output geometry
 
 `--dry_run` prints the plan, `--skip_validate` skips validation, and the
-reference's vendor-toolchain flags are accepted and ignored. `--stablehlo`
-exits with code 2: the port's portable module is ROADMAP.md Queue 1 item 5.
-The sidecar-path helpers are shared with the serving verbs.
+reference's vendor-toolchain flags are accepted and ignored. The
+sidecar-path helpers are shared with the serving verbs.
 """
 
 from __future__ import annotations
@@ -26,15 +29,19 @@ import argparse
 import hashlib
 import json
 import shutil
-import sys
 import time
 from pathlib import Path
+
+# The serving module's bundle name (the JAX bundle's serving_module.bin holds
+# StableHLO bytes; this one holds a saved torch.export program).
+PROGRAM_NAME = "serving_module.pt2"
 
 
 def get_args(argv=None):
     p = argparse.ArgumentParser("birdnet_stm32_tpu_torch deploy")
     p.add_argument("--model_path", "--model", dest="model_path", default="",
-                   help="quantized .tflite (or a run directory of the port's train)")
+                   help="quantized .tflite (or a run directory of the port's train, or a "
+                        "reference .keras archive)")
     p.add_argument("--model_config", default="",
                    help="model_config.json (default: derived from model path)")
     p.add_argument("--labels", default="",
@@ -48,7 +55,8 @@ def get_args(argv=None):
                         "--optimize_thresholds output). Default: thresholds.json next "
                         "to the model or config if present")
     p.add_argument("--stablehlo", action="store_true",
-                   help="not available in the port (ROADMAP.md Queue 1 item 5); exits 2")
+                   help="also export the serving function as a torch.export program "
+                        "(serving_module.pt2)")
     p.add_argument("--dry_run", action="store_true",
                    help="print the deployment plan without executing it")
     # The reference's vendor-toolchain paths: accepted so its invocations
@@ -102,9 +110,11 @@ def _sha256(path: Path) -> str:
 
 
 def build_bundle(model_path: Path, config_path: Path, labels_path: Path | None,
-                 out_dir: Path, dry_run: bool = False,
-                 thresholds_path: Path | None = None) -> dict:
-    """Assemble the deployment bundle; returns the manifest dict."""
+                 out_dir: Path, stablehlo: bool = False, dry_run: bool = False,
+                 batch_size: int = 64, thresholds_path: Path | None = None,
+                 device: str = "cuda") -> dict:
+    """Assemble the deployment bundle; returns the manifest dict. With
+    `stablehlo` the serving module is exported on `device`."""
     from birdnet_stm32_tpu_torch.config import ModelConfig
 
     cfg = ModelConfig.load(config_path)
@@ -146,6 +156,8 @@ def build_bundle(model_path: Path, config_path: Path, labels_path: Path | None,
             raise SystemExit(f"--thresholds not found: {thresholds_path}")
     if labels is not None:
         plan.append(("generate", "app_config.h + app_labels.h", out_dir / "firmware"))
+    if stablehlo:
+        plan.append(("export", "torch.export serving module", out_dir / PROGRAM_NAME))
 
     if dry_run:
         print("[deploy] dry run — planned actions:")
@@ -178,6 +190,22 @@ def build_bundle(model_path: Path, config_path: Path, labels_path: Path | None,
             files[f"firmware/{p.name}"] = {"sha256": _sha256(p), "bytes": p.stat().st_size}
         print(f"[deploy] firmware headers -> {hdr_cfg.parent}")
 
+    if stablehlo:
+        from birdnet_stm32_tpu_torch.conversion import export_program as X
+
+        if model_path.suffix == ".tflite":
+            blob = X.export_int8_serving_fn(model_path, cfg, batch_size=batch_size,
+                                            device=device)
+        else:
+            from birdnet_stm32_tpu_torch.models.runners import load_model_runner
+
+            runner = load_model_runner(model_path, device=device, config_path=config_path)
+            blob = X.export_serving_fn(runner.model, cfg, batch_size=batch_size, device=device)
+        dst = out_dir / PROGRAM_NAME
+        dst.write_bytes(blob)
+        files[dst.name] = {"sha256": _sha256(dst), "bytes": dst.stat().st_size}
+        print(f"[deploy] torch.export serving module -> {dst} ({len(blob)} bytes)")
+
     manifest = {
         "model": model_path.name,
         "num_classes": cfg.num_classes,
@@ -204,7 +232,8 @@ def validate_bundle(out_dir: Path, model_name: str, batch_size: int = 8,
     from birdnet_stm32_tpu_torch.models.serving import make_fused_classifier
 
     cfg = ModelConfig.load(out_dir / "model_config.json")
-    runner = load_model_runner(out_dir / model_name, device=device)
+    runner = load_model_runner(out_dir / model_name, device=device,
+                               config_path=out_dir / "model_config.json")
     classify = make_fused_classifier(runner, cfg, device=device)
     wave = np.zeros((batch_size, cfg.chunk_samples), np.float32)
     t0 = time.perf_counter()
@@ -221,11 +250,6 @@ def validate_bundle(out_dir: Path, model_name: str, batch_size: int = 8,
 
 def main(argv=None) -> int:
     args = get_args(argv)
-    if args.stablehlo:
-        print("[ERROR] --stablehlo is not ported: the port's portable module is a "
-              "torch.export program (ROADMAP.md Queue 1 item 5)", file=sys.stderr)
-        return 2
-
     from birdnet_stm32_tpu_torch.deploy.config import resolve_deploy_config
 
     cli_values = {"model_path": args.model_path or None,
@@ -262,8 +286,10 @@ def main(argv=None) -> int:
     print(f"[deploy] config: {config_path}")
     print(f"[deploy] bundle: {out_dir}")
 
-    build_bundle(model_path, config_path, labels_path, out_dir, dry_run=args.dry_run,
-                 thresholds_path=Path(args.thresholds) if args.thresholds else None)
+    build_bundle(model_path, config_path, labels_path, out_dir, stablehlo=args.stablehlo,
+                 dry_run=args.dry_run, batch_size=dcfg.batch_size,
+                 thresholds_path=Path(args.thresholds) if args.thresholds else None,
+                 device=args.device)
     if args.dry_run:
         return 0
     if not args.skip_validate:

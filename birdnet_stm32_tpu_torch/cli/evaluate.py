@@ -8,10 +8,10 @@ with the best and worst 10 APs, ASCII histogram / PR / DET curves and
 confusion matrix, species and predictions CSVs, threshold optimisation,
 bootstrap intervals, the benchmark JSON, the HTML report, latency and
 memory profiling, embeddings. The port adds `--device` (default cuda;
-nothing falls back to the CPU on its own). It evaluates .tflite models and
-the run directories the port's `train` writes (float32, or bf16 with
-`--bf16`); a reference .keras file or a JAX (orbax) run directory raises
-(models/runners.py::load_model_runner).
+nothing falls back to the CPU on its own). It evaluates .tflite models,
+the run directories the port's `train` writes and reference .keras
+archives (float32, or bf16 with `--bf16`); a JAX (orbax) run directory
+raises (models/runners.py::load_model_runner).
 """
 
 from __future__ import annotations
@@ -119,7 +119,8 @@ def main(argv=None) -> int:
     dtype = torch.bfloat16 if args.bf16 else None
     device = resolve_device(args.device)
     args.config_path = resolve_config_path(model_path, args.config_path)
-    runner = load_model_runner(model_path, dtype=dtype, device=device)
+    runner = load_model_runner(model_path, dtype=dtype, device=device,
+                               config_path=args.config_path)
     cfg = getattr(runner, "cfg", None)
     if cfg is None:
         if args.config_path is None:

@@ -8,9 +8,9 @@ score at 4 decimals. Files already in the results file are skipped on
 restart, so the service resumes where it stopped.
 
 The port adds `--device` (default cuda; nothing falls back to the CPU on
-its own). It serves .tflite models and the run directories the port's
-`train` writes (float32, or bf16 with `--bf16`; models/runners.py::
-load_model_runner); reference .keras files raise NotImplementedError.
+its own). It serves .tflite models, the run directories the port's
+`train` writes and reference .keras archives (float32, or bf16 with
+`--bf16`; models/runners.py::load_model_runner).
 With a .tflite `--bf16` is accepted and ignored, as in the JAX package,
 and the lines served are the same as without it.
 """
@@ -223,7 +223,8 @@ def main(argv=None) -> int:
     dtype = torch.bfloat16 if args.bf16 else None
     device = resolve_device(args.device)
     config_path = resolve_config_path(args.model_path, args.config_path)
-    runner = load_model_runner(Path(args.model_path), dtype=dtype, device=device)
+    runner = load_model_runner(Path(args.model_path), dtype=dtype, device=device,
+                               config_path=config_path)
     if config_path is None:
         raise SystemExit("--config_path required for .tflite models (no "
                          f"model_config.json sidecar found next to {args.model_path})")

@@ -3,9 +3,17 @@
 
     python -m birdnet_stm32_tpu_torch train --data_path_train DIR [--device cpu] ...
 
-The flags and defaults are the JAX package's. Training runs on one device,
-CUDA by default (`--device cpu` for the CPU); `--no_mesh` is accepted and
-changes nothing. The feed is int16 by default (`--train_feed`): the
+The flags and defaults are the JAX package's. Training runs on CUDA by
+default (`--device cpu` for the CPU). Under torchrun it trains
+data-parallel, one rank per process (parallel/distributed.py: NCCL where
+each rank has a card of its own, else gloo), each rank loading its shard of
+the files, with the global batch's step; only rank 0 writes the run
+directory and logs:
+
+    torchrun --nproc_per_node 2 -m birdnet_stm32_tpu_torch train ...
+
+`--no_mesh` keeps one process's training even under torchrun's
+environment. The feed is int16 by default (`--train_feed`): the
 batcher dequantizes on the device, then the frontend kernel computes the
 features. `--cache_dir` serves the decode from the decoded-waveform cache
 (audio/io.py::cached_waveform).
@@ -129,7 +137,7 @@ def get_args(argv=None):
                         "restart the optimizer")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--no_mesh", action="store_true",
-                   help="accepted; the port trains on one device")
+                   help="train in this process alone (no process group under torchrun)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu for the CPU)")
     # Modes
@@ -160,7 +168,8 @@ def build_loaders(args, for_qat: bool = False, ship: str = "float32"):
     """Discover files, split, upsample (not for QAT), and build the train
     and validation loaders. ship: the training feed, 'float32' | 'int16' |
     'ulaw'; validation always ships float32 (one chunk per file, fixed
-    offsets, 5x the activity threshold, FIFO)."""
+    offsets, 5x the activity threshold, FIFO). Under a process group both
+    loaders read this rank's shard of their files."""
     import dataclasses
 
     from birdnet_stm32_tpu_torch.data.dataset import (
@@ -170,7 +179,9 @@ def build_loaders(args, for_qat: bool = False, ship: str = "float32"):
         upsample_minority_classes,
     )
     from birdnet_stm32_tpu_torch.data.pipeline import AudioLoader, LoaderConfig
+    from birdnet_stm32_tpu_torch.parallel.distributed import host_shard
 
+    shard, num_shards = host_shard()
     rng = np.random.default_rng(args.seed)
     classes = None
     if args.top_n_classes:
@@ -210,14 +221,15 @@ def build_loaders(args, for_qat: bool = False, ship: str = "float32"):
     # keeps the threads.
     train_loader = AudioLoader(
         paths, one_hot_labels(labels, class_names), lcfg,
-        batch_size=args.batch_size, num_workers=args.num_workers, executor="process")
+        batch_size=args.batch_size, num_workers=args.num_workers, executor="process",
+        shard_index=shard, num_shards=num_shards)
     val_lcfg = dataclasses.replace(
         lcfg, random_offset=False, max_chunks_per_file=1,
         snr_threshold=args.snr_threshold * 5.0, ship_int16=False, ship_ulaw=False)
     val_loader = AudioLoader(
         val_paths, one_hot_labels(val_labels, class_names), val_lcfg,
         batch_size=args.batch_size, num_workers=args.num_workers,
-        shuffle=False, infinite=False)
+        shuffle=False, infinite=False, shard_index=shard, num_shards=num_shards)
     return train_loader, val_loader, class_names, labels
 
 
@@ -245,19 +257,36 @@ def _train_then_close(loader, fn):
 
 def main(argv=None) -> int:
     args = get_args(argv)
+    from birdnet_stm32_tpu_torch.parallel import distributed
 
+    # Before anything else: the loaders' shards and the device follow the
+    # rank (a no-op without torchrun's environment).
+    joined = not args.no_mesh and distributed.initialize_distributed()
+    try:
+        return _main(args)
+    finally:
+        if joined:
+            distributed.destroy()
+
+
+def _main(args) -> int:
     from birdnet_stm32_tpu_torch.config import ModelConfig, normalize_frontend_name
     from birdnet_stm32_tpu_torch.data.pipeline import make_train_batcher
     from birdnet_stm32_tpu_torch.data.species import save_species_list
     from birdnet_stm32_tpu_torch.device import resolve_device
     from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn, init_model
     from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import frontend_input
+    from birdnet_stm32_tpu_torch.parallel.distributed import host_shard, local_device
     from birdnet_stm32_tpu_torch.training.losses import make_loss_fn
     from birdnet_stm32_tpu_torch.training.trainer import AdaptiveLoaderTuner, train_model
     from birdnet_stm32_tpu_torch.utils.logging import info, ok
     from birdnet_stm32_tpu_torch.utils.prng import set_global_seed
 
-    device = resolve_device(args.device)
+    device = resolve_device(local_device(args.device))
+    rank, world = host_shard()
+    if world > 1 and (args.linear_probe or args.find_lr or args.tune):
+        raise SystemExit("--linear_probe, --find_lr and --tune train in one process: "
+                         "run them without torchrun or with --no_mesh")
     set_global_seed(args.seed)
     args.audio_frontend = normalize_frontend_name(args.audio_frontend)
     # The reference's head rule: mixup's label-union targets are multilabel,
@@ -392,12 +421,13 @@ def main(argv=None) -> int:
             label_smoothing=args.label_smoothing, class_weights=class_weights,
             device=device)
 
-    run_dir.mkdir(parents=True, exist_ok=True)
-    cfg.save(run_dir / "model_config.json")
-    save_species_list(class_names, run_dir / "labels.txt")
-    if keras_stem:
-        cfg.save(run_dir / f"{keras_stem}_model_config.json")
-        save_species_list(class_names, run_dir / f"{keras_stem}_labels.txt")
+    if rank == 0:
+        run_dir.mkdir(parents=True, exist_ok=True)
+        cfg.save(run_dir / "model_config.json")
+        save_species_list(class_names, run_dir / "labels.txt")
+        if keras_stem:
+            cfg.save(run_dir / f"{keras_stem}_model_config.json")
+            save_species_list(class_names, run_dir / f"{keras_stem}_labels.txt")
 
     _train_then_close(train_loader, lambda batches: train_model(
         model, cfg, batches, lambda: iter(val_loader), run_dir,

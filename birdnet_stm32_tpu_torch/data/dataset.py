@@ -4,9 +4,9 @@ upsampling, one-hot labels (port of data/dataset.py).
 Folders named {noise, silence, background, other} are left out of the
 class list, but their files are kept with all-zero labels. numpy only.
 
-The port decodes WAV only (audio/io.py, numpy); the compressed formats the
-JAX package reads through its native libav codec are not ported
-(ROADMAP.md).
+WAV always decodes (audio/io.py); mp3, flac, ogg and m4a join the
+extensions when the port's libav codec is built (audio/native.py), as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -17,13 +17,17 @@ from pathlib import Path
 
 import numpy as np
 
-AUDIO_EXTENSIONS = (".wav",)
+AUDIO_EXTENSIONS = (".wav",)  # always decodable (the RIFF reader)
+CODEC_EXTENSIONS = (".wav", ".mp3", ".flac", ".ogg", ".m4a")
 NOISE_LABELS = frozenset({"noise", "silence", "background", "other"})
 
 
 def supported_audio_extensions() -> tuple:
-    """The extensions the port decodes: WAV only."""
-    return AUDIO_EXTENSIONS
+    """The extensions the port decodes: the reference's SUPPORTED_AUDIO_EXTS
+    when the libav codec is available, else WAV only."""
+    from birdnet_stm32_tpu_torch.audio import native
+
+    return CODEC_EXTENSIONS if native.codec_available() else AUDIO_EXTENSIONS
 
 
 def _class_files(root: str | Path, extensions=None) -> dict[str, list[str]]:

@@ -44,6 +44,11 @@ class AudioLoader:
     executor 'thread' (default) decodes in a ThreadPoolExecutor (numpy
     releases the GIL); 'process' in a spawn pool, files_per_task files per
     task. num_workers=0 decodes in the calling thread.
+
+    shard_index / num_shards: each data-parallel rank iterates a disjoint
+    slice of the file list, order[shard_index::num_shards] of the same
+    epoch-keyed permutation on every rank (parallel/distributed.py::
+    host_shard).
     """
 
     paths: list[str]
@@ -55,6 +60,8 @@ class AudioLoader:
     infinite: bool = True
     reservoir_size: int = 1024
     loader_control: dict = field(default_factory=lambda: {"max_inflight_files": 64})
+    shard_index: int = 0
+    num_shards: int = 1
     worker_timeout: float = 120.0  # seconds without any result -> RuntimeError
     files_per_task: int = 8
     executor: str = "thread"
@@ -197,8 +204,11 @@ class AudioLoader:
             while True:
                 order = np.arange(len(self.paths))
                 if self.shuffle:
-                    # Epoch-keyed, independent of the reservoir generator.
+                    # Epoch-keyed, independent of the reservoir generator:
+                    # every rank draws the same permutation.
                     np.random.default_rng((self.cfg.seed, epoch)).shuffle(order)
+                if self.num_shards > 1:
+                    order = order[self.shard_index :: self.num_shards]
                 for i in order:
                     yield (self.paths[i], self.labels[i], self.cfg,
                            epoch * len(self.paths) + int(i))

@@ -4,10 +4,8 @@ raw-code rows or mu-law rows.
 
 numpy only (no torch): pool workers start with the `spawn` context and
 import just this module's graph (numpy and audio/; scipy only to
-resample). Bit-equal to the JAX package's worker on WAV files.
-
-Not ported: the decoded-waveform cache (`cache_dir`, the JAX package's
-audio/io.cached_waveform); setting it raises.
+resample). Bit-equal to the JAX package's worker on WAV files, and on
+compressed files where the libav codec is built (audio/native.py).
 """
 
 from __future__ import annotations

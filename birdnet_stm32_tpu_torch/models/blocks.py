@@ -33,6 +33,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from birdnet_stm32_tpu_torch.parallel import distributed
+
 # Keras BatchNormalization defaults, which the whole reference model uses
 # (torch's momentum is 1 - Keras momentum).
 BN_MOMENTUM = 0.99
@@ -143,15 +145,66 @@ class _KerasBatchNorm(nn.modules.batchnorm._BatchNorm):
         # batch_norm, which computes in float32 and rounds once.
         w, b = (t.to(torch.promote_types(t.dtype, torch.float32))
                 for t in (self.weight, self.bias))
-        y = F.batch_norm(x.to(out_dtype), None, None, w, b, True, 0.0, self.eps)
+        dims = [0, *range(2, x.dim())]
+        if distributed.host_shard()[1] > 1:
+            y, mean, var = _GlobalBatchNorm.apply(x, w, b, self.eps)
+            y = y.to(out_dtype)
+        else:
+            y = F.batch_norm(x.to(out_dtype), None, None, w, b, True, 0.0, self.eps)
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.detach().float(), dim=dims, correction=0)
         with torch.no_grad():
-            dims = [0, *range(2, x.dim())]
-            var, mean = torch.var_mean(x.detach().float(), dim=dims, correction=0)
             keep = 1.0 - self.momentum
             self.running_mean.mul_(keep).add_(self.momentum * mean)
             self.running_var.mul_(keep).add_(self.momentum * var)
             self.num_batches_tracked.add_(1)
         return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BN over the union of every rank's rows (the global batch
+    of the JAX package's data-parallel step; SyncBatchNorm's semantics), in
+    float32. Forward: the channel sums, the row count and the centred
+    squares are all-reduced (two passes), y = (x - mean) * invstd * w + b.
+    Backward: torch's batch-norm gradient with the sums of dy and of
+    dy * (x - mean) all-reduced; the scale's and bias's gradients stay this
+    rank's (the step averages every gradient over the ranks). Returns
+    (output, batch mean, biased batch variance)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, eps):
+        dims = [0, *range(2, x.dim())]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xf = x.float()
+        sums = torch.cat([xf.sum(dims), xf.new_tensor([x.numel() // x.shape[1]])])
+        distributed.all_reduce_sum_(sums)
+        count = sums[-1]
+        mean = sums[:-1] / count
+        xmu = xf - mean.view(shape)
+        sq = (xmu * xmu).sum(dims)
+        distributed.all_reduce_sum_(sq)
+        var = sq / count
+        invstd = torch.rsqrt(var + eps)
+        y = xmu * (invstd * w).view(shape) + b.view(shape)
+        ctx.save_for_backward(xmu, invstd, w, count)
+        ctx.dims, ctx.shape, ctx.in_dtype = dims, shape, x.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        xmu, invstd, w, count = ctx.saved_tensors
+        dims, shape = ctx.dims, ctx.shape
+        dyf = dy.float()
+        sum_dy = dyf.sum(dims)
+        sum_dy_xmu = (dyf * xmu).sum(dims)
+        grad_w, grad_b = sum_dy_xmu * invstd, sum_dy.clone()
+        sums = torch.cat([sum_dy, sum_dy_xmu])
+        distributed.all_reduce_sum_(sums)
+        mean_dy, mean_dy_xmu = (sums / count).chunk(2)
+        dx = (dyf - mean_dy.view(shape) - xmu * (invstd * invstd * mean_dy_xmu).view(shape)) \
+            * (invstd * w).view(shape)
+        return dx.to(ctx.in_dtype), grad_w.to(w.dtype), grad_b.to(w.dtype), None
 
 
 class BatchNorm1d(_KerasBatchNorm, nn.BatchNorm1d):

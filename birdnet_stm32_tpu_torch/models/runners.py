@@ -3,9 +3,9 @@ bf16), the INT8 integer graph and the TFLite interpreter (port of
 models/runners.py), and load_model_runner, which picks one from a model
 file.
 
-Not ported yet (ROADMAP.md, Queue 1): meshes, and loading reference
-.keras files (item 3). Run directories the port's `train` wrote load as
-TorchRunners.
+Reference .keras archives (models/transplant.py) and run directories the
+port's `train` wrote load as TorchRunners. The JAX runners' device meshes
+have no counterpart: one process serves on one device.
 """
 
 from __future__ import annotations
@@ -149,18 +149,20 @@ def _is_full_int8(graph: TFLiteGraph) -> bool:
 
 
 def load_model_runner(model_path: str | Path, dtype: torch.dtype | None = None,
-                      device: str | torch.device = "cuda"):
+                      device: str | torch.device = "cuda",
+                      config_path: str | Path | None = None):
     """The runner for a model file: a .tflite gives TFLiteSimRunner on
     `device` when the graph is full-int8, else TFLiteInterpreterRunner (host);
     a run directory of the port's `train` (or the .keras path train mapped
     to it) gives a TorchRunner of its best/ weights on `device`, with the
-    head train_state.json records. `dtype` (torch.bfloat16 for bf16
-    serving) applies to float checkpoints only; a .tflite ignores it, as in
-    the JAX package.
+    head train_state.json records; a reference .keras archive gives a
+    TorchRunner of its transplanted weights (models/transplant.py), with
+    `config_path` as its sidecar (default `<stem>_model_config.json` beside
+    it). `dtype` (torch.bfloat16 for bf16 serving) applies to float
+    checkpoints only; a .tflite ignores it, as in the JAX package.
 
-    Reference .keras files raise NotImplementedError (their transplant is
-    ROADMAP.md Queue 1 item 3); a JAX (orbax) run directory raises
-    ValueError (training/checkpoint.py::load_checkpoint).
+    A JAX (orbax) run directory raises ValueError
+    (training/checkpoint.py::load_checkpoint).
     """
     from birdnet_stm32_tpu_torch.training.checkpoint import keras_run_dir, load_checkpoint
 
@@ -175,8 +177,10 @@ def load_model_runner(model_path: str | Path, dtype: torch.dtype | None = None,
         model, _, cfg = load_checkpoint(run_dir, device=device)
         return TorchRunner(model, cfg, device=device, dtype=dtype)
     if p.suffix == ".keras":
-        raise NotImplementedError(
-            f"{model_path}: reference .keras files are not loadable in the port yet "
-            "(ROADMAP.md Queue 1 item 3); serve a run directory of the port's train "
-            "or a .tflite")
+        from birdnet_stm32_tpu_torch.models.transplant import load_reference_model
+
+        if config_path is None:
+            config_path = p.with_name(p.stem + "_model_config.json")
+        model, _, cfg = load_reference_model(p, config_path, device=device)
+        return TorchRunner(model, cfg, device=device, dtype=dtype)
     raise ValueError(f"Cannot infer runner type from {model_path}")

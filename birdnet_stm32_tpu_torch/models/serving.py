@@ -31,7 +31,9 @@ decode_for_classify and chunks_for_classify_int16 turn one WAV into the
 chunk batch each ingress takes (audio/io.py), through the decoded-waveform
 cache when given a cache_dir.
 
-Not ported yet (ROADMAP.md): meshes.
+One process serves on one device. Serving over several local devices (the
+JAX runners' mesh, which shards each batch over them) is not ported
+(ROADMAP.md Queue 1 item 7); on one card it is the identity.
 """
 
 from __future__ import annotations

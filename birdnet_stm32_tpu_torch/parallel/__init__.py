@@ -1,2 +1,2 @@
-"""The train and eval steps (port of birdnet_stm32_tpu/parallel/steps.py).
-The port trains on one device: there is no mesh."""
+"""Train and eval steps, and data-parallel training over torch.distributed
+(port of birdnet_stm32_tpu/parallel: steps.py, distributed.py, mesh.py)."""

@@ -1,5 +1,4 @@
-"""The train and eval steps on one device (port of parallel/steps.py; the
-port has no mesh).
+"""The train and eval steps (port of parallel/steps.py).
 
 The train step: train-mode forward (BN batch statistics, dropout), loss
 on the logits + the L2 of the block convolutions' kernels, gradients,
@@ -16,6 +15,13 @@ model's float32 buffers, the logits are cast to float32 before the loss,
 and the L2 term, the optimizer and the masters stay float32. Layers
 compute in the result dtype of their input and parameters
 (models/blocks.py::promote), as Flax's do.
+
+Data-parallel (parallel/distributed.py): under a process group each rank
+steps on its local rows, and the step is the global batch's, as the JAX
+step under GSPMD: the gradients are all-reduced to their mean before the
+optimizer and its global-norm clip, the reported loss is the ranks' mean,
+and train-mode BN takes its statistics over every rank's rows. Without a
+process group nothing changes.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from torch.func import functional_call
 
 from birdnet_stm32_tpu_torch.device import full_fp32
+from birdnet_stm32_tpu_torch.parallel import distributed
 
 MEL_MIXER = "audio_frontend.mel_mixer"
 # The kernels the reference regularizes: the stage blocks' depthwise,
@@ -112,9 +119,11 @@ def loss_and_grads(loss: torch.Tensor, params: dict[str, torch.Tensor]):
 @torch.no_grad()
 def apply_gradients(state: TrainState, tx, grads: dict[str, torch.Tensor],
                     keep: dict[str, bool] | None = None) -> torch.Tensor:
-    """The keep-mask on the gradients, the optimizer, the mask on the
-    updates, p + u in place, the NonNeg clamp; advances state.step and
-    returns the (masked) gradients' global norm."""
+    """The gradients' mean over the ranks (under a process group), the
+    keep-mask on the gradients, the optimizer, the mask on the updates,
+    p + u in place, the NonNeg clamp; advances state.step and returns the
+    (masked) gradients' global norm."""
+    distributed.all_reduce_mean_(list(grads.values()))
     if keep is not None:
         grads = _masked(grads, keep)
     grad_norm = global_norm(grads)
@@ -157,6 +166,7 @@ def make_train_step(
             loss, grads = loss_and_grads(loss, state.params)
         keep = None if frontend_trainable else freeze_mask(state.params, frontend_trainable)
         grad_norm = apply_gradients(state, tx, grads, keep)
+        distributed.all_reduce_mean_([loss])
         return state, {"loss": loss, "grad_norm": grad_norm}
 
     return step

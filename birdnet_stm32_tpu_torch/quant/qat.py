@@ -19,6 +19,7 @@ import torch
 from torch.func import functional_call
 
 from birdnet_stm32_tpu_torch.device import full_fp32
+from birdnet_stm32_tpu_torch.parallel import distributed
 from birdnet_stm32_tpu_torch.parallel.steps import (
     TrainState,
     apply_gradients,
@@ -67,6 +68,7 @@ def make_qat_train_step(
             loss, grads = loss_and_grads(loss, state.params)
         keep = freeze_mask(state.params, frontend_trainable=frontend_trainable, freeze_bn=True)
         grad_norm = apply_gradients(state, tx, grads, keep)
+        distributed.all_reduce_mean_([loss])
         return state, {"loss": loss, "grad_norm": grad_norm}
 
     return step

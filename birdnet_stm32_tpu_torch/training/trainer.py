@@ -24,6 +24,7 @@ from birdnet_stm32_tpu_torch.device import resolve_device
 from birdnet_stm32_tpu_torch.evaluation.ranking import roc_auc_score
 from birdnet_stm32_tpu_torch.models.blocks import BN_MOMENTUM
 from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import frontend_input
+from birdnet_stm32_tpu_torch.parallel import distributed
 from birdnet_stm32_tpu_torch.parallel.steps import TrainState, make_eval_step, make_train_step
 from birdnet_stm32_tpu_torch.training import checkpoint as ckpt
 from birdnet_stm32_tpu_torch.training.losses import make_loss_fn
@@ -126,11 +127,19 @@ def train_model(
     loss (distillation's [B, 2C] targets); on_epoch_end(epoch, metrics)
     runs after each epoch's bookkeeping and may raise (the tuner's
     pruning).
+
+    Under a process group (parallel/distributed.py) every rank runs this
+    with its own shard of the batches: the steps are the global batch's,
+    the ranks start from rank 0's weights, each rank's generator is seeded
+    from (seed, rank), the validation loss and ROC-AUC are taken over every
+    rank's validation rows, and only rank 0 writes the run directory.
     """
     dev = resolve_device(device)
     model.to(dev)
     run_dir = Path(run_dir)
-    run_dir.mkdir(parents=True, exist_ok=True)
+    main = distributed.is_main_process()
+    if main:
+        run_dir.mkdir(parents=True, exist_ok=True)
 
     if monitor not in ("val_loss", "val_roc_auc"):
         raise ValueError(f"monitor must be 'val_loss' or 'val_roc_auc', got {monitor!r}")
@@ -178,14 +187,17 @@ def train_model(
             kernel_l2=kernel_l2, compute_dtype=torch.bfloat16 if mixed_precision else None)
     eval_fn = make_eval_step(model, loss_fn, activation="sigmoid" if multilabel else "softmax")
 
-    gen = generator(seed, dev)
+    gen = generator(distributed.rank_seed(seed), dev)
     state = TrainState.create(model, tx)
     if resume and initial_epoch > 0 and not resume_weights_only:
         if ckpt.restore_full_state(run_dir, state, gen) is not None:
             info("resume", f"optimizer state restored (step {state.step}: moments and "
                  "schedule position continue)")
+            if not main:  # last/ holds rank 0's generator
+                gen = generator(distributed.rank_seed(seed + state.step), dev)
         else:
             info("resume", "no full-state checkpoint; the optimizer restarts fresh")
+    distributed.broadcast_state_([*state.params.values(), *state.buffers.values()])
 
     if batcher is None:
         def batcher(_generator, wave, labels):
@@ -227,6 +239,13 @@ def train_model(
             val_den += b
             y_true.append(np.asarray(labels))
             y_score.append(scores.cpu().numpy())
+        if distributed.host_shard()[1] > 1:
+            # The validation metrics over every rank's rows.
+            parts = distributed.gather_objects((val_num, val_den, y_true, y_score))
+            val_num = sum(p[0] for p in parts)
+            val_den = sum(p[1] for p in parts)
+            y_true = [a for p in parts for a in p[2]]
+            y_score = [a for p in parts for a in p[3]]
 
         # One device read for the epoch's losses.
         train_loss = float(np.mean(torch.stack(train_losses).cpu().numpy()))
@@ -246,15 +265,16 @@ def train_model(
             "val_s": round(time.perf_counter() - t_val0, 3),
         }
         history.append(epoch_metrics)
-        ckpt.append_history_csv(run_dir, epoch + 1, epoch_metrics)
         mval = val_loss if lower_better else auc
         improved = (np.isfinite(mval)
                     and (mval < best_val if lower_better else mval > best_val))
         new_best = mval if improved else best_val
-        ckpt.save_train_state(
-            run_dir, epoch + 1, multilabel=multilabel, monitor=monitor,
-            best_val=None if not np.isfinite(new_best) else new_best)
-        ckpt.save_full_state(run_dir, state, gen)
+        if main:
+            ckpt.append_history_csv(run_dir, epoch + 1, epoch_metrics)
+            ckpt.save_train_state(
+                run_dir, epoch + 1, multilabel=multilabel, monitor=monitor,
+                best_val=None if not np.isfinite(new_best) else new_best)
+            ckpt.save_full_state(run_dir, state, gen)
         if on_epoch_end is not None:
             on_epoch_end(epoch, epoch_metrics)
         info("train", f"epoch {epoch + 1}/{epochs} loss={train_loss:.4f} "
@@ -263,7 +283,8 @@ def train_model(
         if improved:
             best_val = mval
             best_variables = state.variables()
-            ckpt.save_checkpoint(run_dir, best_variables, cfg)
+            if main:
+                ckpt.save_checkpoint(run_dir, best_variables, cfg)
             ok("train", f"new best {monitor}={mval:.4f}, checkpoint saved")
             saved_any = True
             bad_epochs = 0
@@ -282,7 +303,9 @@ def train_model(
         warn("train", f"{monitor} never improved/went finite: saving the FINAL "
              "epoch's weights as best/ so the run stays usable")
         best_variables = state.variables()
-        ckpt.save_checkpoint(run_dir, best_variables, cfg)
+        if main:
+            ckpt.save_checkpoint(run_dir, best_variables, cfg)
 
-    ckpt.save_training_curves(run_dir, history)
+    if main:
+        ckpt.save_training_curves(run_dir, history)
     return best_variables, history

@@ -1,6 +1,7 @@
 """Tagged `[tag] msg` logging with optional ANSI colour (port of
 utils/logging.py, a copy). BIRDNET_TPU_QUIET silences it; NO_COLOR or a
-non-terminal stdout drops the colour.
+non-terminal stdout drops the colour. Under a data-parallel process group
+only rank 0 logs (parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -26,6 +27,10 @@ def _use_color() -> bool:
 def log(tag: str, msg: str, color: str | None = None) -> None:
     """Print a `[tag] msg` line, optionally colored."""
     if os.environ.get("BIRDNET_TPU_QUIET"):
+        return
+    from birdnet_stm32_tpu_torch.parallel.distributed import is_main_process
+
+    if not is_main_process():
         return
     prefix = f"[{tag}]"
     if color and _use_color():

@@ -261,10 +261,56 @@ It imports nothing of JAX. In order it:
    labels hash as the flagship's, its .tflite as the committed file. Every
    launch of the phase is counted from zero (4 linear launches). Prints
    one `deploy_phase` line: files, validate ms, launches;
-16. prints the `kernels` JSON line (the linear and mel + pwl entries with
+16. transplant phase: the committed flagship-geometry reference archive
+   (tests/goldens/torch_transplant/, seeded weights, softmax head) served
+   on CUDA through make_fused_classifier + classify_in_batches on the
+   hybrid requests (3 x 64 + 37): where h5py imports, through
+   load_model_runner on the .keras (its sidecar derived) and then the
+   `serve` verb on the serve phase's six files (six rows of 100 finite
+   scores); without h5py (the card machines this runs on have none), a
+   line says so and the committed transplanted weights are served with the
+   architecture and head read from the archive's config.json. Checks:
+   scores [229, 100] finite, the linear kernel launched once per batch and
+   nothing else, one batch within TRANSPLANT_CPU_ATOL of the same port on
+   the CPU;
+17. export phase: export_serving_fn of the archive's model on CUDA at
+   batch EXPORT_B, loaded back (load_serving_fn): within EXPORT_EAGER_ATOL
+   of the eager composition classifier and EXPORT_KERNEL_ATOL of the
+   kernel-fed make_fused_classifier (one linear launch); the INT8 export
+   of the flagship .tflite bit-equal to the eager executor fed by the
+   composition; `deploy --stablehlo` of the flagship bundle: the manifest
+   lists serving_module.pt2 and the module (batch 64) is bit-equal to the
+   executor. Prints export seconds, load ms and the programs' and the
+   eager paths' median ms (CUDA events), with the card's name and power
+   limit;
+18. codec phase: the native audio library (audio/native.py, built with
+   g++): the native WAV read of the serve phase's six files bit-equal to
+   the numpy reader, the native resampler within 5e-6 of scipy; where
+   libav is found, flac / ogg / mp3 tones encoded with codec_encode join
+   them, else a line says it is absent; `benchmark` of the bundle over
+   the folder on CUDA: a [BENCH] line per file and the linear kernel
+   launched once per device batch plus the warm-up batch. Prints the
+   decode ms per file (native and numpy RIFF, or codec);
+19. ddp phase (tests/torch_ddp_worker.py): one sgd step at lr DDP_LR of
+   the archive's model on DDP_ROWS rows of kernel features: (a) under a
+   NCCL process group of one rank, bit-equal to the step without a group
+   (each in a process of its own with torch's deterministic algorithms);
+   (b) two processes over gloo on the one card, each on half the rows,
+   against (a)'s process without a group on all of them, at the gates of
+   DDP_* and STEP_* (printed); (c) `train` in two ranks (gloo)
+   at the flagship's full width, 1 epoch x DDP_STEPS steps, each rank
+   counting its steps, validation batches and launches: DDP_STEPS steps
+   each, the linear kernel launched once per step and validation batch,
+   the same global losses on both ranks, best/ written by rank 0. Prints
+   the gates' readings, the wall seconds, each rank's median step ms (host
+   clock around the step and the read of its loss) and the card's name
+   and power limit;
+20. prints the `kernels` JSON line (the linear and mel + pwl entries with
    `train_launches` and `train_options_launches`, the linear entry with
-   `evaluate_launches`, `convert_launches` and `deploy_launches`), the
-   card's name and power limit, and last the `ok` JSON line.
+   `evaluate_launches`, `convert_launches`, `deploy_launches`,
+   `transplant_launches`, `export_launches`, `codec_launches` and
+   `ddp_launches`), the card's name and power limit, and last the `ok`
+   JSON line.
 
 Any failed check exits non-zero before the `ok` line.
 """
@@ -2520,6 +2566,376 @@ def deploy_phase(torch, np) -> int:
     return counts[linear]
 
 
+# The transplant, export, codec and DDP phases (16-19 of the docstring).
+TRANSPLANT_CPU_ATOL = 1e-4
+EXPORT_B = 8
+EXPORT_EAGER_ATOL = 1e-5
+EXPORT_KERNEL_ATOL = 1e-4
+CODEC_FORMATS = ("flac", "ogg", "mp3")
+DDP_ROWS = 16
+DDP_STEPS = 8
+DDP_TIMEOUT = 300
+# Two ranks against one process on the global batch: the same step in
+# another summation order. Loss 1e-5 and gradient norm 1e-4 relative, BN
+# statistics within 1e-4 of each tensor's largest value (the single-step
+# gates of tests/test_torch_train_step.py). The parameter updates take the
+# train phase's flagship gates (STEP_TENSOR_UPDATE_RTOL per tensor,
+# STEP_UPDATE_RTOL in L2 over all): at full width on 16 rows, train-mode
+# BN's backward cancels almost all of dy in the last stages (dy is nearly
+# constant over a channel before the global pooling), so float32 rounding
+# alone moves single tensors' gradients by ~2e-3 of their largest entry
+# (two exact formulas of the BN gradient in one process on the CPU); the
+# 1e-3 per-tensor gate holds on the tiny model (tests/test_torch_distributed.py).
+DDP_LOSS_RTOL, DDP_NORM_RTOL, DDP_STATS_RTOL = 1e-5, 1e-4, 1e-4
+# The flagship's gradients at init are ~1e-3 against weights ~1: at lr 1e-2
+# a weight's update is ~100 float32 ulps of the weight, and the rounding of
+# p + u alone reads as a few % of it. At lr 1.0 the updates are resolved.
+DDP_LR = 1.0
+
+
+def has_module(name: str) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(name) is not None
+
+
+def transplant_phase(torch, np, tmp: Path) -> dict[str, int]:
+    """(16): the reference .keras route; returns {path: linear launches}."""
+    from birdnet_stm32_tpu_torch.models.runners import TorchRunner, load_model_runner
+    from birdnet_stm32_tpu_torch.models.serving import classify_in_batches, make_fused_classifier
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from tests import make_torch_transplant_fixtures as TF
+
+    linear = frontend_kernel.kernel_name("linear", "none")
+    h5py = has_module("h5py")
+    if h5py:
+        runner = load_model_runner(TF.KERAS, device="cuda")
+        model, cfg = runner.model, runner.cfg
+        route = "load_model_runner (h5py)"
+    else:
+        print(json.dumps({"transplant_route": "h5py is absent on this machine: serving the "
+                          "committed transplanted state_dict with the archive's config.json "
+                          "(tests/make_torch_transplant_fixtures.py::archive_model); the "
+                          "serve verb on the .keras is skipped"}))
+        model, cfg = TF.archive_model(device="cuda")
+        runner = TorchRunner(model, cfg, device="cuda")
+        route = "archive_model (no h5py)"
+    classify = make_fused_classifier(runner, cfg, device="cuda")
+    requests = requests_for(np, cfg, REQUESTS)
+    frontend_kernel.launches.clear()
+    scores = np.concatenate([classify_in_batches(classify, r, batch_size=B)[0] for r in requests])
+    counts = dict(frontend_kernel.launches)
+    want = sum(-(-n // B) for n in REQUESTS)
+    if counts != {linear: want}:
+        fail(f"transplant: launches {counts}, want {{{linear!r}: {want}}}")
+    if scores.shape != (sum(REQUESTS), 100) or not np.isfinite(scores).all():
+        fail(f"transplant: scores {scores.shape}, finite {np.isfinite(scores).all()}")
+    cpu_model, _ = TF.archive_model(device="cpu")
+    cpu = make_fused_classifier(TorchRunner(cpu_model, cfg, device="cpu"), cfg, device="cpu")
+    err = float(np.abs(cpu(requests[0]) - scores[:B]).max())
+    if not err <= TRANSPLANT_CPU_ATOL:
+        fail(f"transplant: card vs CPU scores differ by {err}")
+    launches = {"classify": want}
+    if h5py:
+        audio = tmp / "transplant_audio"
+        audio.mkdir()
+        write_serve_files(np, audio)
+        frontend_kernel.launches.clear()
+        run_verb("serve", ["--model_path", str(TF.KERAS), "--audio_dir", str(audio),
+                           "--results_file", str(tmp / "transplant.tsv"), "--once"])
+        rows = tsv_rows(np, tmp / "transplant.tsv")
+        if len(rows) != len(SERVE_FILES) or not all(np.isfinite(v).all() and v.size == 100
+                                                     for _, v in rows.values()):
+            fail(f"transplant: serve rows {list(rows)}")
+        launches["serve"] = frontend_kernel.launches[linear]
+    print(json.dumps({"transplant_phase": {"route": route, "chunks": int(scores.shape[0]),
+                                           "launches": launches, "cuda_vs_cpu_max_abs": err,
+                                           "top1_mean": float(scores.max(axis=1).mean())}}))
+    return launches
+
+
+def export_phase(torch, np, tmp: Path) -> int:
+    """(17): the torch.export serving module; returns the linear kernel's
+    launches (the kernel-fed classifier it is held against)."""
+    from birdnet_stm32_tpu_torch.conversion import export_program as X
+    from birdnet_stm32_tpu_torch.models.runners import TorchRunner
+    from birdnet_stm32_tpu_torch.models.serving import make_fused_classifier
+    from birdnet_stm32_tpu_torch.ops.frontend import inputs_for_config
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from birdnet_stm32_tpu_torch.quant.tflite_import import TFLiteGraph, build_executor
+    from tests import make_torch_transplant_fixtures as TF
+
+    linear = frontend_kernel.kernel_name("linear", "none")
+    model, cfg = TF.archive_model(device="cuda")
+    wave = torch.from_numpy(requests_for(np, cfg, (EXPORT_B,))[0]).cuda()
+    t0 = time.perf_counter()
+    blob = X.export_serving_fn(model, cfg, batch_size=EXPORT_B, device="cuda")
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = X.load_serving_fn(blob)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    got = run(wave)
+    runner = TorchRunner(model, cfg, device="cuda")
+    with torch.no_grad():
+        eager = runner.forward(inputs_for_config(wave, cfg))
+    frontend_kernel.launches.clear()
+    fed = torch.from_numpy(make_fused_classifier(runner, cfg, device="cuda")(wave.cpu().numpy()))
+    launches = frontend_kernel.launches[linear]
+    eager_err = float((got - eager).abs().max())
+    kernel_err = float((got.cpu() - fed).abs().max())
+    if got.shape != (EXPORT_B, 100) or not torch.isfinite(got).all():
+        fail(f"export: program output {tuple(got.shape)}")
+    if not eager_err <= EXPORT_EAGER_ATOL or not kernel_err <= EXPORT_KERNEL_ATOL:
+        fail(f"export: program vs eager {eager_err}, vs kernel-fed classifier {kernel_err}")
+    if launches != 1:
+        fail(f"export: the kernel-fed classifier launched {launches} times, want 1")
+    run_ms = cuda_ms_median(torch, lambda: run(wave))
+    eager_ms = cuda_ms_median(torch, lambda: runner.forward(inputs_for_config(wave, cfg)))
+
+    t0 = time.perf_counter()
+    int8_blob = X.export_int8_serving_fn(FLAGSHIP_TFLITE, cfg, batch_size=EXPORT_B,
+                                         device="cuda")
+    int8_export_s = time.perf_counter() - t0
+    int8_run = X.load_serving_fn(int8_blob)
+    fwd = build_executor(TFLiteGraph(str(FLAGSHIP_TFLITE)), EXPORT_B, device="cuda")
+    int8_got, int8_ref = int8_run(wave), fwd(inputs_for_config(wave, cfg))
+    if not torch.equal(int8_got, int8_ref):
+        fail(f"export: INT8 program differs from the executor by "
+             f"{float((int8_got - int8_ref).abs().max())}")
+    int8_ms = cuda_ms_median(torch, lambda: int8_run(wave))
+    int8_eager_ms = cuda_ms_median(torch, lambda: fwd(inputs_for_config(wave, cfg)))
+
+    out = tmp / "deploy_stablehlo"
+    frontend_kernel.launches.clear()
+    run_verb("deploy", ["--model_path", str(FLAGSHIP_TFLITE), "--output_dir", str(out),
+                        "--stablehlo"])
+    launches += frontend_kernel.launches[linear]  # validate_bundle's batch
+    manifest = json.loads((out / "manifest.json").read_text())
+    entry = manifest["files"].get("serving_module.pt2")
+    program = out / "serving_module.pt2"
+    if entry is None or entry["bytes"] != program.stat().st_size:
+        fail(f"deploy --stablehlo: manifest files {sorted(manifest['files'])}")
+    bundle_run = X.load_serving_fn(program.read_bytes())
+    waves64 = torch.from_numpy(requests_for(np, cfg, (B,))[0]).cuda()
+    fwd64 = build_executor(TFLiteGraph(str(FLAGSHIP_TFLITE)), B, device="cuda")
+    if not torch.equal(bundle_run(waves64), fwd64(inputs_for_config(waves64, cfg))):
+        fail("deploy --stablehlo: the bundle's module differs from the executor")
+    print(json.dumps({"export_phase": {
+        "batch": EXPORT_B, "float_export_s": export_s, "float_load_ms": load_ms,
+        "float_program_ms": run_ms, "float_eager_composition_ms": eager_ms,
+        "program_vs_eager_max_abs": eager_err, "program_vs_kernel_fed_max_abs": kernel_err,
+        "int8_export_s": int8_export_s, "int8_program_ms": int8_ms,
+        "int8_eager_executor_ms": int8_eager_ms, "int8_bit_equal": True,
+        "program_bytes": len(blob), "int8_program_bytes": len(int8_blob),
+        "deploy_module_bytes": entry["bytes"], "card": card()}}))
+    return launches
+
+
+def codec_phase(torch, np, tmp: Path) -> dict[str, int]:
+    """(18): the native audio library and the codec; returns {path: linear
+    launches}."""
+    from birdnet_stm32_tpu_torch.audio import io as AIO
+    from birdnet_stm32_tpu_torch.audio import native
+    from birdnet_stm32_tpu_torch.config import ModelConfig
+    from birdnet_stm32_tpu_torch.models.serving import decode_for_classify
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+
+    linear = frontend_kernel.kernel_name("linear", "none")
+    cfg = ModelConfig.load(FLAGSHIP_TFLITE.parent / "model_config.json")
+    if not native.available():
+        fail(f"codec: the native library did not build ({native.NATIVE.error})")
+    audio = tmp / "codec_audio"
+    audio.mkdir()
+    write_serve_files(np, audio)
+    files = [audio / f[0] for f in SERVE_FILES]
+    codec = native.codec_available()
+    if codec:
+        rng = np.random.default_rng(7)
+        for i, ext in enumerate(CODEC_FORMATS):
+            t = np.arange(int(SR * (5 + 3 * i))) / SR
+            y = 0.5 * np.sin(2 * np.pi * rng.uniform(800, 5000) * t * (1 + 0.05 * t))
+            native.codec_encode(audio / f"tone_{i}.{ext}", y.astype(np.float32), SR)
+            files.append(audio / f"tone_{i}.{ext}")
+    else:
+        print(json.dumps({"codec": f"libav is absent on this machine ({native.CODEC.error}): "
+                          "the compressed formats are skipped; the native WAV reader and "
+                          "resampler are checked and timed"}))
+
+    def riff(path):  # the numpy reader and scipy, the library switched off
+        frames = AIO._decode_frames(AIO.wav_info(path), 0, AIO.wav_info(path).frames)
+        return frames.mean(axis=1).astype(np.float32)
+
+    decode_ms = {}
+    for path in files:
+        if path.suffix == ".wav":
+            got = native.wav_read(path)
+            if not np.array_equal(got, riff(path)):
+                fail(f"codec: the native WAV read of {path.name} differs from the numpy reader")
+            decode_ms[path.name] = {"native_ms": host_ms(lambda: native.wav_read(path)),
+                                    "riff_numpy_ms": host_ms(lambda: riff(path))}
+        else:
+            decode_ms[path.name] = {"codec_ms": host_ms(lambda: native.codec_decode(path))}
+    x = np.random.default_rng(3).normal(0, 0.3, 48000 * 10).astype(np.float32)
+    from scipy.signal import resample_poly
+
+    resample_err = float(np.abs(native.resample_poly(x, 48000, SR) - resample_poly(x, 147, 320)).max())
+    if not resample_err <= 5e-6:
+        fail(f"codec: the native resampler is {resample_err} from scipy")
+    chunks = [len(decode_for_classify(p, cfg)[0]) for p in files]
+    frontend_kernel.launches.clear()
+    out, timing = run_benchmark_verb(["--model_path", str(FLAGSHIP_TFLITE),
+                                      "--audio_dir", str(audio)])
+    want = sum(-(-k // B) for k in chunks) + 1
+    counts = dict(frontend_kernel.launches)
+    if counts != {linear: want} or out.count("[BENCH] read:") != len(files):
+        fail(f"codec: benchmark launches {counts} (want {want}), "
+             f"{out.count('[BENCH] read:')} files of {len(files)}")
+    print(json.dumps({"codec_phase": {"libav": codec, "files": [p.name for p in files],
+                                      "chunks": chunks, "decode_ms_per_file": decode_ms,
+                                      "resample_vs_scipy_max_abs": resample_err,
+                                      "benchmark": timing, "launches": want,
+                                      "card": card()}}))
+    return {"benchmark": want}
+
+
+def host_ms(fn, n: int = 5) -> float:
+    """Median host milliseconds of fn() over n calls after one warm-up."""
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[n // 2]
+
+
+def ddp_phase(torch, np, tmp: Path) -> dict[str, int]:
+    """(19): data-parallel training; returns {path: linear launches}."""
+    import os
+    import socket
+
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from tests import make_torch_transplant_fixtures as TF
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    linear = frontend_kernel.kernel_name("linear", "none")
+    model, cfg = TF.archive_model(device="cuda")
+    rng = np.random.default_rng(5)
+    frontend_kernel.launches.clear()
+    x = frontend_kernel.frontend_input(
+        torch.from_numpy(requests_for(np, cfg, (DDP_ROWS,))[0]).cuda(), cfg).cpu()
+    feature_launches = frontend_kernel.launches[linear]
+    y = torch.from_numpy((rng.random((DDP_ROWS, cfg.num_classes)) < 0.05).astype(np.float32))
+    data = {"cfg": cfg.to_dict(), "state_dict": {k: v.cpu() for k, v in model.state_dict().items()},
+            "x": x, "y": y, "optimizer": "sgd", "lr": DDP_LR, "steps": 1}
+    torch.save(data, tmp / "ddp_in.pt")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    env["PYTHONPATH"] = str(ROOT)
+
+    def worker(out: str, rank: int, world: int, port: int, backend: str):
+        return subprocess.Popen([sys.executable, "-m", "tests.torch_ddp_worker",
+                                 str(tmp / "ddp_in.pt"), str(tmp / out), str(rank), str(world),
+                                 str(port), backend, "cuda:0"], cwd=ROOT, env=env,
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    # (a) A NCCL world of one rank against no group, each in a process of
+    # its own with deterministic algorithms (two runs of the step are
+    # otherwise an ulp apart in places on the card).
+    wait_ranks([worker("ddp_none.pt", 0, 1, 0, "none"),
+                worker("ddp_nccl1.pt", 0, 1, free_port(), "nccl")], "ddp world of one")
+    one, world1 = (torch.load(tmp / f, weights_only=False) for f in ("ddp_none.pt", "ddp_nccl1.pt"))
+    world1_equal = world1["loss"] == one["loss"] and all(
+        torch.equal(world1["variables"][k], v) for k, v in one["variables"].items())
+    if not world1_equal:
+        fail("ddp: a NCCL world of one changes the step")
+
+    # (b) Two gloo processes on the one card, each on half the rows.
+    port = free_port()
+    t0 = time.perf_counter()
+    wait_ranks([worker("ddp_out.pt", rank, 2, port, "gloo") for rank in (0, 1)], "ddp step")
+    step_s = time.perf_counter() - t0
+    two = torch.load(tmp / "ddp_out.pt", weights_only=False)
+    loss_rel = abs(two["loss"][0] - one["loss"][0]) / abs(one["loss"][0])
+    norm_rel = abs(two["grad_norm"][0] - one["grad_norm"][0]) / abs(one["grad_norm"][0])
+    worst_update, worst_stats, diff2, ref2 = 0.0, 0.0, 0.0, 0.0
+    for k, ref in one["variables"].items():
+        got, ref = two["variables"][k].cpu(), ref.cpu()
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k.endswith(("running_mean", "running_var")):
+            worst_stats = max(worst_stats, float((got - ref).abs().max() / ref.abs().max()))
+        else:
+            u, ju = got - data["state_dict"][k], ref - data["state_dict"][k]
+            diff2 += float(((u - ju) ** 2).sum())
+            ref2 += float((ju ** 2).sum())
+            if ju.abs().max() > 0:
+                worst_update = max(worst_update, float((u - ju).abs().max() / ju.abs().max()))
+    gates = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+             "worst_tensor_update_rel": worst_update,
+             "update_l2_rel": math.sqrt(diff2 / ref2), "worst_bn_stat_rel": worst_stats}
+    if not (loss_rel <= DDP_LOSS_RTOL and norm_rel <= DDP_NORM_RTOL
+            and worst_update <= STEP_TENSOR_UPDATE_RTOL
+            and gates["update_l2_rel"] <= STEP_UPDATE_RTOL and worst_stats <= DDP_STATS_RTOL):
+        fail(f"ddp: two gloo ranks vs the global-batch step: {gates}")
+
+    # (c) `train` in two ranks (gloo: two ranks, one card), 8 steps each.
+    data_dir = tmp / "data"
+    port = free_port()
+    args = train_args(data_dir, tmp / "ddp_run", 1, DDP_STEPS, workers="0")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_ddp_worker", "train",
+                               str(tmp / "ddp_rank"), *args], cwd=ROOT,
+                              env={**env, "RANK": str(rank), "WORLD_SIZE": "2",
+                                   "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": "2",
+                                   "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in (0, 1)]
+    wait_ranks(procs, "ddp train")
+    train_s = time.perf_counter() - t0
+    ranks = [json.loads((tmp / f"ddp_rank{r}.json").read_text()) for r in (0, 1)]
+    launches = {"features": feature_launches}
+    for r, seen in enumerate(ranks):
+        want = seen["steps"] + seen["val"]
+        if seen["rc"] != 0 or seen["steps"] != DDP_STEPS or seen["launches"] != {linear: want} \
+                or not np.isfinite(seen["losses"]).all():
+            fail(f"ddp train rank {r}: {seen}")
+        launches[f"train_rank{r}"] = want
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        fail("ddp train: the ranks report different global losses")
+    if not (tmp / "ddp_run" / "best" / "state_dict.pt").exists():
+        fail("ddp train: rank 0 wrote no best/ checkpoint")
+    print(json.dumps({"ddp_phase": {
+        "world_of_one_nccl_bit_equal": world1_equal, "two_rank_gloo_step_gates": gates,
+        "two_rank_step_call_s": step_s, "train_two_ranks_s": train_s,
+        "rank_train_s": [s["seconds"] for s in ranks], "rank_val_batches": [s["val"] for s in ranks],
+        "rank_step_ms_median": [float(np.median(s["step_ms"])) for s in ranks],
+        "rank_step_ms_after_first": [float(np.median(s["step_ms"][1:])) for s in ranks],
+        "launches": launches, "card": card()}}))
+    return launches
+
+
+def wait_ranks(procs, what: str) -> None:
+    """Wait for every rank (DDP_TIMEOUT each); kill all and fail on a
+    timeout or a non-zero exit."""
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=DDP_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.communicate()
+            fail(f"{what}: a rank timed out")
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"{what}: rank {r} exited {p.returncode}:\n{out[-3000:]}")
+
+
 def main() -> None:
     import tempfile
 
@@ -2565,6 +2981,10 @@ def main() -> None:
                                  *batch)
         convert_launches = timed("convert", convert_phase, torch, np, Path(tmp))
         deploy_launches = timed("deploy", deploy_phase, torch, np)
+        transplant_launches = timed("transplant", transplant_phase, torch, np, Path(tmp))
+        export_launches = timed("export", export_phase, torch, np, Path(tmp))
+        codec_launches = timed("codec", codec_phase, torch, np, Path(tmp))
+        ddp_launches = timed("ddp", ddp_phase, torch, np, Path(tmp))
     tile_entries = timed("tile", tile_phase, torch, np, quant, entries)
     bench_launches = timed("bench", bench_phase, torch)
     print(json.dumps({"phase_seconds": seconds}))
@@ -2600,6 +3020,17 @@ def main() -> None:
             entry["launches"] += convert_launches + deploy_launches
             entry["convert_launches"] = convert_launches
             entry["deploy_launches"] = deploy_launches
+            # The last slice's paths: the .keras transplant, the export's
+            # kernel-fed comparison and its deploy, the native audio /
+            # codec benchmark and the data-parallel runs (each rank's
+            # process counted on its own).
+            for key, counts in (("transplant_launches", transplant_launches),
+                                ("codec_launches", codec_launches),
+                                ("ddp_launches", ddp_launches)):
+                entry["launches"] += sum(counts.values())
+                entry[key] = counts
+            entry["launches"] += export_launches
+            entry["export_launches"] = export_launches
         for path, n in options_launches.items():
             if entry["name"] == (mel_pwl if path.endswith("librosa_pwl") else linear):
                 entry["launches"] += n

@@ -255,10 +255,23 @@ def test_load_model_runner_dispatch(tmp_path):
     runner = PR.load_model_runner(FLAGSHIP_TFLITE, device="cpu")
     assert isinstance(runner, PR.TFLiteSimRunner)
     assert PR._is_full_int8(runner.graph) and JR._is_full_int8(JTFLiteGraph(str(FLAGSHIP_TFLITE)))
-    keras = tmp_path / "model.keras"
-    keras.write_bytes(b"\x00")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # A reference .keras archive loads through the transplant, with its
+    # `<stem>_model_config.json` sidecar by default or `config_path`.
+    from tests.torch_keras_archive import write_keras_archive
+    from tests.torch_train_fixtures import pair
+
+    _, variables, model, _, cfg = pair(seed=3)
+    keras = write_keras_archive(tmp_path / "model.keras", variables, class_activation="none")
+    with pytest.raises(FileNotFoundError, match="model_model_config.json"):
         PR.load_model_runner(keras, device="cpu")
+    cfg.save(tmp_path / "model_model_config.json")
+    x = np.random.default_rng(0).uniform(0, 1, (2, *cfg.input_shape())).astype(np.float32)
+    with torch.no_grad():
+        ref = model(torch.from_numpy(x)).numpy()
+    for kw in ({}, {"config_path": tmp_path / "model_model_config.json"}):
+        keras_runner = PR.load_model_runner(keras, device="cpu", **kw)
+        assert isinstance(keras_runner, PR.TorchRunner)
+        np.testing.assert_array_equal(keras_runner.predict(x), ref)
     # Run directories load (tests/test_torch_cli_train.py); one without the
     # port's best/state_dict.pt raises, a JAX (orbax) one saying so.
     with pytest.raises(FileNotFoundError, match="state_dict.pt"):

@@ -413,14 +413,33 @@ def test_verb_exits(converted, tmp_path, monkeypatch, capsys):
     with pytest.raises(SystemExit, match="no calibration audio"):
         verb(["convert", "--model_path", str(run), "--data_path", str(tmp_path / "empty"),
               "--device", "cpu"])
-    # --stablehlo and reference .keras files exit 2 with their ROADMAP item.
+    # --stablehlo writes the torch.export serving module beside the
+    # .tflite, and it scores the run's model; a reference .keras archive
+    # converts through the transplant with --model_config as its sidecar.
+    from birdnet_stm32_tpu_torch.conversion.export_program import load_serving_fn
+    from birdnet_stm32_tpu_torch.ops.frontend import inputs_for_config
+    from tests.torch_keras_archive import write_keras_archive
+
+    _cached_export(converted, monkeypatch)
     capsys.readouterr()
-    assert verb(["convert", "--model_path", str(run), "--stablehlo", "--device", "cpu"]) == 2
-    assert "Queue 1 item 5" in capsys.readouterr().err
+    assert verb(["convert", "--model_path", str(run), "--stablehlo", "--device", "cpu",
+                 "--min_cosine_sim", "0.0", "--output_path", str(tmp_path / "s.tflite")]) == 0
+    assert "torch.export serving module" in capsys.readouterr().out
+    model, _, cfg = PCKPT.load_checkpoint(run, device="cpu")
+    wave = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 0.1, (64, cfg.chunk_samples)).astype(np.float32))
+    with torch.no_grad():
+        ref_scores = model(inputs_for_config(wave, cfg))
+    got = load_serving_fn((tmp_path / "s.pt2").read_bytes())(wave)
+    torch.testing.assert_close(got, ref_scores, atol=1e-5, rtol=0)
     ref = tmp_path / "reference.keras"
-    ref.write_bytes(b"PK")
-    assert verb(["convert", "--checkpoint_path", str(ref), "--device", "cpu"]) == 2
-    assert "Queue 1 item 3" in capsys.readouterr().err
+    write_keras_archive(ref, state_dict_to_flax(model.state_dict()), class_activation="sigmoid")
+    cfg.save(tmp_path / "sidecar.json")
+    assert verb(["convert", "--checkpoint_path", str(ref), "--model_config",
+                 str(tmp_path / "sidecar.json"), "--device", "cpu", "--no_npz",
+                 "--min_cosine_sim", "0.0"]) == 0
+    report_line = capsys.readouterr().out
+    assert (tmp_path / "reference_quantized.tflite").exists(), report_line
     # Without TensorFlow the verb exits 2 before it loads or calibrates.
     monkeypatch.setitem(sys.modules, "tensorflow", None)
 

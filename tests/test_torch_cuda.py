@@ -783,3 +783,121 @@ def test_deploy_on_card(cuda, tmp_path):
     scores = [make_fused_classifier(load_model_runner(p, device="cuda"), cfg, device="cuda")(wave)
               for p in (FLAGSHIP_TFLITE, out / FLAGSHIP_TFLITE.name)]
     np.testing.assert_array_equal(*scores)
+
+
+# --- The last slice: the .keras transplant, the torch.export module, the
+# native audio library and the data-parallel step. chip_smoke.py's
+# transplant, export, codec and ddp phases run the same checks at full
+# width. ---
+
+
+@pytest.mark.cuda
+def test_transplant_serving_on_card(cuda):
+    """The committed flagship-geometry archive served on CUDA (through
+    load_model_runner where h5py imports, else the committed weights with
+    the archive's config.json): one linear launch per batch, scores within
+    1e-4 of the CPU."""
+    import importlib.util
+
+    from birdnet_stm32_tpu_torch.models.runners import TorchRunner, load_model_runner
+    from birdnet_stm32_tpu_torch.models.serving import make_fused_classifier
+    from tests import make_torch_transplant_fixtures as TF
+
+    if importlib.util.find_spec("h5py") is not None:
+        runner = load_model_runner(TF.KERAS, device="cuda")
+    else:
+        model, cfg = TF.archive_model(device="cuda")
+        runner = TorchRunner(model, cfg, device="cuda")
+    cpu_model, cfg = TF.archive_model(device="cpu")
+    wave = np.random.default_rng(4).normal(0, 0.1, (8, cfg.chunk_samples)).astype(np.float32)
+    frontend_kernel.launches.clear()
+    got = make_fused_classifier(runner, cfg, device="cuda")(wave)
+    assert dict(frontend_kernel.launches) == {kernel_name("linear", "none"): 1}
+    ref = make_fused_classifier(TorchRunner(cpu_model, cfg, device="cpu"), cfg, device="cpu")(wave)
+    assert got.shape == (8, 100) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_export_program_on_card(cuda):
+    """The float program within 1e-5 of the eager composition classifier on
+    CUDA; the INT8 program bit-equal to the eager executor."""
+    from birdnet_stm32_tpu_torch.conversion import export_program as X
+    from birdnet_stm32_tpu_torch.ops.frontend import inputs_for_config
+    from tests import make_torch_transplant_fixtures as TF
+
+    model, cfg = TF.archive_model(device="cuda")
+    wave = _wave(6, 4, cfg.chunk_samples) * 0.2
+    run = X.load_serving_fn(X.export_serving_fn(model, cfg, batch_size=4, device="cuda"))
+    with torch.no_grad(), full_fp32():
+        eager = model(inputs_for_config(wave, cfg))
+    assert (run(wave) - eager).abs().max() <= 1e-5
+    int8 = X.load_serving_fn(X.export_int8_serving_fn(FLAGSHIP_TFLITE, cfg, batch_size=4,
+                                                      device="cuda"))
+    fwd = build_executor(TFLiteGraph(str(FLAGSHIP_TFLITE)), 4, device="cuda")
+    assert torch.equal(int8(wave), fwd(inputs_for_config(wave, cfg)))
+
+
+@pytest.mark.cuda
+def test_native_audio_and_codec_on_card(cuda, tmp_path):
+    """The native WAV read equals the numpy reader; where libav is found,
+    a flac file `evaluate`s on CUDA with one linear launch per batch."""
+    from birdnet_stm32_tpu_torch.__main__ import main
+    from birdnet_stm32_tpu_torch.audio import io as AIO
+    from birdnet_stm32_tpu_torch.audio import native
+
+    if not native.available():
+        pytest.skip(f"the native library does not build here ({native.NATIVE.error})")
+    t = np.arange(int(22050 * 4.5)) / 22050
+    y = (0.5 * np.sin(2 * np.pi * 1500 * t)).astype(np.float32)
+    cls = ModelConfig.load(FLAGSHIP_TFLITE.parent / "model_config.json").class_names[0]
+    wav = tmp_path / "data" / cls / "a.wav"
+    AIO.save_wav(y, wav, 22050)
+    info = AIO.wav_info(wav)
+    np.testing.assert_array_equal(native.wav_read(wav),
+                                  AIO._decode_frames(info, 0, info.frames).mean(axis=1))
+    if not native.codec_available():
+        pytest.skip(f"libav not found here ({native.CODEC.error}); the WAV read was checked")
+    native.codec_encode(tmp_path / "data" / cls / "b.flac", y, 22050)
+    frontend_kernel.launches.clear()
+    assert main(["evaluate", "--model_path", str(FLAGSHIP_TFLITE), "--data_path_test",
+                 str(tmp_path / "data"), "--output_dir", str(tmp_path / "out"),
+                 "--batch_size", "4"]) == 0
+    assert set(frontend_kernel.launches) == {kernel_name("linear", "none")}
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_step_on_card(cuda, tmp_path):
+    """Two train steps under a NCCL process group of one rank are bit-equal
+    to the steps without a group (tests/torch_ddp_worker.py, each in a
+    process of its own with torch's deterministic algorithms)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from tests import make_torch_transplant_fixtures as TF
+
+    model, cfg = TF.archive_model(device="cpu")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((4, *cfg.input_shape())).astype(np.float32))
+    y = torch.from_numpy((rng.random((4, 100)) < 0.05).astype(np.float32))
+    torch.save({"cfg": cfg.to_dict(), "state_dict": model.state_dict(), "x": x, "y": y,
+                "optimizer": "adam", "lr": 1e-3, "steps": 2}, tmp_path / "in.pt")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = Path(__file__).resolve().parent.parent
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_ddp_worker",
+                               str(tmp_path / "in.pt"), str(tmp_path / out), "0", "1",
+                               str(port), backend, "cuda:0"], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for out, backend in (("none.pt", "none"), ("nccl.pt", "nccl"))]
+    for p in procs:
+        out, _ = p.communicate(timeout=300)
+        assert p.returncode == 0, out[-3000:]
+    ref, got = (torch.load(tmp_path / f, weights_only=False) for f in ("none.pt", "nccl.pt"))
+    assert got["loss"] == ref["loss"]
+    for k, v in ref["variables"].items():
+        assert torch.equal(got["variables"][k], v), k

@@ -9,7 +9,7 @@
   and every manifest equals the JAX build_bundle's for the same inputs (a
   .tflite, a run directory, the convert fixture);
 - the verb: --dry_run's plan equal to JAX's, the label-count guard,
-  --thresholds (explicit, picked up, missing), --stablehlo exit 2, the
+  --thresholds (explicit, picked up, missing), --stablehlo's module, the
   arguments and aliases equal to JAX's; validate_bundle on the CPU for a
   .tflite and for a run directory (the card's is chip_smoke.py's deploy
   phase and tests/test_torch_cuda.py).
@@ -164,8 +164,16 @@ def test_label_count_guard_and_thresholds(tmp_path):
 
 def test_verb_errors(tmp_path, capsys, monkeypatch):
     monkeypatch.chdir(tmp_path)  # no default deploy config here
-    assert verb(["deploy", "--model_path", str(FLAGSHIP_TFLITE), "--stablehlo"]) == 2
-    assert "Queue 1 item 5" in capsys.readouterr().err
+    # --stablehlo: the bundle gains the INT8 torch.export serving module
+    # (the deploy config's batch, 64), listed in the manifest.
+    assert verb(["deploy", "--model_path", str(FLAGSHIP_TFLITE), "--stablehlo",
+                 "--output_dir", str(tmp_path / "shlo"), "--skip_validate",
+                 "--device", "cpu"]) == 0
+    assert "torch.export serving module" in capsys.readouterr().out
+    manifest = json.loads((tmp_path / "shlo" / "manifest.json").read_text())
+    program = tmp_path / "shlo" / PDEP.PROGRAM_NAME
+    assert manifest["files"][PDEP.PROGRAM_NAME] == {"sha256": PDEP._sha256(program),
+                                                    "bytes": program.stat().st_size}
     assert verb(["deploy"]) == 1  # no model
     assert verb(["deploy", "--model_path", str(tmp_path / "none.tflite")]) == 1
     assert verb(["deploy", "--config", str(tmp_path / "none.toml")]) == 1

@@ -158,7 +158,9 @@ def _port_sources():
     return sorted((REPO / "birdnet_stm32_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tests" / "int8_fixture.py",
         REPO / "tests" / "int8_op_graphs.py", REPO / "tests" / "torch_fuzz_fixtures.py",
-        REPO / "tests" / "make_torch_convert_fixtures.py"]
+        REPO / "tests" / "make_torch_convert_fixtures.py",
+        REPO / "tests" / "make_torch_transplant_fixtures.py",
+        REPO / "tests" / "torch_keras_archive.py", REPO / "tests" / "torch_ddp_worker.py"]
 
 
 # TFLiteInterpreterRunner (graphs that are not full-int8) is the TFLite
@@ -167,11 +169,15 @@ def _port_sources():
 # matplotlib inside evaluation/reporting.py's functions only, which skip
 # without it (the card machine has none either). The TFLite export builds
 # its graph in TensorFlow inside its functions, and the convert verb imports
-# it inside main() to exit 2 where it cannot (and for --onnx).
+# it inside main() to exit 2 where it cannot (and for --onnx). The .keras
+# transplant and the test archive writer read and write HDF5 with h5py
+# inside their functions (the card machine has no h5py).
 LAZY_IMPORTS = {"birdnet_stm32_tpu_torch/models/runners.py": {"tensorflow"},
                 "birdnet_stm32_tpu_torch/evaluation/reporting.py": {"matplotlib"},
                 "birdnet_stm32_tpu_torch/conversion/export_tflite.py": {"tensorflow"},
-                "birdnet_stm32_tpu_torch/cli/convert.py": {"tensorflow"}}
+                "birdnet_stm32_tpu_torch/cli/convert.py": {"tensorflow"},
+                "birdnet_stm32_tpu_torch/models/transplant.py": {"h5py"},
+                "tests/torch_keras_archive.py": {"h5py"}}
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
@@ -180,7 +186,7 @@ def test_port_imports_no_jax(path):
     imports jax, flax, tensorflow, flatbuffers, sklearn, matplotlib or the
     JAX package (matched on the exact top-level name); the exceptions are
     LAZY_IMPORTS, and only inside a function body."""
-    banned = {"jax", "flax", "tensorflow", "flatbuffers", "sklearn", "matplotlib",
+    banned = {"jax", "flax", "tensorflow", "flatbuffers", "sklearn", "matplotlib", "h5py",
               "birdnet_stm32_tpu"}
     tree = ast.parse(path.read_text())
     in_function = {id(n) for f in ast.walk(tree)
@@ -237,6 +243,18 @@ def test_port_sources_cover_the_evaluate_slice():
                    "deploy/config.py", "evaluation/pooling.py", "evaluation/ranking.py",
                    "evaluation/reporting.py", "models/registry.py", "models/profiler.py"):
         assert f"birdnet_stm32_tpu_torch/{module}" in scanned
+
+
+def test_port_sources_cover_the_last_slice():
+    """The scan reaches the transplant, the export program, the native audio
+    library, the data-parallel modules and their fixtures and workers."""
+    scanned = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for module in ("models/transplant.py", "conversion/export_program.py", "audio/native.py",
+                   "parallel/mesh.py", "parallel/distributed.py"):
+        assert f"birdnet_stm32_tpu_torch/{module}" in scanned
+    for helper in ("make_torch_transplant_fixtures.py", "torch_keras_archive.py",
+                   "torch_ddp_worker.py"):
+        assert f"tests/{helper}" in scanned
 
 
 def test_port_sources_cover_the_convert_and_deploy_slice():

@@ -3,9 +3,10 @@
 the training loader) against the JAX package's cache, on WAV files written
 here.
 
-The JAX side runs with its native reader and resampler switched off
-(monkeypatch of birdnet_stm32_tpu.audio.native.available; no JAX file
-changes), so both packages decode and resample through numpy and scipy.
+Both packages run with their native readers and resamplers switched off
+(monkeypatch of each package's audio.native.available; no JAX file
+changes), so both decode and resample through numpy and scipy; the native
+libraries are held equal to each other in tests/test_torch_native.py.
 Tolerance: bit-equal, entries and windows alike, and the same cache key.
 """
 
@@ -18,6 +19,7 @@ import pytest
 from birdnet_stm32_tpu.audio import io as JIO
 from birdnet_stm32_tpu.audio import native as jnative
 from birdnet_stm32_tpu_torch.audio import io as PIO
+from birdnet_stm32_tpu_torch.audio import native as pnative
 from birdnet_stm32_tpu_torch.config import ModelConfig
 from birdnet_stm32_tpu_torch.data.pipeline import AudioLoader, LoaderConfig
 from birdnet_stm32_tpu_torch.data.worker import process_file
@@ -59,8 +61,9 @@ FILES = [("mono16", SR, 1, "pcm16"), ("stereo16", SR, 2, "pcm16"),
 
 @pytest.fixture
 def numpy_jax(monkeypatch):
-    """The JAX package's cache with its native library switched off."""
+    """Both packages' caches with their native libraries switched off."""
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(pnative, "available", lambda: False)
 
 
 @pytest.fixture(scope="module")
@@ -134,11 +137,21 @@ def test_content_failures_cached_environment_failures_not(tmp_path, monkeypatch)
     assert len(entries) == 1 and np.load(entries[0]).size == 0  # negative-cached
     assert PIO.load_audio_window(bad, SR, cache_dir=cache).size == 0
 
-    # A compressed file: the port has no codec, a miss that is not persisted.
+    # A compressed file that does not decode: without the codec a miss
+    # that is not persisted (the codec may be built later); with it a
+    # content failure, cached as empty, as in the JAX package.
+    from birdnet_stm32_tpu_torch.audio import native
+
     mp3 = tmp_path / "x.mp3"
     mp3.write_bytes(b"ID3" + bytes(64))
     assert PIO.cached_waveform(mp3, SR, tmp_path / "cache2").size == 0
-    assert not (tmp_path / "cache2").exists()
+    if not native.codec_available():
+        assert not (tmp_path / "cache2").exists()
+    else:
+        assert JIO.cached_waveform(mp3, SR, tmp_path / "jcache2").size == 0
+        entries = list((tmp_path / "cache2").glob("*.npy"))
+        assert [e.name for e in entries] == [e.name for e in (tmp_path / "jcache2").glob("*.npy")]
+        assert len(entries) == 1 and np.load(entries[0]).size == 0
 
     good = tmp_path / "good.wav"
     _write(good, _signal(9, SR * 2, 1), SR, "pcm16")
@@ -146,6 +159,7 @@ def test_content_failures_cached_environment_failures_not(tmp_path, monkeypatch)
     def oserror(*a, **k):
         raise OSError("too many open files")
 
+    monkeypatch.setattr(pnative, "available", lambda: False)  # decode through numpy
     monkeypatch.setattr(PIO, "_decode_frames", oserror)
     assert PIO.cached_waveform(good, SR, tmp_path / "cache3").size == 0
     assert not list((tmp_path / "cache3").glob("*.npy"))  # not persisted
