@@ -33,7 +33,8 @@ class DeployConfig:
     chunk_overlap: float = 0.0
     use_int8: bool = True          # .tflite: the INT8 executor on the device
                                    # (True) or the TFLite interpreter (False)
-    mesh_devices: int = 0          # kept for the file format; the port uses one device
+    mesh_devices: int = 0          # kept for the file format; read by no verb, as in JAX
+                                   # (a runner's mesh= is API only)
     output_csv: str = ""
     extra: dict = field(default_factory=dict)
 

@@ -4,8 +4,13 @@ models/runners.py), and load_model_runner, which picks one from a model
 file.
 
 Reference .keras archives (models/transplant.py) and run directories the
-port's `train` wrote load as TorchRunners. The JAX runners' device meshes
-have no counterpart: one process serves on one device.
+port's `train` wrote load as TorchRunners.
+
+The two device-side runners take `mesh=`, as the JAX runners do: a list of
+local devices (parallel/mesh.py::local_mesh; it may name one device more
+than once). Parameters are replicated on each distinct device, each batch
+is split into equal row blocks in mesh order, and the scores are gathered
+back in row order on mesh[0], the runner's `device`.
 """
 
 from __future__ import annotations
@@ -16,7 +21,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from birdnet_stm32_tpu_torch.device import full_fp32, resolve_device
+from birdnet_stm32_tpu_torch.device import resolve_device
+from birdnet_stm32_tpu_torch.parallel.mesh import gather, local_mesh, shard_batch
+from birdnet_stm32_tpu_torch.parallel.steps import infer_block, make_infer_fn
 from birdnet_stm32_tpu_torch.quant.tflite_import import (
     REQUANT_MODES,
     TFLiteGraph,
@@ -24,71 +31,107 @@ from birdnet_stm32_tpu_torch.quant.tflite_import import (
 )
 
 
+def _mesh_and_device(mesh, device) -> tuple[list[torch.device] | None, torch.device]:
+    """(the mesh or None, the runner's device): without a mesh `device`
+    (default CUDA); with one mesh[0], which `device`, when given, must name."""
+    if mesh is None:
+        return None, resolve_device("cuda" if device is None else device)
+    mesh = local_mesh(mesh)
+    if device is not None and resolve_device(device) != mesh[0]:
+        raise ValueError(f"device {device} is not the mesh's first device {mesh[0]}")
+    return mesh, mesh[0]
+
+
+def _host_scores(runner, x_batch: np.ndarray) -> np.ndarray:
+    """A runner's scores of host features, each row block copied to its
+    device and its scores straight back to the host."""
+    x = torch.as_tensor(np.asarray(x_batch, np.float32))
+    blocks = shard_batch(x, runner.mesh or [runner.device])
+    return np.concatenate([runner.forward_block(b).cpu().numpy() for b in blocks])
+
+
 class TorchRunner:
     """Float forward of a DSCNN on one device (default CUDA; raises if
-    there is none). The model is moved there and put in eval mode.
+    there is none) or over a local mesh (`mesh=`, module docstring). The
+    model is moved to `device` (mesh[0]) and put in eval mode; under a mesh
+    each other distinct device gets a deep copy (`replicas`).
 
     dtype=torch.bfloat16 serves in bf16, as the JAX FlaxRunner(dtype=...):
     a copy of the model gets every floating parameter and buffer (the BN
-    running statistics too) in bf16, features go in as bf16 and the scores
-    come out float32. The model passed in is left as it is. A device that
-    refuses a bf16 op raises; nothing falls back to float32.
+    running statistics too) in bf16, and so does each replica; features go
+    in as bf16 and the scores come out float32. The model passed in is left
+    as it is. A device that refuses a bf16 op raises; nothing falls back to
+    float32.
     """
 
     def __init__(self, model: torch.nn.Module, cfg=None,
-                 device: str | torch.device = "cuda", dtype: torch.dtype | None = None):
-        self.device = resolve_device(device)
+                 device: str | torch.device | None = None, dtype: torch.dtype | None = None,
+                 mesh=None):
+        self.mesh, self.device = _mesh_and_device(mesh, device)
         if dtype is not None:
             model = copy.deepcopy(model).to(dtype)
-        self.model = model.to(self.device).eval()
+        self.model = model.to(self.device)
         self.cfg = cfg
         self.dtype = dtype
+        self._infer = make_infer_fn(self.model, self.mesh, dtype)
+        self.replicas = self._infer.replicas
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, bins, W, 1] features on self.device -> [B, C] float32 scores."""
-        with full_fp32():
-            if self.dtype is None:
-                return self.model(x)
-            return self.model(x.to(self.dtype)).float()
+        """[B, bins, W, 1] features on self.device -> [B, C] float32 scores
+        there (under a mesh B must divide over it)."""
+        return self._infer(x)
+
+    def forward_block(self, x: torch.Tensor) -> torch.Tensor:
+        """The scores of rows on one device of the mesh, by its replica."""
+        return infer_block(self.replicas, x, self.dtype)
 
     def predict(self, x_batch: np.ndarray) -> np.ndarray:
-        x = torch.as_tensor(np.asarray(x_batch, np.float32), device=self.device)
-        return self.forward(x).cpu().numpy()
+        return _host_scores(self, x_batch)
 
 
 class TFLiteSimRunner:
     """INT8 integer-graph executor of a .tflite flatbuffer on one device
-    (default CUDA; raises if there is none), bit-exact with the JAX
-    package's. One executor is built per batch size (and entry form) and
-    kept; callers should batch uniformly (pad the tail)."""
+    (default CUDA; raises if there is none) or over a local mesh (`mesh=`,
+    module docstring), bit-exact with the JAX package's. One executor is
+    built per (batch size, entry form, device) and kept; callers should
+    batch uniformly (pad the tail). Under a mesh each shard runs the
+    executor of its device at the shard's batch size; an executor holds
+    its graph's constants and no state between calls."""
 
     def __init__(self, tflite: str | Path | bytes | TFLiteGraph,
-                 device: str | torch.device = "cuda", requant: str = "exact"):
+                 device: str | torch.device | None = None, requant: str = "exact", mesh=None):
         if requant not in REQUANT_MODES:
             raise ValueError(f"Invalid requant: {requant!r} (expected one of {REQUANT_MODES})")
-        self.device = resolve_device(device)
+        self.mesh, self.device = _mesh_and_device(mesh, device)
         self.graph = tflite if isinstance(tflite, TFLiteGraph) else TFLiteGraph(tflite)
         self.requant = requant
-        self._executors: dict[tuple[int, bool], callable] = {}
+        self._executors: dict[tuple[int, bool, torch.device], callable] = {}
 
-    def executor(self, batch_size: int, prequantized_input: bool = False):
-        """The executor for `batch_size`; with prequantized_input it takes
-        the int8 entry tensor [B, 1, W, bins] (frontend_input(quant=...))."""
-        key = (batch_size, prequantized_input)
+    def executor(self, batch_size: int, prequantized_input: bool = False,
+                 device: torch.device | None = None):
+        """The executor for `batch_size` on `device` (default self.device);
+        with prequantized_input it takes the int8 entry tensor
+        [B, 1, W, bins] (frontend_input(quant=...))."""
+        device = self.device if device is None else device
+        key = (batch_size, prequantized_input, device)
         if key not in self._executors:
             self._executors[key] = build_executor(
-                self.graph, batch_size, device=self.device, requant=self.requant,
+                self.graph, batch_size, device=device, requant=self.requant,
                 prequantized_input=prequantized_input)
         return self._executors[key]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Graph-input features [B, ...] float32 on self.device -> scores."""
-        return self.executor(x.shape[0])(x)
+        """Graph-input features [B, ...] float32 on self.device -> scores
+        there (under a mesh B must divide over it)."""
+        return gather([self.forward_block(b) for b in shard_batch(x, self.mesh or [self.device])],
+                      self.device)
+
+    def forward_block(self, x: torch.Tensor) -> torch.Tensor:
+        """The scores of rows on one device of the mesh, by its executor."""
+        return self.executor(x.shape[0], device=x.device)(x)
 
     def predict(self, x_batch: np.ndarray) -> np.ndarray:
-        x = torch.as_tensor(np.asarray(x_batch, np.float32), device=self.device)
-        return self.forward(x).cpu().numpy()
+        return _host_scores(self, x_batch)
 
 
 class TFLiteInterpreterRunner:

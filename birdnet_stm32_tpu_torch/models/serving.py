@@ -31,9 +31,15 @@ decode_for_classify and chunks_for_classify_int16 turn one WAV into the
 chunk batch each ingress takes (audio/io.py), through the decoded-waveform
 cache when given a cache_dir.
 
-One process serves on one device. Serving over several local devices (the
-JAX runners' mesh, which shards each batch over them) is not ported
-(ROADMAP.md Queue 1 item 7); on one card it is the identity.
+A runner with a mesh (models/runners.py, `mesh=`: local devices, as the
+JAX runners' mesh) serves each batch over it: the batch is split into
+equal row blocks in mesh order, and each block goes through the ingress,
+the frontend (the kernel on that block's card: one launch per block) and
+that card's replica or executor, issued card after card in one loop (CUDA
+runs each card's queue on its own). The scores are gathered in row order:
+on mesh[0], the classifier's device, or block by block to the host. A
+batch whose rows do not divide over the mesh raises ValueError. The
+interpreter leg runs on the host, with no mesh.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import (
     frontend_input,
 )
 from birdnet_stm32_tpu_torch.ops.resample import resample_chunk_batch
+from birdnet_stm32_tpu_torch.parallel.mesh import gather, shard_batch
 from birdnet_stm32_tpu_torch.quant.tflite_import import (
     entry_quant_params,
     entry_transpose_perm,
@@ -149,14 +156,17 @@ def make_fused_classifier(runner, cfg, input_sample_rate: int | None = None,
 
     Args:
         runner: TorchRunner (float32 or bf16) or TFLiteSimRunner on
-            `device`, or a TFLiteInterpreterRunner (host).
+            `device` (with a mesh, mesh[0]: each batch is served over the
+            mesh, module docstring), or a TFLiteInterpreterRunner (host).
         cfg: ModelConfig (audio + model geometry).
         input_sample_rate: When set and != cfg.sample_rate, batches arrive
             at this rate ([B, chunk_duration * input_sample_rate]) and are
             resampled on the device before the frontend.
         as_numpy: True returns np.ndarray; False returns the scores tensor
             on `device`, without a copy to the host (the interpreter leg
-            always returns np.ndarray).
+            always returns np.ndarray). Under a mesh the blocks' scores are
+            gathered on `device`, or with True copied to the host block by
+            block.
         input_dtype: None / 'float32': float32 waveforms [B, T]. 'int16':
             [B, T+1] int16 codes + scale column (audio/io.load_chunks_int16
             raw PCM codes, bit-exact against the float path, or
@@ -167,30 +177,38 @@ def make_fused_classifier(runner, cfg, input_sample_rate: int | None = None,
             as the JAX package does; off 'highest' a bf16 runner gets bf16
             features. The kernels compute the same float32 for each.
         device: Where ingress, frontend and model run; default CUDA (raises
-            if there is none).
+            if there is none). Under a mesh it must name mesh[0].
     """
     stft_precision, feat_dtype = _precision_and_dtype(runner, stft_precision)
     dev = resolve_device(device)
     runner_dev = getattr(runner, "device", None)
     if runner_dev is not None and runner_dev != dev:
         raise ValueError(f"runner is on {runner_dev}, classifier on {dev}")
+    mesh = getattr(runner, "mesh", None) or [dev]
     ingress = make_ingress(cfg, input_sample_rate, input_dtype)
     host_dtype = np.float32 if input_dtype in (None, "float32") else None
 
-    def wave_in(wave) -> torch.Tensor:
-        return ingress(torch.as_tensor(np.asarray(wave, host_dtype)).to(dev))
+    def blocks_in(wave) -> list[torch.Tensor]:
+        """The batch's row blocks through the ingress, block k on mesh[k]."""
+        return [ingress(w) for w in shard_batch(np.asarray(wave, host_dtype), mesh)]
 
-    out = (lambda s: s.cpu().numpy()) if as_numpy else (lambda s: s)
+    if as_numpy:
+        def out(blocks):
+            return np.concatenate([s.cpu().numpy() for s in blocks])
+    else:
+        def out(blocks):
+            return gather(blocks, dev)
+
     if hasattr(runner, "graph"):
-        return _int8_classifier(runner, cfg, wave_in, out, stft_precision)
+        return _int8_classifier(runner, cfg, blocks_in, out, stft_precision)
     if hasattr(runner, "model"):
         @torch.no_grad()
         def classify(wave):
-            # frontend_input and runner.forward each hold TF32 off where it
+            # frontend_input and the replica each hold TF32 off where it
             # matters; a bf16 runner casts whatever features it is given.
-            feats = frontend_input(wave_in(wave), cfg, stft_precision=stft_precision,
-                                   feature_dtype=feat_dtype)
-            return out(runner.forward(feats))
+            return out([runner.forward_block(frontend_input(
+                w, cfg, stft_precision=stft_precision, feature_dtype=feat_dtype))
+                for w in blocks_in(wave)])
 
         return classify
     if not as_numpy:
@@ -199,15 +217,16 @@ def make_fused_classifier(runner, cfg, input_sample_rate: int | None = None,
 
     @torch.no_grad()
     def classify(wave) -> np.ndarray:
-        feats = frontend_input(wave_in(wave), cfg, stft_precision=stft_precision)
+        (w,) = blocks_in(wave)
+        feats = frontend_input(w, cfg, stft_precision=stft_precision)
         return np.asarray(runner.predict(feats.cpu().numpy()))
 
     return classify
 
 
-def _int8_classifier(runner, cfg, wave_in, out, stft_precision: str):
+def _int8_classifier(runner, cfg, blocks_in, out, stft_precision: str):
     """The INT8 leg: ingress -> frontend kernel -> integer executor, one
-    executor per batch size (the runner keeps them)."""
+    executor per block size and device (the runner keeps them)."""
     # Deepest fusion: the kernel quantizes into the executor's entry tensor
     # when the graph starts with QUANTIZE -> TRANSPOSE and a kernel serves
     # this frontend at this geometry (pcen included: the CUDA kernel runs it).
@@ -219,9 +238,13 @@ def _int8_classifier(runner, cfg, wave_in, out, stft_precision: str):
 
     @torch.no_grad()
     def classify(wave):
-        w = wave_in(wave)
-        fwd = runner.executor(w.shape[0], prequantized_input=entry_q is not None)
-        return out(fwd(frontend_input(w, cfg, quant=entry_q, stft_precision=stft_precision)))
+        scores = []
+        for w in blocks_in(wave):
+            fwd = runner.executor(w.shape[0], prequantized_input=entry_q is not None,
+                                  device=w.device)
+            scores.append(fwd(frontend_input(w, cfg, quant=entry_q,
+                                             stft_precision=stft_precision)))
+        return out(scores)
 
     classify.entry_quant = entry_q
     return classify
@@ -232,7 +255,8 @@ def make_embedder(runner, cfg, stft_precision: str | None = None,
     """waveform batch [B, T] float32 -> embeddings [B, emb] float32 (float
     runner only, float32 or bf16): the DS-CNN's pooled pre-head vector.
     INT8 and interpreter artifacts expose only class scores. stft_precision
-    follows make_fused_classifier's rule."""
+    follows make_fused_classifier's rule, and so does a runner's mesh: each
+    row block runs on its card's replica."""
     if not hasattr(runner, "model"):
         raise TypeError("embeddings need a float (Torch) runner; "
                         ".tflite artifacts expose only class scores")
@@ -241,17 +265,21 @@ def make_embedder(runner, cfg, stft_precision: str | None = None,
     if runner.device != dev:
         raise ValueError(f"runner is on {runner.device}, embedder on {dev}")
     dtype = getattr(runner, "dtype", None)
+    mesh = runner.mesh or [dev]
 
-    @torch.no_grad()
-    def embed(wave) -> np.ndarray:
-        w = torch.as_tensor(np.asarray(wave, np.float32)).to(dev).contiguous()
-        feats = frontend_input(w, cfg, stft_precision=stft_precision,
+    def block(w: torch.Tensor) -> torch.Tensor:
+        feats = frontend_input(w.contiguous(), cfg, stft_precision=stft_precision,
                                feature_dtype=feat_dtype)
         if dtype is not None:
             feats = feats.to(dtype)  # a no-op when the frontend emitted bf16
         with full_fp32():
-            _, emb = runner.model(feats, return_embeddings=True)
-        return emb.float().cpu().numpy()
+            _, emb = runner.replicas[w.device](feats, return_embeddings=True)
+        return emb.float()
+
+    @torch.no_grad()
+    def embed(wave) -> np.ndarray:
+        embs = [block(w) for w in shard_batch(np.asarray(wave, np.float32), mesh)]
+        return np.concatenate([e.cpu().numpy() for e in embs])
 
     return embed
 
@@ -353,7 +381,8 @@ def make_classifier_cache(runner, cfg, as_numpy: bool = True, verbose: bool = Fa
                           input_dtype: str | None = None,
                           device: str | torch.device = "cuda"):
     """classifier_for(rate) -> fused classifier, made once per distinct
-    source sample rate (rates equal to cfg.sample_rate skip the resampler)."""
+    source sample rate (rates equal to cfg.sample_rate skip the resampler);
+    each serves over the runner's mesh, as make_fused_classifier does."""
     cache: dict[int, object] = {}
 
     def classifier_for(rate: int):

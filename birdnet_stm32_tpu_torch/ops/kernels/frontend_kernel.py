@@ -237,13 +237,18 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=16)
+# The host tables' device copies, cached per geometry and device: room for
+# 16 geometries on each of 8 local cards (a serving mesh, parallel/mesh.py).
+_DEVICE_TABLES = 16 * 8
+
+
+@functools.lru_cache(maxsize=_DEVICE_TABLES)
 def _kernel_table(n_fft: int, device: torch.device) -> torch.Tensor:
     """fft_table(n_fft) on `device`, built once per size and device."""
     return torch.from_numpy(fft_table(n_fft)).to(device)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=_DEVICE_TABLES)
 def _kernel_mel(sample_rate: int, n_fft: int, mel_bins: int,
                 device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """mel_ranges(...) on `device`, built once per geometry and device."""
@@ -251,7 +256,7 @@ def _kernel_mel(sample_rate: int, n_fft: int, mel_bins: int,
     return torch.from_numpy(ranges).to(device), torch.from_numpy(weights).to(device)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=_DEVICE_TABLES)
 def _kernel_dct(mel_bins: int, n_mfcc: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(dct_matrix(mel_bins, n_mfcc)).to(device)
 
@@ -271,7 +276,7 @@ def _arrival_counter(B: int, device: torch.device, stream: int) -> torch.Tensor:
     return buf
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=_DEVICE_TABLES)
 def _kernel_layout(n_frames: int, tile: int, device: torch.device) -> tuple[torch.Tensor, int]:
     """tile_layout on `device`, and the most strips a sample has (the
     linear kernel's extrema slots per sample)."""

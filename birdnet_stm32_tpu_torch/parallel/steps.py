@@ -22,6 +22,11 @@ step under GSPMD: the gradients are all-reduced to their mean before the
 optimizer and its global-norm clip, the reported loss is the ranks' mean,
 and train-mode BN takes its statistics over every rank's rows. Without a
 process group nothing changes.
+
+make_infer_fn is the eval-mode forward that serving runs
+(models/runners.py::TorchRunner), over one device or a local mesh
+(parallel/mesh.py): a replica on each distinct device, the batch in row
+blocks, the scores gathered in row order.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from torch.func import functional_call
 
 from birdnet_stm32_tpu_torch.device import full_fp32
 from birdnet_stm32_tpu_torch.parallel import distributed
+from birdnet_stm32_tpu_torch.parallel.mesh import gather, local_mesh, replicated, shard_batch
 
 MEL_MIXER = "audio_frontend.mel_mixer"
 # The kernels the reference regularizes: the stage blocks' depthwise,
@@ -186,3 +192,40 @@ def make_eval_step(model: torch.nn.Module, loss_fn, activation: str = "sigmoid")
         return loss, scores
 
     return step
+
+
+@torch.no_grad()
+def infer_block(replicas: dict, x: torch.Tensor, dtype: torch.dtype | None = None):
+    """The eval-mode forward of the replica on x's device (TF32 off): float32
+    scores of x's rows. dtype=torch.bfloat16 casts x to it (the replicas are
+    expected in bf16 already) and the scores back to float32."""
+    model = replicas.get(x.device)
+    if model is None:
+        raise ValueError(f"input on {x.device}, replicas on {list(replicas)}")
+    with full_fp32():
+        return model(x) if dtype is None else model(x.to(dtype)).float()
+
+
+def make_infer_fn(model: torch.nn.Module, mesh: list[torch.device] | None = None,
+                  dtype: torch.dtype | None = None):
+    """x -> scores, eval mode, without gradients (port of make_infer_fn).
+
+    The model is put in eval mode. The mesh (a list of devices,
+    parallel/mesh.py::local_mesh; by default the model's device alone)
+    gets a replica on each distinct device, x is split into len(mesh) row
+    blocks (the width must divide its rows), each block runs on its device,
+    and the scores are gathered in row order on mesh[0].
+    dtype=torch.bfloat16 casts the input to bf16 (the model is expected
+    cast by the caller, as the JAX function expects its variables); the
+    scores return float32. `infer.replicas` is the {device: module} the
+    function runs.
+    """
+    mesh = local_mesh([next(model.parameters()).device] if mesh is None else mesh)
+    model.eval()
+    replicas = replicated(model, mesh)
+
+    def infer(x: torch.Tensor) -> torch.Tensor:
+        return gather([infer_block(replicas, b, dtype) for b in shard_batch(x, mesh)], mesh[0])
+
+    infer.replicas = replicas
+    return infer

@@ -291,13 +291,13 @@ It imports nothing of JAX. In order it:
    the folder on CUDA: a [BENCH] line per file and the linear kernel
    launched once per device batch plus the warm-up batch. Prints the
    decode ms per file (native and numpy RIFF, or codec);
-19. ddp phase (tests/torch_ddp_worker.py): one sgd step at lr DDP_LR of
+19. ddp phase (tests/torch_ddp_worker.py): one sgd step at lr GATE_LR of
    the archive's model on DDP_ROWS rows of kernel features: (a) under a
    NCCL process group of one rank, bit-equal to the step without a group
    (each in a process of its own with torch's deterministic algorithms);
    (b) two processes over gloo on the one card, each on half the rows,
    against (a)'s process without a group on all of them, at the gates of
-   DDP_* and STEP_* (printed); (c) `train` in two ranks (gloo)
+   scripts/multichip.py::step_gates (printed); (c) `train` in two ranks (gloo)
    at the flagship's full width, 1 epoch x DDP_STEPS steps, each rank
    counting its steps, validation batches and launches: DDP_STEPS steps
    each, the linear kernel launched once per step and validation batch,
@@ -305,12 +305,30 @@ It imports nothing of JAX. In order it:
    the gates' readings, the wall seconds, each rank's median step ms (host
    clock around the step and the read of its loss) and the card's name
    and power limit;
-20. prints the `kernels` JSON line (the linear and mel + pwl entries with
+20. mesh phase: serving over a local mesh (the runners' mesh=,
+   parallel/mesh.py) on the committed flagship bundle (the graph, entry
+   unfused, and its entry-transpose fixture, the fused int8 entry) and
+   the convert fixture's committed flagship weights (float32, softmax
+   head; bf16 with a logits head), MESH_ROWS rows per batch, against the
+   same classifiers without a mesh on cuda:0: a mesh of cuda:0 alone
+   bit-equal on every leg and the embedder; two entries on cuda:0 (and,
+   with more than one card, a mesh of every card): both INT8 legs bit-equal
+   under float32, int16, mu-law and 48 kHz resampled ingress, float32
+   scores and embeddings within MESH_F32_ATOL, bf16 logits at per-row
+   cosine >= MESH_BF16_MIN_COSINE; every call launches its kernel once per
+   shard and nothing else (counted from zero around each call), returns
+   its scores on cuda:0, and each shard's kernel output equals its plain
+   version on its card. Prints the gaps, ms per batch and chunks/s per
+   width at B=64 and 256 for the INT8, float32 and bf16 legs (host clock,
+   median of MESH_REPS calls that copy the scores back) with one call's
+   CUDA launches and summed device time over the cards (torch.profiler),
+   the row blocks' copies alone, and the card's name and power limit;
+21. prints the `kernels` JSON line (the linear and mel + pwl entries with
    `train_launches` and `train_options_launches`, the linear entry with
    `evaluate_launches`, `convert_launches`, `deploy_launches`,
    `transplant_launches`, `export_launches`, `codec_launches` and
-   `ddp_launches`), the card's name and power limit, and last the `ok`
-   JSON line.
+   `ddp_launches`, both linear entries with `mesh_launches`), the card's
+   name and power limit, and last the `ok` JSON line.
 
 Any failed check exits non-zero before the `ok` line.
 """
@@ -2575,22 +2593,9 @@ CODEC_FORMATS = ("flac", "ogg", "mp3")
 DDP_ROWS = 16
 DDP_STEPS = 8
 DDP_TIMEOUT = 300
-# Two ranks against one process on the global batch: the same step in
-# another summation order. Loss 1e-5 and gradient norm 1e-4 relative, BN
-# statistics within 1e-4 of each tensor's largest value (the single-step
-# gates of tests/test_torch_train_step.py). The parameter updates take the
-# train phase's flagship gates (STEP_TENSOR_UPDATE_RTOL per tensor,
-# STEP_UPDATE_RTOL in L2 over all): at full width on 16 rows, train-mode
-# BN's backward cancels almost all of dy in the last stages (dy is nearly
-# constant over a channel before the global pooling), so float32 rounding
-# alone moves single tensors' gradients by ~2e-3 of their largest entry
-# (two exact formulas of the BN gradient in one process on the CPU); the
-# 1e-3 per-tensor gate holds on the tiny model (tests/test_torch_distributed.py).
-DDP_LOSS_RTOL, DDP_NORM_RTOL, DDP_STATS_RTOL = 1e-5, 1e-4, 1e-4
-# The flagship's gradients at init are ~1e-3 against weights ~1: at lr 1e-2
-# a weight's update is ~100 float32 ulps of the weight, and the rounding of
-# p + u alone reads as a few % of it. At lr 1.0 the updates are resolved.
-DDP_LR = 1.0
+# The two-rank step's gates and lr are the package's, which the multi-card
+# dry run holds too (scripts/multichip.py: LOSS_RTOL, NORM_RTOL, STATS_RTOL,
+# TENSOR_UPDATE_RTOL, UPDATE_RTOL, GATE_LR and step_gates).
 
 
 def has_module(name: str) -> bool:
@@ -2812,15 +2817,10 @@ def host_ms(fn, n: int = 5) -> float:
 def ddp_phase(torch, np, tmp: Path) -> dict[str, int]:
     """(19): data-parallel training; returns {path: linear launches}."""
     import os
-    import socket
 
     from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from birdnet_stm32_tpu_torch.scripts import multichip as MC
     from tests import make_torch_transplant_fixtures as TF
-
-    def free_port() -> int:
-        with socket.socket() as s:
-            s.bind(("localhost", 0))
-            return s.getsockname()[1]
 
     linear = frontend_kernel.kernel_name("linear", "none")
     model, cfg = TF.archive_model(device="cuda")
@@ -2831,7 +2831,7 @@ def ddp_phase(torch, np, tmp: Path) -> dict[str, int]:
     feature_launches = frontend_kernel.launches[linear]
     y = torch.from_numpy((rng.random((DDP_ROWS, cfg.num_classes)) < 0.05).astype(np.float32))
     data = {"cfg": cfg.to_dict(), "state_dict": {k: v.cpu() for k, v in model.state_dict().items()},
-            "x": x, "y": y, "optimizer": "sgd", "lr": DDP_LR, "steps": 1}
+            "x": x, "y": y, "optimizer": "sgd", "lr": MC.GATE_LR, "steps": 1}
     torch.save(data, tmp / "ddp_in.pt")
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
@@ -2846,8 +2846,9 @@ def ddp_phase(torch, np, tmp: Path) -> dict[str, int]:
     # (a) A NCCL world of one rank against no group, each in a process of
     # its own with deterministic algorithms (two runs of the step are
     # otherwise an ulp apart in places on the card).
-    wait_ranks([worker("ddp_none.pt", 0, 1, 0, "none"),
-                worker("ddp_nccl1.pt", 0, 1, free_port(), "nccl")], "ddp world of one")
+    MC.wait_ranks([worker("ddp_none.pt", 0, 1, 0, "none"),
+                   worker("ddp_nccl1.pt", 0, 1, MC.free_port(), "nccl")], "ddp world of one",
+                  DDP_TIMEOUT)
     one, world1 = (torch.load(tmp / f, weights_only=False) for f in ("ddp_none.pt", "ddp_nccl1.pt"))
     world1_equal = world1["loss"] == one["loss"] and all(
         torch.equal(world1["variables"][k], v) for k, v in one["variables"].items())
@@ -2855,47 +2856,22 @@ def ddp_phase(torch, np, tmp: Path) -> dict[str, int]:
         fail("ddp: a NCCL world of one changes the step")
 
     # (b) Two gloo processes on the one card, each on half the rows.
-    port = free_port()
+    port = MC.free_port()
     t0 = time.perf_counter()
-    wait_ranks([worker("ddp_out.pt", rank, 2, port, "gloo") for rank in (0, 1)], "ddp step")
+    MC.wait_ranks([worker("ddp_out.pt", rank, 2, port, "gloo") for rank in (0, 1)], "ddp step",
+                  DDP_TIMEOUT)
     step_s = time.perf_counter() - t0
     two = torch.load(tmp / "ddp_out.pt", weights_only=False)
-    loss_rel = abs(two["loss"][0] - one["loss"][0]) / abs(one["loss"][0])
-    norm_rel = abs(two["grad_norm"][0] - one["grad_norm"][0]) / abs(one["grad_norm"][0])
-    worst_update, worst_stats, diff2, ref2 = 0.0, 0.0, 0.0, 0.0
-    for k, ref in one["variables"].items():
-        got, ref = two["variables"][k].cpu(), ref.cpu()
-        if k.endswith("num_batches_tracked"):
-            continue
-        if k.endswith(("running_mean", "running_var")):
-            worst_stats = max(worst_stats, float((got - ref).abs().max() / ref.abs().max()))
-        else:
-            u, ju = got - data["state_dict"][k], ref - data["state_dict"][k]
-            diff2 += float(((u - ju) ** 2).sum())
-            ref2 += float((ju ** 2).sum())
-            if ju.abs().max() > 0:
-                worst_update = max(worst_update, float((u - ju).abs().max() / ju.abs().max()))
-    gates = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel,
-             "worst_tensor_update_rel": worst_update,
-             "update_l2_rel": math.sqrt(diff2 / ref2), "worst_bn_stat_rel": worst_stats}
-    if not (loss_rel <= DDP_LOSS_RTOL and norm_rel <= DDP_NORM_RTOL
-            and worst_update <= STEP_TENSOR_UPDATE_RTOL
-            and gates["update_l2_rel"] <= STEP_UPDATE_RTOL and worst_stats <= DDP_STATS_RTOL):
+    gates = MC.step_gates(two, one, data["state_dict"])
+    if not gates.pop("hold"):
         fail(f"ddp: two gloo ranks vs the global-batch step: {gates}")
 
     # (c) `train` in two ranks (gloo: two ranks, one card), 8 steps each.
     data_dir = tmp / "data"
-    port = free_port()
     args = train_args(data_dir, tmp / "ddp_run", 1, DDP_STEPS, workers="0")
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_ddp_worker", "train",
-                               str(tmp / "ddp_rank"), *args], cwd=ROOT,
-                              env={**env, "RANK": str(rank), "WORLD_SIZE": "2",
-                                   "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": "2",
-                                   "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)},
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for rank in (0, 1)]
-    wait_ranks(procs, "ddp train")
+    MC.wait_ranks(MC.spawn_ranks(["-m", "tests.torch_ddp_worker", "train", str(tmp / "ddp_rank"),
+                                  *args], 2), "ddp train", DDP_TIMEOUT)
     train_s = time.perf_counter() - t0
     ranks = [json.loads((tmp / f"ddp_rank{r}.json").read_text()) for r in (0, 1)]
     launches = {"features": feature_launches}
@@ -2919,21 +2895,167 @@ def ddp_phase(torch, np, tmp: Path) -> dict[str, int]:
     return launches
 
 
-def wait_ranks(procs, what: str) -> None:
-    """Wait for every rank (DDP_TIMEOUT each); kill all and fail on a
-    timeout or a non-zero exit."""
-    outs = []
-    for p in procs:
-        try:
-            outs.append(p.communicate(timeout=DDP_TIMEOUT)[0])
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-                q.communicate()
-            fail(f"{what}: a rank timed out")
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            fail(f"{what}: rank {r} exited {p.returncode}:\n{out[-3000:]}")
+# The mesh phase: one batch of MESH_ROWS rows through every leg, and the
+# batches it times. Float32 scores of a mesh within MESH_F32_ATOL of one
+# card (each shard's smaller batch may take another cuDNN algorithm), bf16
+# logits at per-row cosine >= MESH_BF16_MIN_COSINE, embeddings within
+# MESH_F32_ATOL; INT8 bit-equal.
+MESH_ROWS = 64
+MESH_TIMED_B = (64, 256)
+MESH_F32_ATOL = 1e-5
+MESH_BF16_MIN_COSINE = 0.999
+MESH_REPS = 5
+
+
+def mesh_ingress(np, cfg) -> dict[str, tuple[dict, object]]:
+    """{ingress: (make_fused_classifier kwargs, its MESH_ROWS-row batch)}:
+    float32, int16 raw codes, mu-law codes and float32 at 48 kHz."""
+    from birdnet_stm32_tpu_torch.models.serving import quantize_waveform_ulaw
+
+    wave = requests_for(np, cfg, (MESH_ROWS,))[0]
+    w16, _ = raw_pcm16_batch(np, cfg, MESH_ROWS)
+    at48 = np.random.default_rng(48).normal(0, 0.2, (MESH_ROWS, int(cfg.chunk_duration * 48000)))
+    return {"float32": ({}, wave), "int16": ({"input_dtype": "int16"}, w16),
+            "ulaw": ({"input_dtype": "ulaw"}, quantize_waveform_ulaw(wave)),
+            "resample48k": ({"input_sample_rate": 48000}, at48.astype(np.float32))}
+
+
+def mesh_shard_kernels(torch, cfg, wave, mesh, quant) -> float:
+    """Each shard's kernel output against the plain version on its card
+    (the float kernel within KERNEL_TOL; the int8 entry equal to the
+    executor's quantize of the float kernel, within one code of the plain
+    version's on under 1 %); returns the largest float gap."""
+    from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import (
+        frontend_input,
+        fused_spectrogram_plain,
+        quantize_entry,
+    )
+    from birdnet_stm32_tpu_torch.parallel.mesh import shard_batch
+
+    hop = cfg.chunk_samples // cfg.spec_width
+    worst = 0.0
+    for y in shard_batch(wave, mesh):
+        got = frontend_input(y, cfg)[..., 0]
+        plain = fused_spectrogram_plain(y, cfg.fft_length, hop, cfg.spec_width)
+        worst = max(worst, (got - plain).abs().max().item())
+        codes = frontend_input(y, cfg, quant=quant)
+        if not torch.equal(codes, quantize_entry(got, quant)):
+            fail(f"mesh: the int8 entry kernel on {y.device} != quantize(float kernel)")
+        compare(codes, quantize_entry(plain, quant), True, f"int8 entry on {y.device}")
+    if not worst <= KERNEL_TOL["linear"]:
+        fail(f"mesh: a shard's linear kernel is {worst} from its plain version")
+    return worst
+
+
+def mesh_phase(torch, np) -> dict[str, int]:
+    """(20): serving over a local mesh; returns {kernel name: launches}."""
+    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn
+    from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner, TorchRunner
+    from birdnet_stm32_tpu_torch.models.serving import make_embedder, make_fused_classifier
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from birdnet_stm32_tpu_torch.parallel.mesh import local_mesh, shard_batch
+    from birdnet_stm32_tpu_torch.quant.tflite_import import entry_quant_params
+    from tests import make_torch_convert_fixtures as CF
+    from tests.int8_fixture import entry_transpose_fixture
+
+    softmax, cfg = CF.load_model("cuda")
+    logits = build_dscnn(cfg, class_activation="none", device="cuda")
+    logits.load_state_dict(softmax.state_dict())
+    graph = TFLiteSimRunner(FLAGSHIP_TFLITE, device="cuda").graph
+    graphs = {"int8": graph, "int8_fused": entry_transpose_fixture(graph)}
+
+    def runner(leg: str, mesh):
+        kw = {"device": "cuda"} if mesh is None else {"mesh": mesh}
+        if leg in graphs:
+            return TFLiteSimRunner(graphs[leg], **kw)
+        if leg == "float32":
+            return TorchRunner(softmax, cfg, **kw)
+        return TorchRunner(logits, cfg, dtype=torch.bfloat16, **kw)
+
+    linear, linear_int8 = (frontend_kernel.kernel_name("linear", "none", quant=q)
+                           for q in (False, True))
+    ingress = mesh_ingress(np, cfg)
+    meshes = {"width1": ["cuda:0"], "two_on_cuda0": ["cuda:0", "cuda:0"]}
+    if torch.cuda.device_count() > 1:
+        meshes["every_card"] = [str(d) for d in local_mesh()]
+    refs = {}
+    for leg in ("int8", "int8_fused", "float32", "bf16"):
+        for mode, (kw, wave) in ingress.items():
+            if leg in graphs or mode == "float32":
+                refs[leg, mode] = make_fused_classifier(runner(leg, None), cfg, device="cuda",
+                                                        **kw)(wave)
+    ref_embed = make_embedder(runner("float32", None), cfg, device="cuda")(ingress["float32"][1])
+
+    # The main path: every leg and ingress over each mesh, the counts
+    # cleared just before and read just after.
+    report, launches, gaps = {}, {linear: 0, linear_int8: 0}, {}
+    for name, mesh in meshes.items():
+        width = len(mesh)
+        for (leg, mode), ref in refs.items():
+            if name == "width1" and mode != "float32":
+                continue
+            kw, wave = ingress[mode]
+            classify = make_fused_classifier(runner(leg, mesh), cfg, device="cuda",
+                                             as_numpy=False, **kw)
+            frontend_kernel.launches.clear()
+            got = classify(wave)
+            counts = dict(frontend_kernel.launches)
+            kernel = linear_int8 if leg == "int8_fused" else linear
+            if counts != {kernel: width}:
+                fail(f"mesh {name} {leg} {mode}: launches {counts}, expected {kernel} x {width}")
+            launches[kernel] += width
+            if got.device != torch.device("cuda", 0) or got.shape != ref.shape:
+                fail(f"mesh {name} {leg} {mode}: scores {tuple(got.shape)} on {got.device}")
+            got = got.cpu().numpy()
+            if not np.isfinite(got).all():
+                fail(f"mesh {name} {leg} {mode}: non-finite scores")
+            if name == "width1" or leg in graphs:
+                held, gap = np.array_equal(got, ref), float(np.abs(got - ref).max())
+            elif leg == "float32":
+                gap = float(np.abs(got - ref).max())
+                held = gap <= MESH_F32_ATOL
+            else:
+                gap = float(row_cosines(np, got, ref).min())
+                held = gap >= MESH_BF16_MIN_COSINE
+            gaps[f"{name}/{leg}/{mode}" + ("/min_cosine" if leg == "bf16" and name != "width1"
+                                           else "")] = gap
+            if not held:
+                fail(f"mesh {name} {leg} {mode}: {gap} against one card")
+        frontend_kernel.launches.clear()
+        emb = make_embedder(runner("float32", mesh), cfg, device="cuda")(ingress["float32"][1])
+        counts = dict(frontend_kernel.launches)
+        if counts != {linear: width}:
+            fail(f"mesh {name} embedder: launches {counts}, expected {linear} x {width}")
+        launches[linear] += width
+        gap = float(np.abs(emb - ref_embed).max())
+        gaps[f"{name}/embedder"] = gap
+        if not (gap == 0.0 if name == "width1" else gap <= MESH_F32_ATOL):
+            fail(f"mesh {name} embedder: {gap} against one card")
+        q = entry_quant_params(graphs["int8_fused"])
+        report[f"{name}_shard_kernel_vs_plain"] = mesh_shard_kernels(
+            torch, cfg, ingress["float32"][1], local_mesh(mesh), q)
+    report["gaps_to_one_card"] = gaps
+
+    # ms per batch and chunks/s per width (host clock around a classify
+    # that copies its scores back, median of MESH_REPS), and the copies of
+    # the row blocks alone.
+    timed = {"one_card": None, **meshes}
+    rates = {}
+    for b in MESH_TIMED_B:
+        wave = requests_for(np, cfg, (b,))[0]
+        for name, mesh in timed.items():
+            for leg in ("int8", "float32", "bf16"):
+                classify = make_fused_classifier(runner(leg, mesh), cfg, device="cuda")
+                ms = host_ms(lambda: classify(wave), MESH_REPS)
+                rates[f"B{b}/{name}/{leg}"] = {"ms_per_batch": ms, "chunks_per_s": b / ms * 1e3,
+                                               **device_activity(torch, lambda: classify(wave))}
+            devices = local_mesh(mesh or ["cuda:0"])
+            rates[f"B{b}/{name}/h2d_copies_ms"] = host_ms(
+                lambda: (shard_batch(wave, devices), torch.cuda.synchronize()), MESH_REPS)
+    report["timing"] = rates
+    print(json.dumps({"mesh_phase": report, "widths": {k: len(v) for k, v in meshes.items()},
+                      "launches": launches, "card": card()}))
+    return {f"mesh/{k}": v for k, v in launches.items()}
 
 
 def main() -> None:
@@ -2985,6 +3107,7 @@ def main() -> None:
         export_launches = timed("export", export_phase, torch, np, Path(tmp))
         codec_launches = timed("codec", codec_phase, torch, np, Path(tmp))
         ddp_launches = timed("ddp", ddp_phase, torch, np, Path(tmp))
+    mesh_launches = timed("mesh", mesh_phase, torch, np)
     tile_entries = timed("tile", tile_phase, torch, np, quant, entries)
     bench_launches = timed("bench", bench_phase, torch)
     print(json.dumps({"phase_seconds": seconds}))
@@ -3035,6 +3158,11 @@ def main() -> None:
             if entry["name"] == (mel_pwl if path.endswith("librosa_pwl") else linear):
                 entry["launches"] += n
                 entry.setdefault("train_options_launches", {})[path] = n
+        # Serving over a local mesh: one launch per shard per batch.
+        n = mesh_launches.get(f"mesh/{entry['name']}")
+        if n is not None:
+            entry["launches"] += n
+            entry["mesh_launches"] = n
     for entry in tile_entries:
         entry["launches"] = bench_launches.get(entry["name"], 0)
     entries += tile_entries

@@ -901,3 +901,94 @@ def test_nccl_world_of_one_step_on_card(cuda, tmp_path):
     assert got["loss"] == ref["loss"]
     for k, v in ref["variables"].items():
         assert torch.equal(got["variables"][k], v), k
+
+
+# Serving over a local mesh (the runners' mesh=, parallel/mesh.py), at the
+# mesh phase's gates of chip_smoke.py: INT8 bit-equal to one card, float32
+# scores and embeddings within 1e-5, bf16 logits at per-row cosine >= 0.999,
+# one kernel launch per shard, the scores gathered on the first device.
+MESH_F32_ATOL = 1e-5
+MESH_BF16_MIN_COSINE = 0.999
+
+
+def _mesh_legs(cfg):
+    """{leg: make(mesh) -> runner} on the convert fixture's committed
+    weights and the flagship graph (unfused entry) and its fixture (fused)."""
+    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn
+    from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner, TorchRunner
+    from tests import make_torch_convert_fixtures as CF
+
+    softmax, _ = CF.load_model("cuda")
+    logits = build_dscnn(cfg, class_activation="none", device="cuda")
+    logits.load_state_dict(softmax.state_dict())
+    graph = TFLiteGraph(FLAGSHIP_TFLITE)
+
+    def kw(mesh):
+        return {"device": "cuda:0"} if mesh is None else {"mesh": mesh}
+
+    return {"int8": lambda m: TFLiteSimRunner(graph, **kw(m)),
+            "int8_fused": lambda m: TFLiteSimRunner(entry_transpose_fixture(graph), **kw(m)),
+            "float32": lambda m: TorchRunner(softmax, cfg, **kw(m)),
+            "bf16": lambda m: TorchRunner(logits, cfg, dtype=torch.bfloat16, **kw(m))}
+
+
+def _hold_mesh(mesh):
+    from birdnet_stm32_tpu_torch.models.serving import (
+        make_embedder,
+        make_fused_classifier,
+        quantize_waveform_ulaw,
+    )
+
+    cfg = ModelConfig.load(FLAGSHIP_CONFIG)
+    rng = np.random.default_rng(30)
+    B = 4 * len(mesh)
+    wave = np.clip(rng.normal(0, 0.2, (B, cfg.chunk_samples)), -0.99, 0.99).astype(np.float32)
+    at48 = rng.normal(0, 0.2, (B, int(cfg.chunk_duration * 48000))).astype(np.float32)
+    ingress = {"float32": ({}, wave), "ulaw": ({"input_dtype": "ulaw"},
+                                               quantize_waveform_ulaw(wave)),
+               "int16": ({"input_dtype": "int16"}, np.concatenate(
+                   [np.round(wave * 32767).astype(np.int16),
+                    np.full((B, 1), 32767, np.int16)], axis=1)),
+               "resample48k": ({"input_sample_rate": 48000}, at48)}
+    for leg, make in _mesh_legs(cfg).items():
+        modes = ingress if leg.startswith("int8") else {"float32": ingress["float32"]}
+        for mode, (kw, x) in modes.items():
+            ref = make_fused_classifier(make(None), cfg, device="cuda:0", **kw)(x)
+            frontend_kernel.launches.clear()
+            got = make_fused_classifier(make(mesh), cfg, device="cuda:0", as_numpy=False,
+                                        **kw)(x)
+            name = kernel_name("linear", "none", quant=leg == "int8_fused")
+            assert dict(frontend_kernel.launches) == {name: len(mesh)}, (leg, mode)
+            assert got.device == torch.device("cuda", 0)
+            got = got.cpu().numpy()
+            if leg.startswith("int8") or len(mesh) == 1:
+                np.testing.assert_array_equal(got, ref, err_msg=f"{leg} {mode}")
+            elif leg == "float32":
+                np.testing.assert_allclose(got, ref, atol=MESH_F32_ATOL, rtol=0)
+            else:
+                cos = (got * ref).sum(1) / (np.linalg.norm(got, axis=1)
+                                            * np.linalg.norm(ref, axis=1))
+                assert cos.min() >= MESH_BF16_MIN_COSINE
+    make = _mesh_legs(cfg)["float32"]
+    ref = make_embedder(make(None), cfg, device="cuda:0")(wave)
+    got = make_embedder(make(mesh), cfg, device="cuda:0")(wave)
+    np.testing.assert_allclose(got, ref, atol=0 if len(mesh) == 1 else MESH_F32_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_mesh_two_replicas_on_card(cuda):
+    """Two entries on cuda:0: the split and the gather on one card."""
+    _hold_mesh(["cuda:0", "cuda:0"])
+
+
+@pytest.mark.cuda
+def test_mesh_of_every_card(cuda):
+    """Every visible card (one card: a mesh of one, bit-equal to none), each
+    shard's kernel against its plain version on its own card."""
+    from birdnet_stm32_tpu_torch.parallel.mesh import local_mesh, shard_batch
+
+    mesh = local_mesh()
+    _hold_mesh(mesh)
+    y = shard_batch(_wave(31, 2 * len(mesh), 66150).cpu(), mesh)
+    for block in y:
+        _check(block, "linear", "none", FLAGSHIP, 66150)

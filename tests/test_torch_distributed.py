@@ -36,8 +36,8 @@ from birdnet_stm32_tpu.parallel import mesh as JM
 from birdnet_stm32_tpu_torch.data import dataset as D
 from birdnet_stm32_tpu_torch.data.pipeline import AudioLoader, LoaderConfig
 from birdnet_stm32_tpu_torch.parallel import distributed, mesh
+from birdnet_stm32_tpu_torch.scripts.multichip import run_steps
 from tests.test_torch_cpu_warmup import warm_up
-from tests.torch_ddp_worker import run_steps
 from tests.torch_train_fixtures import one_torch_thread, pair  # noqa: F401
 from tests.torch_train_fixtures import write_wav_folder
 
@@ -99,9 +99,9 @@ def step_case(tmp_path_factory):
         for rank in (0, 1)]
     _communicate(procs)
     two = torch.load(root / "out.pt", weights_only=False)
-    one = run_steps(data, x, y, torch.device("cpu"))
-    halves = [run_steps(data, x[s], y[s], torch.device("cpu")) for s in (slice(0, 4),
-                                                                         slice(4, 8))]
+    one = run_steps(data, [(x, y)], torch.device("cpu"))
+    halves = [run_steps(data, [(x[s], y[s])], torch.device("cpu"))
+              for s in (slice(0, 4), slice(4, 8))]
     return data, one, two, halves
 
 
@@ -154,7 +154,7 @@ def test_world_of_one_changes_no_bit(tmp_path):
         cwd=REPO, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     _communicate([proc])
     got = torch.load(tmp_path / "out.pt", weights_only=False)
-    ref = run_steps(data, x, y, torch.device("cpu"))
+    ref = run_steps(data, [(x, y)] * data["steps"], torch.device("cpu"))
     assert got["loss"] == ref["loss"] and got["grad_norm"] == ref["grad_norm"]
     for k, v in ref["variables"].items():
         assert torch.equal(got["variables"][k], v), k

@@ -257,6 +257,15 @@ def test_port_sources_cover_the_last_slice():
         assert f"tests/{helper}" in scanned
 
 
+def test_port_sources_cover_the_mesh_slice():
+    """The scan reaches the serving mesh's modules and the multi-card dry
+    run, which the card machine runs."""
+    scanned = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for module in ("parallel/mesh.py", "parallel/steps.py", "models/runners.py",
+                   "models/serving.py", "scripts/multichip.py"):
+        assert f"birdnet_stm32_tpu_torch/{module}" in scanned
+
+
 def test_port_sources_cover_the_convert_and_deploy_slice():
     """The scan reaches every module of the convert and deploy verbs and the
     API tail that rode with them."""

@@ -8,13 +8,14 @@ IN.pt holds {cfg, state_dict, x, y, optimizer, lr, steps}: a DSCNN config
 (dict), its weights, a global batch of features and labels. The rank joins
 a process group of WORLD ranks at tcp://localhost:PORT over BACKEND, steps
 on its rows x[rank * B / WORLD : (rank + 1) * B / WORLD] through
-parallel/steps.py::make_train_step, and rank 0 writes {loss, grad_norm,
-variables} after the steps to OUT.pt. BACKEND `none` steps on every row
-without a process group: the reference. Dropout is off and torch's
-deterministic algorithms are on (with cuBLAS's deterministic workspace),
-so the step is a function of the batch alone and two runs of it are
-bit-equal on the card too (cuDNN's deterministic flag alone is not enough:
-two runs of the flagship step differ by an ulp in 13 tensors on an H100).
+scripts/multichip.py::run_steps (parallel/steps.py::make_train_step), and
+rank 0 writes {loss, grad_norm, variables} after the steps to OUT.pt.
+BACKEND `none` steps on every row without a process group: the reference.
+Dropout is off and torch's deterministic algorithms are on (with cuBLAS's
+deterministic workspace), so the step is a function of the batch alone and
+two runs of it are bit-equal on the card too (cuDNN's deterministic flag
+alone is not enough: two runs of the flagship step differ by an ulp in 13
+tensors on an H100).
 
 The `train` form runs the port's `train` verb in this process as one rank
 of torchrun's environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT,
@@ -33,33 +34,7 @@ import time
 import torch
 import torch.distributed as dist
 
-
-def run_steps(data: dict, x: torch.Tensor, y: torch.Tensor, device) -> dict:
-    """make_train_step's steps on (x, y): {loss, grad_norm (lists),
-    variables (CPU state_dict after the steps)}; collective under a
-    process group."""
-    from birdnet_stm32_tpu_torch.config import ModelConfig
-    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn
-    from birdnet_stm32_tpu_torch.parallel.steps import TrainState, make_train_step
-    from birdnet_stm32_tpu_torch.training.losses import make_loss_fn
-    from birdnet_stm32_tpu_torch.training.optimizer import build_optimizer
-
-    model = build_dscnn(ModelConfig.from_dict(data["cfg"]), class_activation="none",
-                        device=device)
-    model.load_state_dict(data["state_dict"], strict=True)
-    for m in model.modules():
-        if isinstance(m, (torch.nn.Dropout, torch.nn.Dropout2d)):
-            m.p = 0.0
-    tx = build_optimizer(data["optimizer"], data["lr"], 0.0, 1.0)
-    step = make_train_step(model, tx, make_loss_fn(multilabel=True, device=device))
-    state = TrainState.create(model, tx)
-    losses, norms = [], []
-    for _ in range(data["steps"]):
-        state, m = step(state, x.to(device), y.to(device))
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-    return {"loss": losses, "grad_norm": norms,
-            "variables": {k: v.cpu() for k, v in state.variables().items()}}
+from birdnet_stm32_tpu_torch.scripts.multichip import run_steps
 
 
 def train_rank(out_prefix: str, train_args: list[str]) -> int:
@@ -122,7 +97,8 @@ def main(argv: list[str]) -> int:
         data = torch.load(in_path, weights_only=False)
         b = data["x"].shape[0]
         rows = slice(rank * b // world, (rank + 1) * b // world)
-        result = run_steps(data, data["x"][rows], data["y"][rows], torch.device(device))
+        result = run_steps(data, [(data["x"][rows], data["y"][rows])] * data["steps"],
+                           torch.device(device))
         if rank == 0:
             torch.save(result, out_path)
     finally:
