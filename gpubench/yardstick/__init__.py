@@ -1,0 +1,5 @@
+"""The benchmark's fixed arithmetic: the H100's published peaks, the
+frontend kernels' least time (roofline.py, a frozen copy of
+chip_smoke.py::bound) and the model's multiply-accumulates (macs.py, a
+frozen copy of the port's models/profiler.py arithmetic). Nothing here
+imports the port."""
