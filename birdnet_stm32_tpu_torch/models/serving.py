@@ -40,6 +40,13 @@ runs each card's queue on its own). The scores are gathered in row order:
 on mesh[0], the classifier's device, or block by block to the host. A
 batch whose rows do not divide over the mesh raises ValueError. The
 interpreter leg runs on the host, with no mesh.
+
+While a torch profiler records, each classify call on every leg lies in a
+serve.request span holding serve.ingress, then serve.frontend and
+serve.model for each block, then serve.egress (utils/tracing.py).
+Without a profiler the spans are a shared no-op. The model call is looked
+up on the runner (forward_block, executor) at each call, so a wrapper set
+on the runner wraps it.
 """
 
 from __future__ import annotations
@@ -64,6 +71,7 @@ from birdnet_stm32_tpu_torch.quant.tflite_import import (
     entry_quant_params,
     entry_transpose_perm,
 )
+from birdnet_stm32_tpu_torch.utils.tracing import EGRESS, FRONTEND, INGRESS, MODEL, REQUEST, span
 
 INPUT_DTYPES = (None, "float32", "int16", "ulaw")
 # Under jax.jit, XLA divides by a constant as a multiply by its float32
@@ -204,11 +212,21 @@ def make_fused_classifier(runner, cfg, input_sample_rate: int | None = None,
     if hasattr(runner, "model"):
         @torch.no_grad()
         def classify(wave):
-            # frontend_input and the replica each hold TF32 off where it
-            # matters; a bf16 runner casts whatever features it is given.
-            return out([runner.forward_block(frontend_input(
-                w, cfg, stft_precision=stft_precision, feature_dtype=feat_dtype))
-                for w in blocks_in(wave)])
+            with span(REQUEST):
+                with span(INGRESS):
+                    blocks = blocks_in(wave)
+                scores = []
+                for w in blocks:
+                    # frontend_input and the replica each hold TF32 off where
+                    # it matters; a bf16 runner casts whatever features it
+                    # is given.
+                    with span(FRONTEND):
+                        feats = frontend_input(w, cfg, stft_precision=stft_precision,
+                                               feature_dtype=feat_dtype)
+                    with span(MODEL):
+                        scores.append(runner.forward_block(feats))
+                with span(EGRESS):
+                    return out(scores)
 
         return classify
     if not as_numpy:
@@ -217,9 +235,15 @@ def make_fused_classifier(runner, cfg, input_sample_rate: int | None = None,
 
     @torch.no_grad()
     def classify(wave) -> np.ndarray:
-        (w,) = blocks_in(wave)
-        feats = frontend_input(w, cfg, stft_precision=stft_precision)
-        return np.asarray(runner.predict(feats.cpu().numpy()))
+        with span(REQUEST):
+            with span(INGRESS):
+                (w,) = blocks_in(wave)
+            with span(FRONTEND):
+                feats = frontend_input(w, cfg, stft_precision=stft_precision)
+            with span(MODEL):
+                scores = runner.predict(feats.cpu().numpy())
+            with span(EGRESS):
+                return np.asarray(scores)
 
     return classify
 
@@ -238,13 +262,20 @@ def _int8_classifier(runner, cfg, blocks_in, out, stft_precision: str):
 
     @torch.no_grad()
     def classify(wave):
-        scores = []
-        for w in blocks_in(wave):
-            fwd = runner.executor(w.shape[0], prequantized_input=entry_q is not None,
-                                  device=w.device)
-            scores.append(fwd(frontend_input(w, cfg, quant=entry_q,
-                                             stft_precision=stft_precision)))
-        return out(scores)
+        with span(REQUEST):
+            with span(INGRESS):
+                blocks = blocks_in(wave)
+            scores = []
+            for w in blocks:
+                with span(FRONTEND):
+                    feats = frontend_input(w, cfg, quant=entry_q,
+                                           stft_precision=stft_precision)
+                with span(MODEL):
+                    fwd = runner.executor(w.shape[0], prequantized_input=entry_q is not None,
+                                          device=w.device)
+                    scores.append(fwd(feats))
+            with span(EGRESS):
+                return out(scores)
 
     classify.entry_quant = entry_q
     return classify

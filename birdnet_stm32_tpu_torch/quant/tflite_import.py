@@ -62,6 +62,7 @@ import torch.nn.functional as F
 
 from birdnet_stm32_tpu_torch.device import full_fp32, resolve_device
 from birdnet_stm32_tpu_torch.quant import tflite_schema as fb
+from birdnet_stm32_tpu_torch.utils import tracing
 
 REQUANT_MODES = ("exact", "fast")
 
@@ -1093,6 +1094,14 @@ _OPS = {
 }
 
 
+def _spanned(step, name: str):
+    """`step` inside a profiler span `name` (the executor's traced loop)."""
+    def traced(vals):
+        with tracing.span(name):
+            step(vals)
+    return traced
+
+
 def build_executor(graph: TFLiteGraph, batch_size: int, device: str | torch.device = "cuda",
                    return_all: bool = False, requant: str = "exact",
                    pretransposed_input: bool = False,
@@ -1120,7 +1129,9 @@ def build_executor(graph: TFLiteGraph, batch_size: int, device: str | torch.devi
     Returns:
         f(x: [B, ...] float32, or int8 with prequantized_input) -> [B, ...]
         float32, on `device`. f.steps is the number of ops it computes
-        (aliased, skipped and dead ops not counted).
+        (aliased, skipped and dead ops not counted). While a profiler
+        records, each computed op runs in a span `tflite.<OP>`
+        (utils/tracing.py): f.steps spans a call.
     """
     if requant not in REQUANT_MODES:
         raise ValueError(f"Invalid requant: {requant!r} (expected one of {REQUANT_MODES})")
@@ -1135,7 +1146,7 @@ def build_executor(graph: TFLiteGraph, batch_size: int, device: str | torch.devi
     plan = layout_plan(graph, entry_target) if layout_prepasses else LayoutPlan()
     build = _Build(graph, dev, requant, plan)
 
-    steps, n_compute = [], 0
+    steps, traced_steps, n_compute = [], [], 0
     for op_index, op in enumerate(graph.ops):
         if op_index in entry_skip or op_index in plan.dead_ops:
             continue
@@ -1145,8 +1156,10 @@ def build_executor(graph: TFLiteGraph, batch_size: int, device: str | torch.devi
             # Forward the input unchanged; the consumer applies any perm.
             src, dst = plan.alias_ops[op_index], op.outputs[0]
             steps.append(lambda v, src=src, dst=dst: v.__setitem__(dst, v[src]))
+            traced_steps.append(steps[-1])
             continue
         steps.append(_OPS[op.name](build, op))
+        traced_steps.append(_spanned(steps[-1], tracing.OP_PREFIX + op.name))
         n_compute += 1
     consts = {t.index: torch.as_tensor(t.data.copy(), device=dev)
               for t in graph.tensors if t.data is not None}
@@ -1170,7 +1183,7 @@ def build_executor(graph: TFLiteGraph, batch_size: int, device: str | torch.devi
         else:
             vals[graph.inputs[0]] = x
         with full_fp32():
-            for step in steps:
+            for step in traced_steps if tracing.recording() else steps:
                 step(vals)
         return vals if return_all else vals[graph.outputs[0]]
 

@@ -1,0 +1,55 @@
+"""The port's spans: named intervals of the serving path in torch.profiler's
+own trace.
+
+While a torch profiler records on the calling thread, `span(name)` is
+`torch.profiler.record_function(name)`: the span lands in the profiler's
+trace on the host timeline that CUPTI's kernel, memcpy and memset events
+share, and a Chrome export shows it as a `user_annotation` event with its
+thread. Otherwise `span` returns one shared no-op context, so an untraced
+call pays one check (a fraction of a microsecond) and enters no
+record_function. `recording()` is that check, for a loop that hoists it.
+
+Spans (models/serving.py::make_fused_classifier, on every leg, with or
+without a mesh; quant/tflite_import.py::build_executor):
+
+- serve.request: one classify call;
+- serve.ingress: the batch to the device (shard_batch's host-to-device
+  copies) and each block's dequantize and resample;
+- serve.frontend: each block's frontend_input;
+- serve.model: each block's model call (the runner's forward_block or
+  executor, or the interpreter);
+- serve.egress: the scores to the host, or their gather;
+- tflite.<OP> (for example tflite.CONV_2D): each computed step of the
+  integer executor. Aliased, skipped and dead ops get none, so a call
+  holds `executor.steps` of them.
+
+A request's spans are those its serve.request contains on its thread: the
+export keeps no record_function payload, so there is no separate id.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+from torch._C._autograd import _profiler_enabled
+from torch.profiler import record_function
+
+REQUEST = "serve.request"
+INGRESS = "serve.ingress"
+FRONTEND = "serve.frontend"
+MODEL = "serve.model"
+EGRESS = "serve.egress"
+OP_PREFIX = "tflite."
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """True while a torch profiler records on this thread."""
+    return _profiler_enabled()
+
+
+def span(name: str):
+    """A profiler span named `name` while a profiler records, else the
+    shared no-op context."""
+    return record_function(name) if _profiler_enabled() else _NO_SPAN

@@ -119,7 +119,8 @@ def test_bench_main_prints_json_last(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("module", ["utils/__init__.py", "utils/benchmarking.py",
-                                    "scripts/__init__.py", "scripts/bench_frontend.py"])
+                                    "utils/tracing.py", "scripts/__init__.py",
+                                    "scripts/bench_frontend.py"])
 def test_import_scan_covers_new_modules(module):
     """tests/test_torch_serving.py's scan for JAX imports reaches utils/ and
     scripts/ (both run on the card machine, which has no JAX)."""

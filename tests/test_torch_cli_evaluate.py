@@ -263,6 +263,9 @@ def test_benchmark_modes_and_trace(assets, tmp_path):
     out, _ = _bench(assets, "tflite", tmp_path / "t.csv", "--trace_dir", str(tmp_path / "tr"))
     trace = json.loads((tmp_path / "tr" / "benchmark_trace.json").read_text())
     assert trace["traceEvents"] and "profiler trace ->" in out
+    spans = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "user_annotation"}
+    assert {"serve.request", "serve.ingress", "serve.frontend", "serve.model",
+            "serve.egress", "tflite.CONV_2D"} <= spans
     with pytest.raises(SystemExit, match="mutually exclusive"):
         run("benchmark", "--model_path", str(tmp_path / "missing"), "--audio_dir",
             str(tmp_path), "--int16_io", "--ulaw_io")
