@@ -10,7 +10,8 @@ call pays one check (a fraction of a microsecond) and enters no
 record_function. `recording()` is that check, for a loop that hoists it.
 
 Spans (models/serving.py::make_fused_classifier, on every leg, with or
-without a mesh; quant/tflite_import.py::build_executor):
+without a mesh; quant/tflite_import.py::build_executor;
+models/runners.py::TFLiteSimRunner):
 
 - serve.request: one classify call;
 - serve.ingress: the batch to the device (shard_batch's host-to-device
@@ -20,8 +21,15 @@ without a mesh; quant/tflite_import.py::build_executor):
   executor, or the interpreter);
 - serve.egress: the scores to the host, or their gather;
 - tflite.<OP> (for example tflite.CONV_2D): each computed step of the
-  integer executor. Aliased, skipped and dead ops get none, so a call
-  holds `executor.steps` of them.
+  eager integer executor. Aliased, skipped and dead ops get none, so a
+  call holds `executor.steps` of them;
+- tflite.GRAPH: one replay of the integer executor as a CUDA graph
+  (models/runners.py::TFLiteSimRunner on a CUDA device): the input copy,
+  the replay and the output clone, so every kernel of the call is
+  launched inside it. A block served by the graph holds one tflite.*
+  span, a block served eagerly `executor.steps` (the CPU, the graph's
+  first call, a key whose capture failed): the count of tflite.* spans
+  per block says whether the graph engaged.
 
 A request's spans are those its serve.request contains on its thread: the
 export keeps no record_function payload, so there is no separate id.
@@ -40,6 +48,7 @@ FRONTEND = "serve.frontend"
 MODEL = "serve.model"
 EGRESS = "serve.egress"
 OP_PREFIX = "tflite."
+GRAPH = OP_PREFIX + "GRAPH"
 
 _NO_SPAN = contextlib.nullcontext()
 

@@ -169,27 +169,166 @@ def test_int8_executor_matches_golden_on_card(cuda):
     np.testing.assert_array_equal(got, np.load(GOLDEN)["scores"])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("fused", [False, True])
-def test_int8_executor_matches_cpu_on_card(cuda, fused):
-    """CUDA vs CPU executor on chirp features from the linear kernel: the
-    flagship graph on float features, or the fixture graph on the int8
-    kernel's entry tensor; bit-equal scores."""
+def _chirp_entry(fused, seed=11, B=6):
+    """(graph, the linear kernel's features of B chirps on the card): the
+    flagship graph's float features, or the fixture graph's int8 entry."""
     cfg = ModelConfig.load(Path(__file__).resolve().parents[1]
                            / "artifacts/flagship/bundle/model_config.json")
     t = np.arange(cfg.chunk_samples) / cfg.sample_rate
-    f0 = np.random.default_rng(11).uniform(500.0, 6000.0, (6, 1))
+    f0 = np.random.default_rng(seed).uniform(500.0, 6000.0, (B, 1))
     wave = torch.from_numpy((0.5 * np.sin(2 * np.pi * f0 * t * (1 + 0.3 * t))).astype(np.float32))
     graph = TFLiteGraph(FLAGSHIP_TFLITE)
     quant = None
     if fused:
         graph = entry_transpose_fixture(graph)
         quant = entry_quant_params(graph)
-    feats = frontend_input(wave.cuda(), cfg, quant=quant)
+    return graph, frontend_input(wave.cuda(), cfg, quant=quant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_int8_executor_matches_cpu_on_card(cuda, fused):
+    """CUDA vs CPU executor on chirp features from the linear kernel: the
+    flagship graph on float features, or the fixture graph on the int8
+    kernel's entry tensor; bit-equal scores."""
+    graph, feats = _chirp_entry(fused)
     got = build_executor(graph, 6, device="cuda", prequantized_input=fused)(feats)
     ref = build_executor(graph, 6, device="cpu", prequantized_input=fused)(feats.cpu())
     assert torch.isfinite(got).all() and got.shape == (6, 100)
     np.testing.assert_array_equal(got.cpu().numpy(), ref.numpy())
+
+
+# The runner's executor on a card is a CUDA graph of the eager one
+# (models/runners.py::_GraphedExecutor): its first call runs eagerly and
+# captures, every later call replays. Each must equal the CPU executor bit
+# for bit, and hand back an answer of its own.
+def _graphed(graph, B, fused):
+    from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner, _GraphedExecutor
+
+    fwd = TFLiteSimRunner(graph, device="cuda").executor(B, prequantized_input=fused)
+    assert isinstance(fwd, _GraphedExecutor) and fwd.graph is None
+    return fwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_graphed_executor_matches_cpu_on_card(cuda, fused):
+    """The capture call and two replays against the CPU executor, on the
+    chirps of test_int8_executor_matches_cpu_on_card; bit-equal."""
+    graph, feats = _chirp_entry(fused)
+    ref = build_executor(graph, 6, device="cpu", prequantized_input=fused)(feats.cpu()).numpy()
+    fwd = _graphed(graph, 6, fused)
+    first = fwd(feats)
+    assert fwd.graph is not None and not fwd.eager_only, "the capture fell back to eager"
+    for got in (first, fwd(feats), fwd(feats.clone())):
+        np.testing.assert_array_equal(got.cpu().numpy(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_graphed_executor_answers_are_its_own_on_card(cuda, fused):
+    """Two replays on different inputs each return their own answer, and
+    the first, held across the second, is unchanged."""
+    graph, a = _chirp_entry(fused, seed=11)
+    _, b = _chirp_entry(fused, seed=12)
+    cpu = build_executor(graph, 6, device="cpu", prequantized_input=fused)
+    ref_a, ref_b = cpu(a.cpu()).numpy(), cpu(b.cpu()).numpy()
+    assert not np.array_equal(ref_a, ref_b)
+    fwd = _graphed(graph, 6, fused)
+    fwd(b)
+    ya = fwd(a)
+    yb = fwd(b)
+    assert len({ya.data_ptr(), yb.data_ptr(), fwd.static_out.data_ptr()}) == 3
+    np.testing.assert_array_equal(ya.cpu().numpy(), ref_a)
+    np.testing.assert_array_equal(yb.cpu().numpy(), ref_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_graphed_executor_checks_its_input_on_card(cuda, fused):
+    """After the capture a wrong batch, trailing shape (which copy_ would
+    broadcast), dtype or device still raises ValueError."""
+    graph, feats = _chirp_entry(fused)
+    fwd = _graphed(graph, 6, fused)
+    fwd(feats)
+    assert fwd.graph is not None
+    for bad in (feats[:3], feats[:, :, :1].contiguous(), feats.to(torch.float64), feats.cpu()):
+        with pytest.raises(ValueError, match="executor for"):
+            fwd(bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_graphed_mesh_two_entries_on_card(cuda, fused):
+    """A mesh of cuda:0 twice through make_fused_classifier: both row
+    blocks share one graph on the card, and three calls on different
+    waves (capture, then replays) equal one card's answers bit for bit."""
+    from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner, _GraphedExecutor
+    from birdnet_stm32_tpu_torch.models.serving import make_fused_classifier
+
+    cfg = ModelConfig.load(FLAGSHIP_CONFIG)
+    graph = TFLiteGraph(FLAGSHIP_TFLITE)
+    if fused:
+        graph = entry_transpose_fixture(graph)
+    one = make_fused_classifier(TFLiteSimRunner(graph, device="cuda:0"), cfg, device="cuda:0")
+    mesh = TFLiteSimRunner(graph, mesh=["cuda:0", "cuda:0"])
+    two = make_fused_classifier(mesh, cfg, device="cuda:0", as_numpy=False)
+    rng = np.random.default_rng(40)
+    for _ in range(3):
+        wave = np.clip(rng.normal(0, 0.2, (8, cfg.chunk_samples)), -0.99, 0.99)
+        wave = wave.astype(np.float32)
+        np.testing.assert_array_equal(two(wave).cpu().numpy(), one(wave))
+    (fwd,) = mesh._executors.values()
+    assert isinstance(fwd, _GraphedExecutor) and fwd.graph is not None
+
+
+def _kernels_and_spans(prof, path):
+    """(device kernels, copies and memsets as (category, name, host launch
+    time), tflite.* spans as (name, start, end)) from a profiler's Chrome
+    trace, written to `path`."""
+    import json
+
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") == "cuda_runtime"
+              and "correlation" in (e.get("args") or {})}
+    device = [(e["cat"], e["name"], launch.get(e["args"].get("correlation"))) for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spans = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"].startswith("tflite.")]
+    return device, spans
+
+
+@pytest.mark.cuda
+def test_graphed_executor_span_on_card(cuda, tmp_path):
+    """Under torch.profiler a replay records exactly one tflite.GRAPH span,
+    every kernel and copy of the call is launched inside it, and the
+    replay runs the eager call's kernels."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from birdnet_stm32_tpu_torch.utils.tracing import GRAPH
+
+    graph, feats = _chirp_entry(False)
+    fwd = _graphed(graph, 6, False)
+    fwd(feats)
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        fwd(feats)
+        torch.cuda.synchronize()
+    device, spans = _kernels_and_spans(prof, tmp_path / "graph.json")
+    assert [name for name, _, _ in spans] == [GRAPH]
+    (_, t0, t1) = spans[0]
+    assert device and all(t is not None and t0 <= t <= t1 for _, _, t in device), device[:5]
+    with profile(activities=acts) as prof:
+        fwd.eager(feats)
+        torch.cuda.synchronize()
+    eager, _ = _kernels_and_spans(prof, tmp_path / "eager.json")
+    kernels = Counter(n for c, n, _ in device if c == "kernel")
+    assert kernels and kernels == Counter(n for c, n, _ in eager if c == "kernel")
 
 
 @pytest.mark.cuda
