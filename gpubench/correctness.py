@@ -3,10 +3,13 @@
 Every answer of the window is compared: each request's scores against the
 plain reference's scores of the same input batch (gpubench/reference/),
 worked out once per distinct batch of the pool after the window, on the
-CPU, from the raw inputs and weights the harness made. The number compared
-is `score_gap`, the widest gap between a served score and the reference's
-score of the same chunk and class, over every answer; a configuration's
-file gives its limit. An answer that is missing, of the wrong shape or not
+CPU, from the raw inputs and weights the harness made. The configuration's
+`model` names the reference (gpubench/reference/<model>.py: its `scores`
+for a float runner, its `features` or frontend.py's for every runner); an
+INT8 graph runs through int8.py. The number compared is `score_gap`, the
+widest gap between a served score and the reference's score of the same
+chunk and class, over every answer; a configuration's file gives its
+limit. An answer that is missing, of the wrong shape or not
 finite fails the run, and so does a request that raised.
 
 The control puts the reference in the program's place at the precision
@@ -21,7 +24,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from gpubench.reference import dscnn, frontend, int8
+from gpubench import reference
+from gpubench.reference import frontend, int8
 
 FP8_MAX = 448.0
 INT4_STEP = 16  # int8 codes -> int4 codes * 16 (the int4 grid, scale x 16)
@@ -48,13 +52,15 @@ def reference_scores(config: dict, mix: dict, pool: list, weights: dict | None,
                      root: Path, control: bool = False) -> list[np.ndarray]:
     """[rows, classes] float32 scores of each pool batch by the plain
     reference (`control`: at the precision below the configuration's)."""
-    feats = [frontend.features(b, config, mix) for b in pool]
+    ref = reference.model(config["model"])
+    features = getattr(ref, "features", frontend.features)
+    feats = [features(b, config, mix) for b in pool]
     if config["runner"] == "tflite_sim":
         graph = _int8_graph(config, root, int4=control)
         return [int8.run(graph, f) for f in feats]
     if config["runner"] == "torch":
         cast = _fp8 if control else (lambda x: x)
-        return [dscnn.scores(weights, torch.from_numpy(f), config, cast).numpy()
+        return [ref.scores(weights, torch.from_numpy(f), config, cast).numpy()
                 for f in feats]
     raise ValueError(f"no reference for runner {config['runner']!r}")
 

@@ -3,7 +3,8 @@ comparison with the reference, and the result line.
 
 The cell, its configuration and its traffic mix are found by name from
 BENCHMARK.json in the working directory (the checkout's root): the
-configuration's file is the `file` BENCHMARK.json gives, the mix is
+configuration's file is the `file` BENCHMARK.json gives (it names its
+`model`, and a float runner's `builder`: gpubench/system.py), the mix is
 gpubench/traffic/<traffic>.json, and each per-layer metric is read by
 gpubench/metrics/<name>.py.
 
@@ -19,7 +20,7 @@ the latency of every request in it. Python's cyclic garbage collector is
 off for the window, with set-up's objects frozen out of its reach. With
 `--trace 1` the first
 `trace_calls` requests of the window run under torch.profiler, with a span
-around each request and around the runner's per-card model call, and the
+around each request (the program records its own spans inside it), and the
 line carries the per-layer metrics instead. After the window the program
 is freed and every answer is compared with the plain reference
 (gpubench/correctness.py).
@@ -28,7 +29,6 @@ is freed and every answer is compared with the plain reference
 from __future__ import annotations
 
 import gc
-import importlib.util
 import json
 import subprocess
 import sys
@@ -38,7 +38,7 @@ from pathlib import Path
 
 import numpy as np
 
-from gpubench import correctness, trace, traffic
+from gpubench import correctness, load_file, trace, traffic
 
 ROOT = Path.cwd()
 FORBIDDEN = ("jax", "jaxlib", "flax", "birdnet_stm32_tpu")
@@ -59,8 +59,19 @@ def load_cell(workload: str) -> tuple[dict, dict, dict, dict]:
     if cell is None:
         raise SystemExit(f"no workload {workload!r} in BENCHMARK.json")
     entry = next(c for c in bench["configs"] if c["name"] == cell["config"])
-    config = json.loads((ROOT / entry["file"]).read_text())
-    return bench, cell, config, traffic.load(cell["traffic"])
+    return bench, cell, load_config(ROOT / entry["file"]), traffic.load(cell["traffic"])
+
+
+def load_config(path: Path) -> dict:
+    """A configuration's file, which names its `model` (the reference and
+    MAC files that gpubench/reference/ and gpubench/yardstick/ find by it)
+    and, for a float runner, its `builder`."""
+    config = json.loads(path.read_text())
+    need = ("model", "builder") if config.get("runner") == "torch" else ("model",)
+    missing = [k for k in need if k not in config]
+    if missing:
+        raise SystemExit(f"{path}: no {' or '.join(map(repr, missing))} key")
+    return config
 
 
 def cell_metrics(bench: dict, cell: dict, kind: str) -> list[dict]:
@@ -73,11 +84,7 @@ def forbidden_modules() -> list[str]:
 
 
 def read_metric(name: str, ctx):
-    spec = importlib.util.spec_from_file_location(f"gpubench_metric_{name}",
-                                                  METRICS_DIR / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read(ctx)
+    return load_file(METRICS_DIR, name).read(ctx)
 
 
 @dataclass
@@ -165,10 +172,9 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, t_start: fl
         traced_calls = mix["trace_calls"]
 
         def calls():
-            with sut.model_span(trace.MODEL_SPAN):
-                for _ in range(traced_calls):
-                    with record_function(trace.REQUEST_SPAN):
-                        request()
+            for _ in range(traced_calls):
+                with record_function(trace.REQUEST_SPAN):
+                    request()
         prof = trace.profile(calls)
         rest_start = time.perf_counter()
     while time.perf_counter() < deadline:

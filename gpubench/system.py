@@ -6,14 +6,17 @@ that imports the port.
 A configuration's `runner` says which of the port's runners serves it:
 - "tflite_sim": TFLiteSimRunner over the configuration's .tflite file (the
   bit-exact integer executor);
-- "torch": build_dscnn with the harness's seeded weights, served by
-  TorchRunner in the configuration's `precision`.
+- "torch": the model that the configuration's `builder` makes
+  ("birdnet_stm32_tpu_torch.<module>:<function>", called as
+  `builder(cfg, class_activation=..., device=...)`), with the harness's
+  seeded weights, served by TorchRunner in the configuration's
+  `precision`.
 With more than one card the runner gets the cards as its mesh.
 """
 
 from __future__ import annotations
 
-import contextlib
+import importlib
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -21,46 +24,26 @@ import torch
 
 from gpubench.weights import seeded_state
 
+PORT = "birdnet_stm32_tpu_torch"
 PRECISIONS = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 @dataclass
 class System:
     classify: object
-    runner: object
-    devices: list
     weights: dict | None = None  # the harness's float32 weights (CPU), for the reference
 
-    @contextlib.contextmanager
-    def model_span(self, name: str = "gpubench.model"):
-        """Wrap the runner's per-block model call in a profiler span (traced
-        runs only); restores the runner afterwards."""
-        from torch.profiler import record_function
 
-        r = self.runner
-        if hasattr(r, "graph"):
-            make = r.executor
-
-            def executor(*a, **k):
-                fwd = make(*a, **k)
-
-                def spanned(x):
-                    with record_function(name):
-                        return fwd(x)
-                return spanned
-            r.executor = executor
-        else:
-            block = r.forward_block
-
-            def forward_block(x):
-                with record_function(name):
-                    return block(x)
-            r.forward_block = forward_block
-        try:
-            yield
-        finally:
-            for attr in ("executor", "forward_block"):
-                r.__dict__.pop(attr, None)
+def builder(path: str):
+    """The callable a configuration's `builder` names: a function of a
+    module of the port."""
+    module, _, attr = path.partition(":")
+    if not module.startswith(PORT + ".") or not attr:
+        raise ValueError(f"builder {path!r}: not {PORT}.<module>:<function>")
+    fn = getattr(importlib.import_module(module), attr, None)
+    if not callable(fn):
+        raise ValueError(f"builder {path!r}: {module} has no function {attr!r}")
+    return fn
 
 
 def build(config: dict, mix: dict, seed: int, devices: list, root: Path) -> System:
@@ -75,9 +58,8 @@ def build(config: dict, mix: dict, seed: int, devices: list, root: Path) -> Syst
     if config["runner"] == "tflite_sim":
         runner = TFLiteSimRunner(root / config["tflite"], device=dev, mesh=mesh)
     elif config["runner"] == "torch":
-        from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn
-
-        model = build_dscnn(cfg, class_activation=config["class_activation"], device=dev)
+        model = builder(config["builder"])(cfg, class_activation=config["class_activation"],
+                                           device=dev)
         state = seeded_state(model.state_dict(), config, seed, dev)
         model.load_state_dict(state, strict=False)
         weights = {k: v.detach().float().cpu() for k, v in state.items()}
@@ -90,4 +72,4 @@ def build(config: dict, mix: dict, seed: int, devices: list, root: Path) -> Syst
     classify = make_fused_classifier(
         runner, cfg, input_sample_rate=rate if rate and rate != cfg.sample_rate else None,
         as_numpy=True, input_dtype=mix["input_dtype"], device=dev)
-    return System(classify, runner, devices, weights)
+    return System(classify, weights)

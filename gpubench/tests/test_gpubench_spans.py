@@ -1,4 +1,4 @@
-"""The readers of the program's spans (gpubench/spans.py and the six
+"""The readers of the program's spans (gpubench/spans.py and the seven
 metrics that read serve.* and tflite.* spans): on hand-built traces with
 known intervals, on a trace without the spans (a program that records
 none), and in a traced run of the INT8 and bf16 cells on the CPU."""
@@ -11,11 +11,11 @@ import pytest
 import torch
 
 from gpubench import harness, spans
-from gpubench.trace import MODEL_SPAN, REQUEST_SPAN, Event, Trace
+from gpubench.trace import REQUEST_SPAN, Event, Trace
 
 SMALL = {"rows": 4, "pool": 2, "warmup_rounds": 1, "trace_calls": 2}
 HOST_METRICS = ("entry_self_ms", "egress_wait_ms", "ingress_host_ms", "model_issue_ms")
-NEW = HOST_METRICS + ("executor_ops_per_batch", "model_idle_ms")
+NEW = HOST_METRICS + ("executor_ops_per_batch", "model_idle_ms", "model_busy_ms")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -43,7 +43,7 @@ def two_requests() -> Trace:
     tr.spans = [
         span(REQUEST_SPAN, 0, 100), span(spans.REQUEST, 5, 95),
         span(spans.INGRESS, 10, 20), span(spans.FRONTEND, 15, 30),
-        span(spans.MODEL, 30, 80), span(MODEL_SPAN, 31, 79), span("tflite.ADD", 35, 40),
+        span(spans.MODEL, 30, 80), span("tflite.ADD", 35, 40),
         span("tflite.CONV_2D", 40, 44), span(spans.EGRESS, 85, 90),
         span("other.thread", 0, 100, tid=2),
         span(REQUEST_SPAN, 100, 200), span(spans.REQUEST, 105, 195),
@@ -89,6 +89,17 @@ def test_model_idle_ms_intersects_each_cards_idle_time_with_the_model_spans():
     assert harness.read_metric("model_idle_ms", ctx(tr, cards=3)) == pytest.approx(255e-3 / 2)
 
 
+def test_model_busy_ms_sums_the_kernels_launched_in_serve_model():
+    # Kernels launched at 35 and 140 us, inside the model spans [30, 80] and
+    # [130, 180], count with their device time; one launched at 12 us, in
+    # serve.ingress, and one with no launch record do not.
+    tr = two_requests()
+    tr.kernels = [Event("k", 0, 40, 10, corr=1), Event("k", 1, 150, 30, corr=2),
+                  Event("k", 0, 20, 5, corr=3), Event("k", 0, 60, 7)]
+    tr.launches = {1: 35.0, 2: 140.0, 3: 12.0}
+    assert harness.read_metric("model_busy_ms", ctx(tr)) == pytest.approx(40e-3 / 2)
+
+
 def test_host_span_readers_sum_per_request():
     c = ctx(two_requests())
     assert harness.read_metric("ingress_host_ms", c) == pytest.approx(10e-3 / 2)
@@ -99,7 +110,7 @@ def test_host_span_readers_sum_per_request():
 
 def test_a_program_without_spans_leaves_each_reader_nothing():
     tr = two_requests()
-    tr.spans = [s for s in tr.spans if s.name in (REQUEST_SPAN, MODEL_SPAN)]
+    tr.spans = [s for s in tr.spans if s.name == REQUEST_SPAN]
     for name in NEW:
         assert harness.read_metric(name, ctx(tr)) is None, name
 

@@ -40,7 +40,7 @@ def test_imports_no_jax(path):
     assert not top_level_imports(path) & FORBIDDEN
 
 
-@pytest.mark.parametrize("sub", ["reference", "yardstick", "metrics"])
+@pytest.mark.parametrize("sub", ["reference", "yardstick", "metrics", "tests/standin"])
 def test_reference_and_yardstick_import_no_port(sub):
     for path in sorted((BENCH_DIR / sub).rglob("*.py")):
         assert PORT not in top_level_imports(path), path
@@ -71,6 +71,18 @@ def test_names_resolve_to_files():
                    for c in b["configs"]} - {None}
     for f in model_files:
         assert (ROOT / f).is_file() and f.startswith("gpubench/")
+
+
+def test_configurations_name_their_model_and_builder():
+    from gpubench import load_file, reference, system
+
+    for c in bench()["configs"]:
+        config = json.loads((ROOT / c["file"]).read_text())
+        model = config["model"]
+        assert callable(reference.model(model).scores), model
+        assert callable(load_file(BENCH_DIR / "yardstick", f"macs_{model}").model_macs), model
+        if config["runner"] == "torch":
+            assert callable(system.builder(config["builder"]))
 
 
 def test_contract_shapes():

@@ -4,8 +4,9 @@ metrics read.
 The profiler's Chrome trace is written to a file under the run's TMPDIR,
 read back and deleted. Kept: device kernels, copies and memsets (device,
 start, duration, correlation id), the host's launch calls (correlation id
--> start), the benchmark's own spans (record_function) and the host's
-operators on the issuing thread, each in microseconds on one clock.
+-> start), the spans (record_function: the harness's one around each
+request, the program's own inside it) and the host's operators on the
+issuing thread, each in microseconds on one clock.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ from collections import defaultdict
 from dataclasses import dataclass, field
 
 REQUEST_SPAN = "gpubench.request"
-MODEL_SPAN = "gpubench.model"
 
 
 @dataclass

@@ -8,7 +8,10 @@ convolution kernels He-normal, the dense head LeCun-normal with a bias of
 N(0, 0.1), BN scale U(0.8, 1.2), shift N(0, 0.05), running mean N(0,
 0.05), running variance U(0.8, 1.2); the hybrid mel mixer is the Slaney
 bank and the pwl curve keeps its published defaults (k0 0.40, thresholds
-0.10 / 0.35 / 0.65, slopes 0.25 / 0.15 / 0.08).
+0.10 / 0.35 / 0.65, slopes 0.25 / 0.15 / 0.08). A parameter that no rule
+covers is given by the `seeded` function of the configuration's reference
+module (gpubench/reference/<model>.py), from the same draws; without one,
+or where it returns None, seeding refuses the model.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import math
 
 import torch
 
+from gpubench import reference
 from gpubench.reference.mel import mel_filterbank
 
 PWL_K0 = 0.40
@@ -49,7 +53,7 @@ def seeded_state(template: dict, model: dict, seed: int, device) -> dict:
     g.manual_seed(int(seed) & (2**63 - 1))
     normal = torch.randn(total, generator=g, device=device)
     uniform = torch.rand(total, generator=g, device=device)
-    out, at = {}, 0
+    out, at, by_model = {}, 0, None
     for name, shape in shapes.items():
         n = math.prod(shape)
         z, u = normal[at:at + n].view(shape), uniform[at:at + n].view(shape)
@@ -72,5 +76,11 @@ def seeded_state(template: dict, model: dict, seed: int, device) -> dict:
         elif tail == "bias":
             out[name] = 0.1 * z
         else:
-            raise ValueError(f"no seeding rule for {name} {shape}")
+            if by_model is None:
+                by_model = getattr(reference.model(model["model"]), "seeded",
+                                     lambda *a: None)
+            value = by_model(name, shape, z, u, model)
+            if value is None:
+                raise ValueError(f"no seeding rule for {name} {shape}")
+            out[name] = torch.as_tensor(value, dtype=torch.float32, device=device)
     return out
