@@ -78,7 +78,10 @@ class ModelConfig:
     mag_scale: str = "pwl"
     n_mfcc: int = 20
 
-    # Architecture
+    # Architecture. `architecture` names the registered model builder
+    # (models/__init__.py::build_model); the knobs below it are the
+    # DS-CNN's, an EfficientNet takes its variant's widths.
+    architecture: str = "dscnn"
     embeddings_size: int = 256
     alpha: float = 1.0
     depth_multiplier: int = 1

@@ -1,8 +1,10 @@
 """Model family (port of birdnet_stm32_tpu/models/): the DS-CNN backbone,
-in-graph audio frontends, blocks, and the registry of model builders::
+EfficientNet-B1 (the port's own, models/efficientnet.py), in-graph audio
+frontends, blocks, and the registry of model builders, keyed by the name a
+configuration's `architecture` gives ("dscnn", "efficientnet_b1")::
 
     from birdnet_stm32_tpu_torch.models import build_model
-    model = build_model("dscnn", cfg, class_activation="none", device="cpu")
+    model = build_model(cfg.architecture, cfg, class_activation="none", device="cpu")
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from typing import Any, Callable
 
 from birdnet_stm32_tpu_torch.models.blocks import make_divisible
 from birdnet_stm32_tpu_torch.models.dscnn import DSCNN, build_dscnn
+from birdnet_stm32_tpu_torch.models.efficientnet import EfficientNet, build_efficientnet
 
 # Model registry: name -> builder (cfg: ModelConfig, **kwargs) -> nn.Module.
 _MODEL_REGISTRY: dict[str, Callable[..., Any]] = {}
@@ -47,6 +50,7 @@ def list_models() -> list[str]:
 
 
 _MODEL_REGISTRY["dscnn"] = build_dscnn
+register_model("efficientnet_b1")(build_efficientnet)
 
-__all__ = ["DSCNN", "build_dscnn", "make_divisible",
+__all__ = ["DSCNN", "build_dscnn", "EfficientNet", "build_efficientnet", "make_divisible",
            "register_model", "build_model", "list_models"]

@@ -1,4 +1,5 @@
-"""DS-CNN building blocks in PyTorch (port of models/blocks.py).
+"""DS-CNN and EfficientNet building blocks in PyTorch (port of
+models/blocks.py; the MBConv pair is the port's own).
 
 Layouts are NCHW inside the model (H = frequency bins, W = frames, as the
 JAX package's NHWC H and W). Every weighted layer registers directly on the
@@ -34,6 +35,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from birdnet_stm32_tpu_torch.parallel import distributed
+from birdnet_stm32_tpu_torch.utils.tracing import (
+    MBCONV_DW,
+    MBCONV_EXPAND,
+    MBCONV_PROJECT,
+    MBCONV_SE,
+    span,
+)
 
 # Keras BatchNormalization defaults, which the whole reference model uses
 # (torch's momentum is 1 - Keras momentum).
@@ -220,9 +228,10 @@ def batch_norm(channels: int) -> BatchNorm2d:
     return BatchNorm2d(channels, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
 
 
-def depthwise_conv(channels: int, strides) -> Conv2dSame:
-    """3x3 depthwise conv (multiplier 1), matching Keras DepthwiseConv2D."""
-    return Conv2dSame(channels, channels, (3, 3), strides, groups=channels)
+def depthwise_conv(channels: int, strides, kernel: int = 3) -> Conv2dSame:
+    """kernel x kernel depthwise conv (multiplier 1), matching Keras
+    DepthwiseConv2D."""
+    return Conv2dSame(channels, channels, (kernel, kernel), strides, groups=channels)
 
 
 def add_conv_bn(parent: nn.Module, name: str, cin: int, cout: int, kernel,
@@ -260,16 +269,20 @@ def ds_conv_block(parent: nn.Module, x: torch.Tensor, name: str) -> torch.Tensor
     return relu6(y)
 
 
-def add_se_block(parent: nn.Module, name: str, channels: int, reduction: int = 8) -> int:
-    """Squeeze-and-Excite: '<name>_reduce' and '<name>_expand' dense layers."""
-    se_ch = max(1, channels // reduction)
-    parent.add_module(f"{name}_reduce", Linear(channels, se_ch, bias=False))
-    parent.add_module(f"{name}_expand", Linear(se_ch, channels, bias=False))
+def add_se_block(parent: nn.Module, name: str, channels: int, reduction: int = 8,
+                 squeeze: int | None = None, bias: bool = False) -> int:
+    """Squeeze-and-Excite: '<name>_reduce' and '<name>_expand' dense layers
+    through `squeeze` channels (default channels // reduction, at least 1),
+    with biases if `bias` (EfficientNet's)."""
+    se_ch = squeeze or max(1, channels // reduction)
+    parent.add_module(f"{name}_reduce", Linear(channels, se_ch, bias=bias))
+    parent.add_module(f"{name}_expand", Linear(se_ch, channels, bias=bias))
     return channels
 
 
-def se_block(parent: nn.Module, x: torch.Tensor, name: str) -> torch.Tensor:
-    s = torch.relu(getattr(parent, f"{name}_reduce")(x.mean(dim=(2, 3))))
+def se_block(parent: nn.Module, x: torch.Tensor, name: str, act=torch.relu) -> torch.Tensor:
+    """x times sigmoid(expand(act(reduce(mean of x over H, W)))), per channel."""
+    s = act(getattr(parent, f"{name}_reduce")(x.mean(dim=(2, 3))))
     s = torch.sigmoid(getattr(parent, f"{name}_expand")(s))
     return x * s[:, :, None, None]
 
@@ -303,6 +316,60 @@ def inverted_residual_block(parent: nn.Module, x: torch.Tensor, name: str) -> to
     if tuple(dw.stride) == (1, 1) and y.shape[1] == x.shape[1]:
         y = x + y
     return y
+
+
+def add_mbconv_block(parent: nn.Module, name: str, cin: int, cout: int, kernel: int,
+                     strides, expansion: int, se_ratio: float) -> int:
+    """Keras EfficientNet's MBConv block, its layers under Keras's names:
+    1x1 expand '<name>_expand_conv' -> BN '<name>_expand_bn' -> SiLU (only
+    when expansion > 1) -> kernel x kernel depthwise '<name>_dwconv' -> BN
+    '<name>_bn' -> SiLU -> SE ('<name>_se_reduce', '<name>_se_expand', with
+    biases, through max(1, int(cin * se_ratio)) channels of the block's
+    input width) -> 1x1 project '<name>_project_conv' -> BN
+    '<name>_project_bn'."""
+    hidden = cin * expansion
+    if expansion != 1:
+        parent.add_module(f"{name}_expand_conv", Conv2dSame(cin, hidden, (1, 1)))
+        parent.add_module(f"{name}_expand_bn", batch_norm(hidden))
+    parent.add_module(f"{name}_dwconv", depthwise_conv(hidden, strides, kernel))
+    parent.add_module(f"{name}_bn", batch_norm(hidden))
+    add_se_block(parent, f"{name}_se", hidden, squeeze=max(1, int(cin * se_ratio)), bias=True)
+    parent.add_module(f"{name}_project_conv", Conv2dSame(hidden, cout, (1, 1)))
+    parent.add_module(f"{name}_project_bn", batch_norm(cout))
+    return cout
+
+
+def mbconv_block(parent: nn.Module, x: torch.Tensor, name: str) -> torch.Tensor:
+    """The MBConv block (+ x when the stride is 1 and the widths match).
+    While a profiler records, the expand, depthwise and project convolution
+    calls and the whole SE each lie in a span (utils/tracing.py); BN, SiLU
+    and the residual add stay outside them."""
+    y = x
+    if hasattr(parent, f"{name}_expand_conv"):
+        with span(MBCONV_EXPAND):
+            y = getattr(parent, f"{name}_expand_conv")(y)
+        y = F.silu(getattr(parent, f"{name}_expand_bn")(y))
+    dw = getattr(parent, f"{name}_dwconv")
+    with span(MBCONV_DW):
+        y = dw(y)
+    y = F.silu(getattr(parent, f"{name}_bn")(y))
+    with span(MBCONV_SE):
+        y = se_block(parent, y, f"{name}_se", act=F.silu)
+    with span(MBCONV_PROJECT):
+        y = getattr(parent, f"{name}_project_conv")(y)
+    y = getattr(parent, f"{name}_project_bn")(y)
+    if tuple(dw.stride) == (1, 1) and y.shape[1] == x.shape[1]:
+        y = x + y
+    return y
+
+
+def class_scores(logits: torch.Tensor, class_activation: str) -> torch.Tensor:
+    """The head's activation: 'softmax', 'sigmoid' or 'none' (logits)."""
+    if class_activation == "softmax":
+        return torch.softmax(logits, dim=-1)
+    if class_activation == "sigmoid":
+        return torch.sigmoid(logits)
+    return logits
 
 
 def add_attention_pooling(parent: nn.Module, name: str, channels: int) -> int:

@@ -34,22 +34,19 @@ from birdnet_stm32_tpu_torch.models.blocks import (
     add_inverted_residual_block,
     add_se_block,
     attention_pooling,
+    class_scores,
     conv_bn,
     ds_conv_block,
     inverted_residual_block,
     make_divisible,
     se_block,
 )
-from birdnet_stm32_tpu_torch.models.frontend_layer import AudioFrontend
+from birdnet_stm32_tpu_torch.models.frontend_layer import make_audio_frontend
 
 BASE_FILTERS: Sequence[int] = (32, 64, 128, 256)
 BASE_REPEATS: Sequence[int] = (2, 3, 4, 2)
 RAW_MAX_SAMPLES = 1 << 16  # N6 NPU constraint kept for config parity
 CLASS_ACTIVATIONS = ("softmax", "sigmoid", "none")
-
-# Canonical frontend -> in-graph frontend mode (the JAX registry's built-ins).
-_FRONTEND_MODES = {"librosa": "precomputed", "mfcc": "precomputed",
-                   "log_mel": "precomputed", "hybrid": "hybrid", "raw": "raw"}
 
 
 class DSCNN(nn.Module):
@@ -70,18 +67,11 @@ class DSCNN(nn.Module):
                  use_attention_pooling: bool = False, class_activation: str = "softmax",
                  learn_mel_scale: bool = False, dropout_rate: float = 0.5):
         super().__init__()
-        if audio_frontend not in _FRONTEND_MODES:
-            raise ValueError(f"Invalid audio frontend: {audio_frontend!r}")
         if class_activation not in CLASS_ACTIVATIONS:
             raise ValueError(f"Invalid class_activation: {class_activation!r}")
-        mode = _FRONTEND_MODES[audio_frontend]
-        input_bins = n_mfcc if audio_frontend == "mfcc" else num_mels
-        self.audio_frontend = AudioFrontend(
-            mode, mel_bins=input_bins if mode == "precomputed" else num_mels,
-            spec_width=spec_width, sample_rate=sample_rate,
-            chunk_duration=chunk_duration, fft_length=fft_length,
-            mag_scale=mag_scale if mode != "precomputed" else "none",
-            learn_mel_scale=learn_mel_scale)
+        self.audio_frontend = make_audio_frontend(
+            audio_frontend, num_mels, spec_width, sample_rate, chunk_duration, fft_length,
+            mag_scale, n_mfcc, learn_mel_scale)
         self.use_attention_pooling = use_attention_pooling
         self.class_activation = class_activation
 
@@ -145,11 +135,7 @@ class DSCNN(nn.Module):
             emb = attention_pooling(self, x, "attn_pool")
         else:
             emb = x.mean(dim=(2, 3))  # GAP
-        y = self.pred(self.dropout(emb))
-        if self.class_activation == "softmax":
-            y = torch.softmax(y, dim=-1)
-        elif self.class_activation == "sigmoid":
-            y = torch.sigmoid(y)
+        y = class_scores(self.pred(self.dropout(emb)), self.class_activation)
         return (y, emb) if return_embeddings else y
 
 

@@ -43,6 +43,10 @@ _PCEN_SHIFT = -0.2
 _PCEN_K2MK1 = 0.45
 RAW_KERNEL = 16
 
+# Canonical frontend -> in-graph frontend mode (the JAX registry's built-ins).
+_FRONTEND_MODES = {"librosa": "precomputed", "mfcc": "precomputed",
+                   "log_mel": "precomputed", "hybrid": "hybrid", "raw": "raw"}
+
 
 class MagnitudeScaling(nn.Module):
     """Per-channel magnitude compression over [..., C]: 'none' | 'pwl' |
@@ -210,3 +214,23 @@ class AudioFrontend(nn.Module):
             y = relu6(self.raw_fb_bn(self.raw_fb(y)), hookable=False).transpose(1, 2)
         y = self.mag(y)
         return y.transpose(1, 2)[..., None]  # [B, M, W, 1]
+
+
+def make_audio_frontend(audio_frontend: str, num_mels: int, spec_width: int,
+                        sample_rate: int, chunk_duration: float, fft_length: int,
+                        mag_scale: str, n_mfcc: int,
+                        learn_mel_scale: bool = False) -> AudioFrontend:
+    """The in-graph frontend of a configuration's canonical frontend name,
+    as every model of the port builds it ('audio_frontend'): precomputed
+    features (librosa, mfcc, log_mel) are sliced to spec_width, hybrid and
+    raw compute their mel channels with `mag_scale`."""
+    if audio_frontend not in _FRONTEND_MODES:
+        raise ValueError(f"Invalid audio frontend: {audio_frontend!r}")
+    mode = _FRONTEND_MODES[audio_frontend]
+    input_bins = n_mfcc if audio_frontend == "mfcc" else num_mels
+    return AudioFrontend(
+        mode, mel_bins=input_bins if mode == "precomputed" else num_mels,
+        spec_width=spec_width, sample_rate=sample_rate,
+        chunk_duration=chunk_duration, fft_length=fft_length,
+        mag_scale=mag_scale if mode != "precomputed" else "none",
+        learn_mel_scale=learn_mel_scale)

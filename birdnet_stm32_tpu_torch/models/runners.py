@@ -53,10 +53,11 @@ def _host_scores(runner, x_batch: np.ndarray) -> np.ndarray:
 
 
 class TorchRunner:
-    """Float forward of a DSCNN on one device (default CUDA; raises if
-    there is none) or over a local mesh (`mesh=`, module docstring). The
-    model is moved to `device` (mesh[0]) and put in eval mode; under a mesh
-    each other distinct device gets a deep copy (`replicas`).
+    """Float forward of a model (the DS-CNN, EfficientNet-B1) on one
+    device (default CUDA; raises if there is none) or over a local mesh
+    (`mesh=`, module docstring). The model is moved to `device` (mesh[0])
+    and put in eval mode; under a mesh each other distinct device gets a
+    deep copy (`replicas`).
 
     dtype=torch.bfloat16 serves in bf16, as the JAX FlaxRunner(dtype=...):
     a copy of the model gets every floating parameter and buffer (the BN

@@ -44,9 +44,9 @@ interpreter leg runs on the host, with no mesh.
 While a torch profiler records, each classify call on every leg lies in a
 serve.request span holding serve.ingress, then serve.frontend and
 serve.model for each block, then serve.egress (utils/tracing.py).
-Without a profiler the spans are a shared no-op. The model call is looked
-up on the runner (forward_block, executor) at each call, so a wrapper set
-on the runner wraps it.
+Without a profiler the spans are a shared no-op. serve.model holds each
+block's model call: the runner's forward_block (inside it, an
+EfficientNet's mbconv.* spans) or executor.
 """
 
 from __future__ import annotations

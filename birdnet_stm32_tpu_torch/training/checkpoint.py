@@ -125,11 +125,12 @@ def _is_multilabel(run_dir: Path) -> bool:
 
 def load_checkpoint(run_dir: str | Path, class_activation: str | None = None,
                     device: str | torch.device = "cuda"):
-    """(model, state_dict, cfg) of a run directory's best/ weights: a
-    DSCNN in eval mode on `device` with the weights loaded. The head is
-    `class_activation`, else the one train_state.json records (sigmoid for
-    a multilabel run, softmax otherwise)."""
-    from birdnet_stm32_tpu_torch.models.dscnn import build_dscnn
+    """(model, state_dict, cfg) of a run directory's best/ weights: the
+    model its model_config.json's `architecture` names (the DS-CNN when
+    the key is absent), in eval mode on `device` with the weights loaded.
+    The head is `class_activation`, else the one train_state.json records
+    (sigmoid for a multilabel run, softmax otherwise)."""
+    from birdnet_stm32_tpu_torch.models import build_model
 
     run_dir = Path(run_dir).absolute()
     if not (run_dir / BEST).exists():
@@ -141,7 +142,7 @@ def load_checkpoint(run_dir: str | Path, class_activation: str | None = None,
         raise FileNotFoundError(f"{run_dir / BEST} does not exist")
     cfg = ModelConfig.load(run_dir / "model_config.json")
     activation = class_activation or ("sigmoid" if _is_multilabel(run_dir) else "softmax")
-    model = build_dscnn(cfg, class_activation=activation, device=device)
+    model = build_model(cfg.architecture, cfg, class_activation=activation, device=device)
     state_dict = torch.load(run_dir / BEST, map_location="cpu", weights_only=True)
     model.load_state_dict(state_dict, strict=True)
     return model, state_dict, cfg

@@ -11,7 +11,7 @@ record_function. `recording()` is that check, for a loop that hoists it.
 
 Spans (models/serving.py::make_fused_classifier, on every leg, with or
 without a mesh; quant/tflite_import.py::build_executor;
-models/runners.py::TFLiteSimRunner):
+models/runners.py::TFLiteSimRunner; models/blocks.py::mbconv_block):
 
 - serve.request: one classify call;
 - serve.ingress: the batch to the device (shard_batch's host-to-device
@@ -29,7 +29,14 @@ models/runners.py::TFLiteSimRunner):
   launched inside it. A block served by the graph holds one tflite.*
   span, a block served eagerly `executor.steps` (the CPU, the graph's
   first call, a key whose capture failed): the count of tflite.* spans
-  per block says whether the graph engaged.
+  per block says whether the graph engaged;
+- mbconv.expand, mbconv.dw, mbconv.project: each MBConv block's 1x1
+  expand, depthwise and 1x1 project convolution call (the module call
+  alone, its SAME padding included; BN, SiLU and the residual add lie
+  outside); mbconv.se: the block's whole squeeze-and-excite (pool, both
+  dense layers, their activations and the product). A forward of an
+  EfficientNet holds one of each per block (none of mbconv.expand where
+  the expansion is 1), `len(model.blocks)` blocks.
 
 A request's spans are those its serve.request contains on its thread: the
 export keeps no record_function payload, so there is no separate id.
@@ -49,6 +56,10 @@ MODEL = "serve.model"
 EGRESS = "serve.egress"
 OP_PREFIX = "tflite."
 GRAPH = OP_PREFIX + "GRAPH"
+MBCONV_EXPAND = "mbconv.expand"
+MBCONV_DW = "mbconv.dw"
+MBCONV_SE = "mbconv.se"
+MBCONV_PROJECT = "mbconv.project"
 
 _NO_SPAN = contextlib.nullcontext()
 

@@ -24,7 +24,11 @@ It imports nothing of JAX. In order it:
    bit, and quantize(the plain version) within one code on fewer than 1 %
    of codes. Then the FFT sizes: the linear and mel + pwl kernels at
    n_fft 64, 128, 256, 1024 and 2048 (hop n_fft / 2, B=16, T=66150)
-   against their plain versions, within the same tolerances;
+   against their plain versions, within the same tolerances. Then the
+   linear kernel at EfficientNet-B1's input (gpubench/configs/
+   effnet-b1-bf16.json: B=64, T=160000, n_fft 512, hop 320, 500 frames),
+   called as the hybrid frontend calls it, against its plain version
+   (max abs <= 1e-5), launched once from a cleared counter, and timed;
 4. slice phase: loads artifacts/flagship/bundle/model_config.json and
    derives one config per served frontend with dataclasses.replace:
    hybrid (the flagship) and librosa + pwl get three requests of 64 chunks
@@ -352,6 +356,9 @@ TILES = (2, 4, 8, 16)
 SWEEP_N_FFT = (64, 128, 256, 1024, 2048)
 SWEEP_B = 16
 BENCH_B = 256
+# EfficientNet-B1's input (gpubench/configs/effnet-b1-bf16.json): 5 s at
+# 32 kHz, 500 frames, so hop 320.
+PERCH_T, PERCH_SR, PERCH_WIDTH, PERCH_MELS = 160000, 32000, 500, 160
 # The bench's INT8 score agreement between its two feeds on 32 chunks: an
 # H100 80GB HBM3 read a min cosine of 0.999085 here; a feature near a code
 # boundary flips one entry code, and the bit-exact executor carries it on.
@@ -609,6 +616,49 @@ def sweep_phase(torch) -> None:
                 fail(f"{mode} + {mag} at n_fft {n_fft}: {tuple(got.shape)} vs "
                      f"{tuple(ref.shape)}, max abs {err} > {tol}")
     print(json.dumps({"fft_sizes_max_abs_vs_plain": errs}))
+
+
+def perch_geometry_phase(torch) -> None:
+    """The linear kernel at EfficientNet-B1's input geometry (PERCH_*),
+    called as frontend_input calls it for the hybrid frontend, against its
+    plain version (max abs 1e-5), one launch from a cleared counter."""
+    from birdnet_stm32_tpu_torch.device import full_fp32
+    from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel as fk
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    y = 0.5 * torch.randn(B, PERCH_T, generator=g, device="cuda")
+    hop = PERCH_T // PERCH_WIDTH
+    name = fk.kernel_name("linear", "none")
+
+    def kernel():
+        return fk.fused_spectrogram(y, mode="linear", mag_scale="none", sample_rate=PERCH_SR,
+                                    n_fft=N_FFT, mel_bins=PERCH_MELS, spec_width=PERCH_WIDTH)
+
+    with full_fp32():
+        fk.launches.clear()
+        got = kernel()
+        torch.cuda.synchronize()
+        launched = dict(fk.launches)
+        ref = fk.fused_spectrogram_plain(y, N_FFT, hop, PERCH_WIDTH, mode="linear",
+                                         mag_scale="none", sample_rate=PERCH_SR,
+                                         mel_bins=PERCH_MELS)
+        torch.cuda.synchronize()
+        shape = (B, N_FFT // 2 + 1, PERCH_WIDTH)
+        if got.shape != shape or ref.shape != shape or not torch.isfinite(got).all():
+            fail(f"{name} at T={PERCH_T}: {tuple(got.shape)} / plain {tuple(ref.shape)}, "
+                 f"not finite or not {shape}")
+        err = (got - ref).abs().max().item()
+        report = {"perch_geometry": {"kernel": name, "B": B, "T": PERCH_T, "n_fft": N_FFT,
+                                     "hop": hop, "frames": PERCH_WIDTH, "launches": launched,
+                                     "max_abs_vs_plain": err}}
+        if launched != {name: 1}:
+            fail(f"{name} at T={PERCH_T}: launches {launched}, not one of {name}")
+        if not err <= 1e-5:
+            fail(f"{name} at T={PERCH_T}: max abs {err} > 1e-5 against its plain version")
+        report["perch_geometry"]["ms"] = cuda_ms(torch, kernel)
+        report["perch_geometry"]["plain_ms"] = cuda_ms(torch, lambda: fk.fused_spectrogram_plain(
+            y, N_FFT, hop, PERCH_WIDTH, mode="linear", mag_scale="none"), iters=5, warmup=1)
+    print(json.dumps(report))
 
 
 def tile_phase(torch, np, quant: tuple[float, int], sample_entries: list[dict]) -> list[dict]:
@@ -3089,6 +3139,7 @@ def main() -> None:
     quant = entry_quant_params(entry_transpose_fixture(TFLiteGraph(FLAGSHIP_TFLITE)))
     entries = timed("kernel", kernel_phase, torch, np, quant)
     timed("sweep", sweep_phase, torch)
+    timed("perch_geometry", perch_geometry_phase, torch)
     launches = timed("slice", slice_phase, torch, np)
     flagship = ModelConfig.load(ROOT / "artifacts/flagship/bundle/model_config.json")
     launches.update(timed("int8", int8_phase, torch, np, flagship))

@@ -41,7 +41,10 @@ SMALL = dict(sample_rate=4000, num_mels=16, spec_width=32, fft_length=128,
 
 
 def test_model_registry_matches_jax():
-    assert PMODELS.list_models() == JMODELS.list_models() == ["dscnn"]
+    # The port's registry holds the JAX package's one model and its own
+    # EfficientNet-B1.
+    assert JMODELS.list_models() == ["dscnn"]
+    assert PMODELS.list_models() == ["dscnn", "efficientnet_b1"]
     cfg = ModelConfig(**SMALL)
     model = PMODELS.build_model("dscnn", cfg, class_activation="none", device="cpu")
     assert isinstance(model, DSCNN) and model.class_activation == "none"
@@ -57,7 +60,7 @@ def test_model_registry_matches_jax():
         def build(cfg, **kw):
             return ("built", cfg.num_classes, kw)
 
-        assert PMODELS.list_models() == ["dscnn", "tiny_test"]
+        assert PMODELS.list_models() == ["dscnn", "efficientnet_b1", "tiny_test"]
         assert PMODELS.build_model("tiny_test", cfg, k=1) == ("built", 3, {"k": 1})
     finally:
         PMODELS._MODEL_REGISTRY.pop("tiny_test", None)

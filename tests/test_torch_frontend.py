@@ -59,9 +59,10 @@ def _wave(seed, B, T):
 
 def test_config_matches_jax():
     """The port's own ModelConfig copy loads the flagship sidecar exactly
-    as the JAX one does, derived geometry included."""
+    as the JAX one does, derived geometry included; the port's names its
+    architecture besides, the DS-CNN where the sidecar names none."""
     t, j = ModelConfig.load(FLAGSHIP_CONFIG), JaxModelConfig.load(FLAGSHIP_CONFIG)
-    assert t.to_dict() == j.to_dict()
+    assert t.to_dict() == {**j.to_dict(), "architecture": "dscnn"}
     assert (t.chunk_samples, t.compute_hop_length(), t.fft_bins, t.input_shape()) == (
         j.chunk_samples, j.compute_hop_length(), j.fft_bins, j.input_shape())
     assert (t.chunk_samples, t.hop_length, t.input_shape()) == (66150, 258, (257, 256, 1))

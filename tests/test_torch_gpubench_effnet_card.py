@@ -1,0 +1,3 @@
+"""gpubench/tests/test_gpubench_effnet_card.py under tier-1 (tests/gpubench_tier1.py)."""
+
+from gpubench.tests.test_gpubench_effnet_card import *  # noqa: F401,F403

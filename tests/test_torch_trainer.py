@@ -101,8 +101,10 @@ def test_run_directory_matches_jax(runs):
                                       "train_state.json", "history.csv", "curves.png"}
     assert (pdir / "best/state_dict.pt").exists() and (pdir / "last/train_state.pt").exists()
     assert (pdir / "labels.txt").read_text() == (jdir / "labels.txt").read_text()
-    assert json.loads((pdir / "model_config.json").read_text()) == json.loads(
-        (jdir / "model_config.json").read_text())
+    # The port's sidecar names its architecture besides (the JAX package's
+    # ModelConfig.from_dict drops the key).
+    assert json.loads((pdir / "model_config.json").read_text()) == {
+        **json.loads((jdir / "model_config.json").read_text()), "architecture": "dscnn"}
     jh, ph = _history(jdir), _history(pdir)
     assert list(jh[0]) == list(ph[0]) and len(jh) == len(ph) == EPOCHS + 1
     js, ps = load_train_state(jdir), load_train_state(pdir)
