@@ -15,7 +15,8 @@ torch.profiler Chrome trace, which carries the serving path's spans
 holding serve.ingress, a serve.frontend and serve.model per card and
 serve.egress, and with an INT8 .tflite a tflite.<OP> span per executor op
 inside each serve.model (on a card one tflite.GRAPH span, the replay of the
-executor's CUDA graph). A batch's spans are those its serve.request
+executor's CUDA graph; with a DS-CNN run directory one torch.GRAPH span on
+a card). A batch's spans are those its serve.request
 contains on its thread. Without a profiler the spans record nothing and
 cost a check each. The port adds `--device` (default cuda).
 """

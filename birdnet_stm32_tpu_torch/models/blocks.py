@@ -336,7 +336,17 @@ def add_mbconv_block(parent: nn.Module, name: str, cin: int, cout: int, kernel: 
     add_se_block(parent, f"{name}_se", hidden, squeeze=max(1, int(cin * se_ratio)), bias=True)
     parent.add_module(f"{name}_project_conv", Conv2dSame(hidden, cout, (1, 1)))
     parent.add_module(f"{name}_project_bn", batch_norm(cout))
+    parent._opens_spans = True  # mbconv_block's spans: see opens_spans
     return cout
+
+
+def opens_spans(model: nn.Module) -> bool:
+    """True when a forward of `model` opens program spans of its own, which
+    a CUDA graph's replay would launch every kernel outside of: it holds an
+    MBConv block (add_mbconv_block marks its parent), whose mbconv_block
+    records the mbconv.* spans (models/runners.py::TorchRunner keeps such a
+    model eager)."""
+    return any(getattr(m, "_opens_spans", False) for m in model.modules())
 
 
 def mbconv_block(parent: nn.Module, x: torch.Tensor, name: str) -> torch.Tensor:

@@ -16,6 +16,7 @@ back in row order on mesh[0], the runner's `device`.
 from __future__ import annotations
 
 import copy
+import functools
 import sys
 from pathlib import Path
 
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from birdnet_stm32_tpu_torch.device import resolve_device
+from birdnet_stm32_tpu_torch.models.blocks import ACT_FQ, opens_spans
 from birdnet_stm32_tpu_torch.parallel.mesh import gather, local_mesh, shard_batch
 from birdnet_stm32_tpu_torch.parallel.steps import infer_block, make_infer_fn
 from birdnet_stm32_tpu_torch.quant.tflite_import import (
@@ -30,7 +32,7 @@ from birdnet_stm32_tpu_torch.quant.tflite_import import (
     TFLiteGraph,
     build_executor,
 )
-from birdnet_stm32_tpu_torch.utils.tracing import GRAPH, span
+from birdnet_stm32_tpu_torch.utils.tracing import GRAPH, TORCH_GRAPH, span
 
 
 def _mesh_and_device(mesh, device) -> tuple[list[torch.device] | None, torch.device]:
@@ -65,6 +67,22 @@ class TorchRunner:
     in as bf16 and the scores come out float32. The model passed in is left
     as it is. A device that refuses a bf16 op raises; nothing falls back to
     float32.
+
+    On a CUDA device each row block's eval forward (forward_block, and so
+    forward under a mesh) is replayed as one CUDA graph per (batch size,
+    input dtype, card), kept for the runner's life (_GraphedCall): its
+    first call runs eagerly and captures one call, every later call
+    replays the same kernels on the same values from one host call,
+    bit-equal to the eager forward on that card, and returns a clone of
+    the graph's output. Each graph keeps its own memory pool reserved for
+    the runner's life: about 61 MB at 64 flagship rows in bf16 on an H100,
+    where an eager call peaks at about 80 MB. A block stays eager on the
+    CPU, while the activation fake-quant hook is set (a capture would
+    freeze the Python callable, quant/fake_quant.py::activation_fake_quant),
+    and for a model whose layers open program spans of their own
+    (models/blocks.py::opens_spans: EfficientNet's MBConv blocks, whose
+    mbconv.* spans a replay would leave empty). make_embedder calls the
+    replicas eagerly.
     """
 
     def __init__(self, model: torch.nn.Module, cfg=None,
@@ -76,17 +94,31 @@ class TorchRunner:
         self.model = model.to(self.device)
         self.cfg = cfg
         self.dtype = dtype
-        self._infer = make_infer_fn(self.model, self.mesh, dtype)
-        self.replicas = self._infer.replicas
+        self.replicas = make_infer_fn(self.model, self.mesh, dtype).replicas
+        self.graphable = not opens_spans(self.model)
+        self._graphs: dict[tuple[int, torch.dtype, torch.device], _GraphedCall] = {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B, bins, W, 1] features on self.device -> [B, C] float32 scores
         there (under a mesh B must divide over it)."""
-        return self._infer(x)
+        return gather([self.forward_block(b) for b in shard_batch(x, self.mesh or [self.device])],
+                      self.device)
 
     def forward_block(self, x: torch.Tensor) -> torch.Tensor:
-        """The scores of rows on one device of the mesh, by its replica."""
-        return infer_block(self.replicas, x, self.dtype)
+        """The scores of rows on one device of the mesh, by its replica:
+        on a card, by the replay of its CUDA graph (class docstring)."""
+        if not self.graphs_engage(x.device):
+            return infer_block(self.replicas, x, self.dtype)
+        key = (x.shape[0], x.dtype, x.device)
+        if key not in self._graphs:
+            self._graphs[key] = _GraphedCall(
+                functools.partial(infer_block, self.replicas, dtype=self.dtype), key,
+                TORCH_GRAPH, "TorchRunner forward", "(batch, input dtype, device)")
+        return self._graphs[key](x)
+
+    def graphs_engage(self, device: torch.device) -> bool:
+        """Whether a block on `device` is served by a CUDA graph now."""
+        return device.type == "cuda" and self.graphable and ACT_FQ.get() is None
 
     def predict(self, x_batch: np.ndarray) -> np.ndarray:
         return _host_scores(self, x_batch)
@@ -149,27 +181,29 @@ class TFLiteSimRunner:
         return _host_scores(self, x_batch)
 
 
-class _GraphedExecutor:
-    """An integer executor (build_executor) replayed as one CUDA graph.
+class _GraphedCall:
+    """A device call (an integer executor, a model's eval forward) replayed
+    as one CUDA graph for one key (batch size, input form, card).
 
-    The first call runs the eager executor on a side stream of the key's
-    card, which checks its input and readies cuBLAS and the allocator, and
+    The first call runs the eager call on a side stream of the key's card,
+    which checks its input and readies cuDNN, cuBLAS and the allocator, and
     returns that answer; then one call is captured into a CUDA graph on the
     same stream, from a static input buffer allocated before the capture.
-    Every later call checks x as the executor does, copies it into that
-    buffer, replays the graph and returns a clone of its output. While a
-    profiler records, the copy, replay and clone run in one span
-    tflite.GRAPH (utils/tracing.py). If the capture raises, the key keeps
-    the eager executor from then on, which is said once on stderr.
+    Every later call checks x's shape, dtype and device, copies it into
+    that buffer, replays the graph and returns a clone of its output. While
+    a profiler records, the copy, replay and clone run in one span
+    `span_name` (utils/tracing.py). If the capture raises, the key keeps
+    the eager call from then on, which is said once on stderr under
+    `label`, with the key described by `key_names`.
 
     A call runs on the caller's current stream, so answers held across
     calls are safe; the input buffer is shared, so one thread at a time
     calls a key (every caller in the port classifies on one thread)."""
 
-    def __init__(self, eager, key: tuple[int, bool, torch.device]):
+    def __init__(self, eager, key: tuple, span_name: str, label: str, key_names: str):
         self.eager = eager
         self.key = key
-        self.steps = eager.steps
+        self.span_name, self.label, self.key_names = span_name, label, key_names
         self.graph: torch.cuda.CUDAGraph | None = None
         self.static_in = self.static_out = None
         self.eager_only = False
@@ -186,9 +220,9 @@ class _GraphedExecutor:
         s = self.static_in
         # copy_ would broadcast a wrong shape silently: check first.
         if x.shape != s.shape or x.dtype != s.dtype or x.device != s.device:
-            raise ValueError(f"executor for {tuple(s.shape)} {s.dtype} on {s.device} got "
+            raise ValueError(f"{self.label} for {tuple(s.shape)} {s.dtype} on {s.device} got "
                              f"{tuple(x.shape)} {x.dtype} on {x.device}")
-        with span(GRAPH):
+        with span(self.span_name):
             s.copy_(x)
             self.graph.replay()
             return self.static_out.clone()
@@ -208,12 +242,22 @@ class _GraphedExecutor:
                     static_out = self.eager(static_in)
             except RuntimeError as e:
                 self.eager_only = True
-                print(f"[warn] TFLiteSimRunner: CUDA graph capture failed for (batch, "
-                      f"prequantized, device) {self.key}: {e!r}; this key runs eagerly",
-                      file=sys.stderr)
+                print(f"[warn] {self.label}: CUDA graph capture failed for {self.key_names} "
+                      f"{self.key}: {e!r}; this key runs eagerly", file=sys.stderr)
                 return out
         self.graph, self.static_in, self.static_out = graph, static_in, static_out
         return out
+
+
+class _GraphedExecutor(_GraphedCall):
+    """An integer executor (build_executor) as a _GraphedCall for the key
+    (batch size, prequantized entry, card), its span tflite.GRAPH; `steps`
+    is the eager executor's."""
+
+    def __init__(self, eager, key: tuple[int, bool, torch.device]):
+        super().__init__(eager, key, GRAPH, "TFLiteSimRunner executor",
+                         "(batch, prequantized, device)")
+        self.steps = eager.steps
 
 
 class TFLiteInterpreterRunner:

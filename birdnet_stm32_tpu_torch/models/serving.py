@@ -45,8 +45,9 @@ While a torch profiler records, each classify call on every leg lies in a
 serve.request span holding serve.ingress, then serve.frontend and
 serve.model for each block, then serve.egress (utils/tracing.py).
 Without a profiler the spans are a shared no-op. serve.model holds each
-block's model call: the runner's forward_block (inside it, an
-EfficientNet's mbconv.* spans) or executor.
+block's model call: the runner's forward_block (inside it, on a card,
+the DS-CNN's torch.GRAPH replay, or an EfficientNet's mbconv.* spans) or
+executor.
 """
 
 from __future__ import annotations

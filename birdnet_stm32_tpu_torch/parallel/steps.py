@@ -23,10 +23,11 @@ optimizer and its global-norm clip, the reported loss is the ranks' mean,
 and train-mode BN takes its statistics over every rank's rows. Without a
 process group nothing changes.
 
-make_infer_fn is the eval-mode forward that serving runs
-(models/runners.py::TorchRunner), over one device or a local mesh
+make_infer_fn is the eval-mode forward over one device or a local mesh
 (parallel/mesh.py): a replica on each distinct device, the batch in row
-blocks, the scores gathered in row order.
+blocks, the scores gathered in row order. Serving
+(models/runners.py::TorchRunner) takes its replicas and runs infer_block
+on each row block, on a card as a CUDA graph's replay.
 """
 
 from __future__ import annotations

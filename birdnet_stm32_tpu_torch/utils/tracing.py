@@ -11,7 +11,8 @@ record_function. `recording()` is that check, for a loop that hoists it.
 
 Spans (models/serving.py::make_fused_classifier, on every leg, with or
 without a mesh; quant/tflite_import.py::build_executor;
-models/runners.py::TFLiteSimRunner; models/blocks.py::mbconv_block):
+models/runners.py::TFLiteSimRunner and TorchRunner;
+models/blocks.py::mbconv_block):
 
 - serve.request: one classify call;
 - serve.ingress: the batch to the device (shard_batch's host-to-device
@@ -30,6 +31,13 @@ models/runners.py::TFLiteSimRunner; models/blocks.py::mbconv_block):
   span, a block served eagerly `executor.steps` (the CPU, the graph's
   first call, a key whose capture failed): the count of tflite.* spans
   per block says whether the graph engaged;
+- torch.GRAPH: one replay of the float model's eval forward as a CUDA
+  graph (models/runners.py::TorchRunner on a CUDA device): the input
+  copy, the replay and the output clone, so every kernel of the block's
+  forward is launched inside it. A block served eagerly holds none (the
+  CPU, the graph's first call, a key whose capture failed, a call under
+  the activation fake-quant, a model whose layers open spans of their
+  own such as EfficientNet's MBConv blocks);
 - mbconv.expand, mbconv.dw, mbconv.project: each MBConv block's 1x1
   expand, depthwise and 1x1 project convolution call (the module call
   alone, its SAME padding included; BN, SiLU and the residual add lie
@@ -56,6 +64,7 @@ MODEL = "serve.model"
 EGRESS = "serve.egress"
 OP_PREFIX = "tflite."
 GRAPH = OP_PREFIX + "GRAPH"
+TORCH_GRAPH = "torch.GRAPH"
 MBCONV_EXPAND = "mbconv.expand"
 MBCONV_DW = "mbconv.dw"
 MBCONV_SE = "mbconv.se"

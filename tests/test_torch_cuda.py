@@ -282,10 +282,10 @@ def test_graphed_mesh_two_entries_on_card(cuda, fused):
     assert isinstance(fwd, _GraphedExecutor) and fwd.graph is not None
 
 
-def _kernels_and_spans(prof, path):
+def _kernels_and_spans(prof, path, prefix="tflite."):
     """(device kernels, copies and memsets as (category, name, host launch
-    time), tflite.* spans as (name, start, end)) from a profiler's Chrome
-    trace, written to `path`."""
+    time), spans named `prefix`... as (name, start, end)) from a profiler's
+    Chrome trace, written to `path`."""
     import json
 
     prof.export_chrome_trace(str(path))
@@ -296,7 +296,7 @@ def _kernels_and_spans(prof, path):
     device = [(e["cat"], e["name"], launch.get(e["args"].get("correlation"))) for e in events
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     spans = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
-             if e.get("cat") == "user_annotation" and e["name"].startswith("tflite.")]
+             if e.get("cat") == "user_annotation" and e["name"].startswith(prefix)]
     return device, spans
 
 
