@@ -11,14 +11,7 @@ the firmware's line protocol. `--pipeline N` decodes on N threads while
 batches packed across files run on the device, at most `max_outstanding`
 in flight, each drained with one copy to the host. `--trace_dir` writes a
 torch.profiler Chrome trace, which carries the serving path's spans
-(utils/tracing.py): a serve.request around each batch's classify call,
-holding serve.ingress, a serve.frontend and serve.model per card and
-serve.egress, and with an INT8 .tflite a tflite.<OP> span per executor op
-inside each serve.model (on a card one tflite.GRAPH span, the replay of the
-executor's CUDA graph; with a DS-CNN run directory one torch.GRAPH span on
-a card). A batch's spans are those its serve.request
-contains on its thread. Without a profiler the spans record nothing and
-cost a check each. The port adds `--device` (default cuda).
+(utils/tracing.py). The port adds `--device` (default cuda).
 """
 
 from __future__ import annotations

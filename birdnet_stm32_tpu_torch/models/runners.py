@@ -10,7 +10,8 @@ The two device-side runners take `mesh=`, as the JAX runners do: a list of
 local devices (parallel/mesh.py::local_mesh; it may name one device more
 than once). Parameters are replicated on each distinct device, each batch
 is split into equal row blocks in mesh order, and the scores are gathered
-back in row order on mesh[0], the runner's `device`.
+back in row order on mesh[0], the runner's `device`. Their forward_block
+is the serving path's model call; its calls open spans (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -25,12 +26,14 @@ import torch
 
 from birdnet_stm32_tpu_torch.device import resolve_device
 from birdnet_stm32_tpu_torch.models.blocks import ACT_FQ, opens_spans
-from birdnet_stm32_tpu_torch.parallel.mesh import gather, local_mesh, shard_batch
-from birdnet_stm32_tpu_torch.parallel.steps import infer_block, make_infer_fn
+from birdnet_stm32_tpu_torch.parallel.mesh import gather, local_mesh, replicated, shard_batch
+from birdnet_stm32_tpu_torch.parallel.steps import infer_block
 from birdnet_stm32_tpu_torch.quant.tflite_import import (
     REQUANT_MODES,
     TFLiteGraph,
     build_executor,
+    entry_quant_params,
+    entry_transpose_perm,
 )
 from birdnet_stm32_tpu_torch.utils.tracing import GRAPH, TORCH_GRAPH, span
 
@@ -46,15 +49,48 @@ def _mesh_and_device(mesh, device) -> tuple[list[torch.device] | None, torch.dev
     return mesh, mesh[0]
 
 
-def _host_scores(runner, x_batch: np.ndarray) -> np.ndarray:
-    """A runner's scores of host features, each row block copied to its
-    device and its scores straight back to the host."""
-    x = torch.as_tensor(np.asarray(x_batch, np.float32))
-    blocks = shard_batch(x, runner.mesh or [runner.device])
-    return np.concatenate([runner.forward_block(b).cpu().numpy() for b in blocks])
+class _DeviceRunner:
+    """What the two device runners share: the mesh, forward over it,
+    predict on host arrays, and one call kept per key (batch size, input
+    form, card): the eager call or, where graphs engage on the key's card,
+    its _GraphedCall. A subclass gives forward_block and _GRAPH, the span,
+    label and key names of its _GraphedCall."""
+
+    _GRAPH: tuple[str, str, str]
+
+    def __init__(self, mesh, device):
+        self.mesh, self.device = _mesh_and_device(mesh, device)
+        self._calls: dict[tuple, object] = {}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Model-input features [B, ...] on self.device -> [B, C] float32
+        scores there (under a mesh B must divide over it)."""
+        return gather([self.forward_block(b) for b in shard_batch(x, self.mesh or [self.device])],
+                      self.device)
+
+    def predict(self, x_batch: np.ndarray) -> np.ndarray:
+        """Host features -> host scores, each row block copied to its
+        device and its scores straight back to the host."""
+        x = torch.as_tensor(np.asarray(x_batch, np.float32))
+        blocks = shard_batch(x, self.mesh or [self.device])
+        return np.concatenate([self.forward_block(b).cpu().numpy() for b in blocks])
+
+    def graphs_engage(self, device: torch.device) -> bool:
+        """Whether a block on `device` is served by a CUDA graph now."""
+        return device.type == "cuda"
+
+    def _kept(self, key: tuple, build):
+        """The call kept for key (batch size, input form, card): build()'s
+        eager call, made once, as a _GraphedCall where graphs engage."""
+        if key not in self._calls:
+            call = build()
+            if self.graphs_engage(key[2]):
+                call = _GraphedCall(call, key, *self._GRAPH)
+            self._calls[key] = call
+        return self._calls[key]
 
 
-class TorchRunner:
+class TorchRunner(_DeviceRunner):
     """Float forward of a model (the DS-CNN, EfficientNet-B1) on one
     device (default CUDA; raises if there is none) or over a local mesh
     (`mesh=`, module docstring). The model is moved to `device` (mesh[0])
@@ -70,61 +106,47 @@ class TorchRunner:
 
     On a CUDA device each row block's eval forward (forward_block, and so
     forward under a mesh) is replayed as one CUDA graph per (batch size,
-    input dtype, card), kept for the runner's life (_GraphedCall): its
-    first call runs eagerly and captures one call, every later call
-    replays the same kernels on the same values from one host call,
-    bit-equal to the eager forward on that card, and returns a clone of
-    the graph's output. Each graph keeps its own memory pool reserved for
-    the runner's life: about 61 MB at 64 flagship rows in bf16 on an H100,
-    where an eager call peaks at about 80 MB. A block stays eager on the
-    CPU, while the activation fake-quant hook is set (a capture would
-    freeze the Python callable, quant/fake_quant.py::activation_fake_quant),
-    and for a model whose layers open program spans of their own
-    (models/blocks.py::opens_spans: EfficientNet's MBConv blocks, whose
-    mbconv.* spans a replay would leave empty). make_embedder calls the
-    replicas eagerly.
+    input dtype, card), kept for the runner's life (_GraphedCall) and
+    bit-equal to the eager forward on that card. Each graph keeps its own
+    memory pool reserved for the runner's life: about 61 MB at 64 flagship
+    rows in bf16 on an H100, where an eager call peaks at about 80 MB. A
+    block stays eager on the CPU, while the activation fake-quant hook is
+    set (a capture would freeze the Python callable,
+    quant/fake_quant.py::activation_fake_quant), and for a model whose
+    layers open program spans of their own (models/blocks.py::opens_spans:
+    EfficientNet's MBConv blocks, whose mbconv.* spans a replay would leave
+    empty). make_embedder calls the replicas eagerly. Features always
+    enter as floats: `entry_quant` is None.
     """
+
+    _GRAPH = (TORCH_GRAPH, "TorchRunner forward", "(batch, input dtype, device)")
+    entry_quant = None
 
     def __init__(self, model: torch.nn.Module, cfg=None,
                  device: str | torch.device | None = None, dtype: torch.dtype | None = None,
                  mesh=None):
-        self.mesh, self.device = _mesh_and_device(mesh, device)
+        super().__init__(mesh, device)
         if dtype is not None:
             model = copy.deepcopy(model).to(dtype)
-        self.model = model.to(self.device)
+        self.model = model.to(self.device).eval()
         self.cfg = cfg
         self.dtype = dtype
-        self.replicas = make_infer_fn(self.model, self.mesh, dtype).replicas
+        self.replicas = replicated(self.model, self.mesh or [self.device])
         self.graphable = not opens_spans(self.model)
-        self._graphs: dict[tuple[int, torch.dtype, torch.device], _GraphedCall] = {}
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, bins, W, 1] features on self.device -> [B, C] float32 scores
-        there (under a mesh B must divide over it)."""
-        return gather([self.forward_block(b) for b in shard_batch(x, self.mesh or [self.device])],
-                      self.device)
 
     def forward_block(self, x: torch.Tensor) -> torch.Tensor:
         """The scores of rows on one device of the mesh, by its replica:
         on a card, by the replay of its CUDA graph (class docstring)."""
         if not self.graphs_engage(x.device):
             return infer_block(self.replicas, x, self.dtype)
-        key = (x.shape[0], x.dtype, x.device)
-        if key not in self._graphs:
-            self._graphs[key] = _GraphedCall(
-                functools.partial(infer_block, self.replicas, dtype=self.dtype), key,
-                TORCH_GRAPH, "TorchRunner forward", "(batch, input dtype, device)")
-        return self._graphs[key](x)
+        return self._kept((x.shape[0], x.dtype, x.device), lambda: functools.partial(
+            infer_block, self.replicas, dtype=self.dtype))(x)
 
     def graphs_engage(self, device: torch.device) -> bool:
-        """Whether a block on `device` is served by a CUDA graph now."""
-        return device.type == "cuda" and self.graphable and ACT_FQ.get() is None
-
-    def predict(self, x_batch: np.ndarray) -> np.ndarray:
-        return _host_scores(self, x_batch)
+        return super().graphs_engage(device) and self.graphable and ACT_FQ.get() is None
 
 
-class TFLiteSimRunner:
+class TFLiteSimRunner(_DeviceRunner):
     """INT8 integer-graph executor of a .tflite flatbuffer on one device
     (default CUDA; raises if there is none) or over a local mesh (`mesh=`,
     module docstring), bit-exact with the JAX package's. One executor is
@@ -133,52 +155,47 @@ class TFLiteSimRunner:
     executor of its device at the shard's batch size; an executor holds
     its graph's constants and no state between calls.
 
+    Two entry forms give the same scores, bit for bit: float features
+    feed the graph's own entry QUANTIZE; when the graph starts with
+    QUANTIZE -> TRANSPOSE, `entry_quant` is that QUANTIZE's (scale,
+    zero_point) (else None), and the int8 entry tensor [B, 1, W, bins]
+    quantized with it (frontend_input(quant=entry_quant)) skips both ops
+    (build_executor(prequantized_input=True)).
+
     On a CUDA device the kept executor is a CUDA graph of the eager one
-    (_GraphedExecutor): its first call runs eagerly and captures one call,
-    every later call replays the same kernels on the same values from one
-    host call, bit-equal, and returns a clone of the graph's output, so an
-    answer a caller holds (or another row block on the same card) is never
-    overwritten by the next replay. Each graph keeps its own memory pool
+    (_GraphedCall), bit-equal. Each graph keeps its own memory pool
     reserved for the runner's life: about 400 MB at 64 flagship rows on an
     H100, where an eager call peaks at about 290 MB. On the CPU, and where
     `build_executor` is called directly (return_all, torch.export), the
     executor stays eager."""
 
+    _GRAPH = (GRAPH, "TFLiteSimRunner executor", "(batch, prequantized, device)")
+
     def __init__(self, tflite: str | Path | bytes | TFLiteGraph,
                  device: str | torch.device | None = None, requant: str = "exact", mesh=None):
         if requant not in REQUANT_MODES:
             raise ValueError(f"Invalid requant: {requant!r} (expected one of {REQUANT_MODES})")
-        self.mesh, self.device = _mesh_and_device(mesh, device)
+        super().__init__(mesh, device)
         self.graph = tflite if isinstance(tflite, TFLiteGraph) else TFLiteGraph(tflite)
         self.requant = requant
-        self._executors: dict[tuple[int, bool, torch.device], callable] = {}
+        self.entry_quant = (entry_quant_params(self.graph)
+                            if entry_transpose_perm(self.graph) is not None else None)
 
     def executor(self, batch_size: int, prequantized_input: bool = False,
                  device: torch.device | None = None):
         """The executor for `batch_size` on `device` (default self.device);
         with prequantized_input it takes the int8 entry tensor
-        [B, 1, W, bins] (frontend_input(quant=...)). On a CUDA device it
-        is the executor's CUDA graph (class docstring)."""
+        [B, 1, W, bins] (class docstring). On a CUDA device it is the
+        executor's CUDA graph."""
         device = self.device if device is None else device
-        key = (batch_size, prequantized_input, device)
-        if key not in self._executors:
-            fwd = build_executor(self.graph, batch_size, device=device, requant=self.requant,
-                                 prequantized_input=prequantized_input)
-            self._executors[key] = _GraphedExecutor(fwd, key) if device.type == "cuda" else fwd
-        return self._executors[key]
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Graph-input features [B, ...] float32 on self.device -> scores
-        there (under a mesh B must divide over it)."""
-        return gather([self.forward_block(b) for b in shard_batch(x, self.mesh or [self.device])],
-                      self.device)
+        return self._kept((batch_size, prequantized_input, device), lambda: build_executor(
+            self.graph, batch_size, device=device, requant=self.requant,
+            prequantized_input=prequantized_input))
 
     def forward_block(self, x: torch.Tensor) -> torch.Tensor:
-        """The scores of rows on one device of the mesh, by its executor."""
-        return self.executor(x.shape[0], device=x.device)(x)
-
-    def predict(self, x_batch: np.ndarray) -> np.ndarray:
-        return _host_scores(self, x_batch)
+        """The scores of rows on one device of the mesh, by the executor
+        of x's entry form: an int8 tensor is the prequantized entry."""
+        return self.executor(x.shape[0], x.dtype == torch.int8, x.device)(x)
 
 
 class _GraphedCall:
@@ -190,11 +207,12 @@ class _GraphedCall:
     returns that answer; then one call is captured into a CUDA graph on the
     same stream, from a static input buffer allocated before the capture.
     Every later call checks x's shape, dtype and device, copies it into
-    that buffer, replays the graph and returns a clone of its output. While
-    a profiler records, the copy, replay and clone run in one span
-    `span_name` (utils/tracing.py). If the capture raises, the key keeps
-    the eager call from then on, which is said once on stderr under
-    `label`, with the key described by `key_names`.
+    that buffer, replays the graph and returns a clone of its output, so an
+    answer a caller holds (or another row block on the same card) is never
+    overwritten by the next replay. While a profiler records, the copy,
+    replay and clone run in one span `span_name`. If the capture raises,
+    the key keeps the eager call from then on, which is said once on stderr
+    under `label`, with the key described by `key_names`.
 
     A call runs on the caller's current stream, so answers held across
     calls are safe; the input buffer is shared, so one thread at a time
@@ -247,17 +265,6 @@ class _GraphedCall:
                 return out
         self.graph, self.static_in, self.static_out = graph, static_in, static_out
         return out
-
-
-class _GraphedExecutor(_GraphedCall):
-    """An integer executor (build_executor) as a _GraphedCall for the key
-    (batch size, prequantized entry, card), its span tflite.GRAPH; `steps`
-    is the eager executor's."""
-
-    def __init__(self, eager, key: tuple[int, bool, torch.device]):
-        super().__init__(eager, key, GRAPH, "TFLiteSimRunner executor",
-                         "(batch, prequantized, device)")
-        self.steps = eager.steps
 
 
 class TFLiteInterpreterRunner:

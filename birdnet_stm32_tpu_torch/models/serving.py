@@ -12,14 +12,16 @@ version. The composition (ops/frontend.inputs_for_config) serves only what
 the kernels' dispatch excludes, as in the JAX package: 2*hop < n_fft, or
 the 'raw' frontend. There is no kernel on/off switch.
 
-With a TFLiteSimRunner (the INT8 leg) the model is the bit-exact integer
-executor. When the graph starts with QUANTIZE -> TRANSPOSE and the kernels
-serve the frontend, the kernel's int8-entry epilogue quantizes straight
-into the executor's entry tensor (build_executor(prequantized_input=True));
-otherwise the float features feed the graph's own entry QUANTIZE. Both give
-the same scores, bit for bit. A TFLiteInterpreterRunner (graphs that are
-not full-int8) runs the frontend on the device and the interpreter on the
-host.
+Every device leg (float32, bf16, INT8; with or without a mesh) runs one
+loop: each row block's features go to the runner's forward_block, the
+leg's one model call (models/runners.py). With a TFLiteSimRunner (the INT8
+leg) that is the bit-exact integer executor: when the runner's graph takes
+the int8 entry (`runner.entry_quant`) and a kernel serves the frontend
+(frontend_kernel.kernel_serves), the kernel's int8-entry epilogue
+quantizes straight into the executor's entry tensor; otherwise the float
+features feed the graph's own entry QUANTIZE. Both give the same scores,
+bit for bit. A TFLiteInterpreterRunner (graphs that are not full-int8)
+runs the frontend on the device and the interpreter on the host.
 
 A TorchRunner with dtype=torch.bfloat16 is the bf16 leg: on CUDA its
 features are the cast of the kernel's float32 output (the kernels serve
@@ -41,13 +43,7 @@ on mesh[0], the classifier's device, or block by block to the host. A
 batch whose rows do not divide over the mesh raises ValueError. The
 interpreter leg runs on the host, with no mesh.
 
-While a torch profiler records, each classify call on every leg lies in a
-serve.request span holding serve.ingress, then serve.frontend and
-serve.model for each block, then serve.egress (utils/tracing.py).
-Without a profiler the spans are a shared no-op. serve.model holds each
-block's model call: the runner's forward_block (inside it, on a card,
-the DS-CNN's torch.GRAPH replay, or an EfficientNet's mbconv.* spans) or
-executor.
+A classify call opens the serving spans (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -61,17 +57,9 @@ import torch
 from birdnet_stm32_tpu_torch.data.worker import ulaw_encode
 from birdnet_stm32_tpu_torch.device import full_fp32, resolve_device
 from birdnet_stm32_tpu_torch.evaluation.metrics import chunks_for_file
-from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import (
-    FRONTEND_MODES,
-    _kernel_geometry_ok,
-    frontend_input,
-)
+from birdnet_stm32_tpu_torch.ops.kernels.frontend_kernel import frontend_input, kernel_serves
 from birdnet_stm32_tpu_torch.ops.resample import resample_chunk_batch
 from birdnet_stm32_tpu_torch.parallel.mesh import gather, shard_batch
-from birdnet_stm32_tpu_torch.quant.tflite_import import (
-    entry_quant_params,
-    entry_transpose_perm,
-)
 from birdnet_stm32_tpu_torch.utils.tracing import EGRESS, FRONTEND, INGRESS, MODEL, REQUEST, span
 
 INPUT_DTYPES = (None, "float32", "int16", "ulaw")
@@ -208,9 +196,11 @@ def make_fused_classifier(runner, cfg, input_sample_rate: int | None = None,
         def out(blocks):
             return gather(blocks, dev)
 
-    if hasattr(runner, "graph"):
-        return _int8_classifier(runner, cfg, blocks_in, out, stft_precision)
-    if hasattr(runner, "model"):
+    if hasattr(runner, "forward_block"):
+        # The kernel quantizes into the executor's entry tensor when the
+        # graph takes it and a kernel serves this frontend at this geometry.
+        entry_q = runner.entry_quant if kernel_serves(cfg, cfg.chunk_samples) else None
+
         @torch.no_grad()
         def classify(wave):
             with span(REQUEST):
@@ -218,17 +208,19 @@ def make_fused_classifier(runner, cfg, input_sample_rate: int | None = None,
                     blocks = blocks_in(wave)
                 scores = []
                 for w in blocks:
-                    # frontend_input and the replica each hold TF32 off where
+                    # frontend_input and the runner each hold TF32 off where
                     # it matters; a bf16 runner casts whatever features it
                     # is given.
                     with span(FRONTEND):
-                        feats = frontend_input(w, cfg, stft_precision=stft_precision,
+                        feats = frontend_input(w, cfg, quant=entry_q,
+                                               stft_precision=stft_precision,
                                                feature_dtype=feat_dtype)
                     with span(MODEL):
                         scores.append(runner.forward_block(feats))
                 with span(EGRESS):
                     return out(scores)
 
+        classify.entry_quant = entry_q
         return classify
     if not as_numpy:
         print("[warn] runner has no device-side graph (TFLite interpreter): "
@@ -246,39 +238,6 @@ def make_fused_classifier(runner, cfg, input_sample_rate: int | None = None,
             with span(EGRESS):
                 return np.asarray(scores)
 
-    return classify
-
-
-def _int8_classifier(runner, cfg, blocks_in, out, stft_precision: str):
-    """The INT8 leg: ingress -> frontend kernel -> integer executor, one
-    executor per block size and device (the runner keeps them)."""
-    # Deepest fusion: the kernel quantizes into the executor's entry tensor
-    # when the graph starts with QUANTIZE -> TRANSPOSE and a kernel serves
-    # this frontend at this geometry (pcen included: the CUDA kernel runs it).
-    entry_q = None
-    if (cfg.audio_frontend in FRONTEND_MODES
-            and _kernel_geometry_ok(cfg, cfg.chunk_samples)
-            and entry_transpose_perm(runner.graph) is not None):
-        entry_q = entry_quant_params(runner.graph)
-
-    @torch.no_grad()
-    def classify(wave):
-        with span(REQUEST):
-            with span(INGRESS):
-                blocks = blocks_in(wave)
-            scores = []
-            for w in blocks:
-                with span(FRONTEND):
-                    feats = frontend_input(w, cfg, quant=entry_q,
-                                           stft_precision=stft_precision)
-                with span(MODEL):
-                    fwd = runner.executor(w.shape[0], prequantized_input=entry_q is not None,
-                                          device=w.device)
-                    scores.append(fwd(feats))
-            with span(EGRESS):
-                return out(scores)
-
-    classify.entry_quant = entry_q
     return classify
 
 

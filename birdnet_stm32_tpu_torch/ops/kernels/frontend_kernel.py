@@ -472,6 +472,12 @@ def _kernel_geometry_ok(cfg, T: int) -> bool:
     return 2 * hop >= cfg.fft_length and fft_size_ok(cfg.fft_length)
 
 
+def kernel_serves(cfg, T: int) -> bool:
+    """Whether frontend_input serves cfg's frontend on [B, T] waveforms by
+    a kernel (else by the composition, which has no int8 epilogue)."""
+    return cfg.audio_frontend in FRONTEND_MODES and _kernel_geometry_ok(cfg, T)
+
+
 def frontend_input(y: torch.Tensor, cfg, quant: tuple[float, int] | None = None,
                    stft_precision: str = "highest",
                    feature_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -496,17 +502,17 @@ def frontend_input(y: torch.Tensor, cfg, quant: tuple[float, int] | None = None,
     H100 has no such trade. With feature_dtype (torch.bfloat16 for bf16
     serving) the features are the cast of the kernel's float32 output.
     """
-    mode = FRONTEND_MODES.get(cfg.audio_frontend)
-    if mode is None or not _kernel_geometry_ok(cfg, y.shape[1]):
+    if not kernel_serves(cfg, y.shape[1]):
         if quant is not None:
             raise ValueError(
                 "in-kernel quantization has no composition fallback (frontend "
                 f"{cfg.audio_frontend!r}; 2*hop >= n_fft and n_fft a power of two in "
                 f"{MIN_N_FFT}..{MAX_N_FFT} required); callers gate "
-                "on the kernel geometry and quantize in the executor")
+                "on kernel_serves and quantize in the executor")
         with full_fp32():
             return inputs_for_config(y, cfg, stft_precision=stft_precision,
                                      feature_dtype=feature_dtype)
+    mode = FRONTEND_MODES[cfg.audio_frontend]
     out = fused_spectrogram(
         y, mode=mode, mag_scale=cfg.mag_scale if mode == "mel" else "none",
         sample_rate=cfg.sample_rate, n_fft=cfg.fft_length, mel_bins=cfg.num_mels,

@@ -26,8 +26,8 @@ process group nothing changes.
 make_infer_fn is the eval-mode forward over one device or a local mesh
 (parallel/mesh.py): a replica on each distinct device, the batch in row
 blocks, the scores gathered in row order. Serving
-(models/runners.py::TorchRunner) takes its replicas and runs infer_block
-on each row block, on a card as a CUDA graph's replay.
+(models/runners.py::TorchRunner) runs infer_block on each row block of
+its own replicas; its calls open spans (utils/tracing.py).
 """
 
 from __future__ import annotations

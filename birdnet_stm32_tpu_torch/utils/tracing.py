@@ -9,17 +9,22 @@ thread. Otherwise `span` returns one shared no-op context, so an untraced
 call pays one check (a fraction of a microsecond) and enters no
 record_function. `recording()` is that check, for a loop that hoists it.
 
-Spans (models/serving.py::make_fused_classifier, on every leg, with or
-without a mesh; quant/tflite_import.py::build_executor;
-models/runners.py::TFLiteSimRunner and TorchRunner;
-models/blocks.py::mbconv_block):
+This docstring is the one catalogue of the spans. They are opened by
+models/serving.py::make_fused_classifier (on every leg, with or without a
+mesh), quant/tflite_import.py::build_executor,
+models/runners.py::_GraphedCall (the CUDA graphs of TFLiteSimRunner and
+TorchRunner) and models/blocks.py::mbconv_block; cli/benchmark.py
+--trace_dir records them:
 
-- serve.request: one classify call;
+- serve.request: one classify call, holding one serve.ingress, then a
+  serve.frontend and a serve.model per row block (one block per mesh
+  entry), then one serve.egress;
 - serve.ingress: the batch to the device (shard_batch's host-to-device
   copies) and each block's dequantize and resample;
 - serve.frontend: each block's frontend_input;
-- serve.model: each block's model call (the runner's forward_block or
-  executor, or the interpreter);
+- serve.model: each block's model call: the device runner's
+  forward_block (on the INT8 leg the executor of the block's entry form),
+  or the interpreter's predict;
 - serve.egress: the scores to the host, or their gather;
 - tflite.<OP> (for example tflite.CONV_2D): each computed step of the
   eager integer executor. Aliased, skipped and dead ops get none, so a

@@ -957,16 +957,16 @@ def int8_phase(torch, np, flagship_cfg) -> dict[str, int]:
     wave = torch.from_numpy(requests[0])
     for leg, (classify, runner, _, _) in legs.items():
         quant = classify.entry_quant
-        fwd = runner.executor(B, prequantized_input=quant is not None)
         with torch.no_grad():
             feats = frontend_kernel.frontend_input(x, cfg, quant=quant)
             print(json.dumps({"int8_leg": leg, "batch_breakdown_ms": {
                 "h2d_copy": cuda_ms(torch, lambda: wave.cuda()),
                 "frontend_kernel": cuda_ms(torch, lambda: frontend_kernel.frontend_input(
                     x, cfg, quant=quant)),
-                "executor": cuda_ms(torch, lambda: fwd(feats)),
+                "executor": cuda_ms(torch, lambda: runner.forward_block(feats)),
                 "classify_total": cuda_ms(torch, lambda: classify(requests[0])),
-            }, "executor_per_batch": device_activity(torch, lambda: fwd(feats))}))
+            }, "executor_per_batch": device_activity(
+                torch, lambda: runner.forward_block(feats))}))
     name = frontend_kernel.kernel_name("linear", "none", quant=True)
     return {name: legs["fixture"][3]}
 
@@ -1235,7 +1235,6 @@ def serve_breakdown(torch, np, rounds: int = 3) -> None:
                                  device="cuda"),
             "int8": TFLiteSimRunner(FLAGSHIP_TFLITE, device="cuda")}
     for leg, runner in legs.items():
-        model = runner.forward if leg == "float" else runner.executor(B)
         runs = {mode: [] for mode in batches}
         for _ in range(rounds):
             for mode, (dtype, rate, host) in batches.items():
@@ -1250,7 +1249,7 @@ def serve_breakdown(torch, np, rounds: int = 3) -> None:
                         "h2d_copy": cuda_ms(torch, lambda: torch.as_tensor(host).cuda()),
                         "ingress": cuda_ms(torch, lambda: ingress(x)) if dtype or rate else 0.0,
                         "frontend_kernel": cuda_ms(torch, lambda: frontend_input(w, cfg)),
-                        "model": cuda_ms(torch, lambda: model(feats)),
+                        "model": cuda_ms(torch, lambda: runner.forward_block(feats)),
                         "classify_total": cuda_ms(torch, lambda: classify(host)),
                     })
         report = {mode: {"h2d_bytes": batches[mode][2].nbytes,

@@ -199,14 +199,14 @@ def test_int8_executor_matches_cpu_on_card(cuda, fused):
 
 
 # The runner's executor on a card is a CUDA graph of the eager one
-# (models/runners.py::_GraphedExecutor): its first call runs eagerly and
+# (models/runners.py::_GraphedCall): its first call runs eagerly and
 # captures, every later call replays. Each must equal the CPU executor bit
 # for bit, and hand back an answer of its own.
 def _graphed(graph, B, fused):
-    from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner, _GraphedExecutor
+    from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner, _GraphedCall
 
     fwd = TFLiteSimRunner(graph, device="cuda").executor(B, prequantized_input=fused)
-    assert isinstance(fwd, _GraphedExecutor) and fwd.graph is None
+    assert isinstance(fwd, _GraphedCall) and fwd.graph is None
     return fwd
 
 
@@ -263,7 +263,7 @@ def test_graphed_mesh_two_entries_on_card(cuda, fused):
     """A mesh of cuda:0 twice through make_fused_classifier: both row
     blocks share one graph on the card, and three calls on different
     waves (capture, then replays) equal one card's answers bit for bit."""
-    from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner, _GraphedExecutor
+    from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner, _GraphedCall
     from birdnet_stm32_tpu_torch.models.serving import make_fused_classifier
 
     cfg = ModelConfig.load(FLAGSHIP_CONFIG)
@@ -278,8 +278,8 @@ def test_graphed_mesh_two_entries_on_card(cuda, fused):
         wave = np.clip(rng.normal(0, 0.2, (8, cfg.chunk_samples)), -0.99, 0.99)
         wave = wave.astype(np.float32)
         np.testing.assert_array_equal(two(wave).cpu().numpy(), one(wave))
-    (fwd,) = mesh._executors.values()
-    assert isinstance(fwd, _GraphedExecutor) and fwd.graph is not None
+    (fwd,) = mesh._calls.values()
+    assert isinstance(fwd, _GraphedCall) and fwd.graph is not None
 
 
 def _kernels_and_spans(prof, path, prefix="tflite."):

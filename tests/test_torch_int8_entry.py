@@ -164,6 +164,24 @@ def test_int8_classify_is_executor_of_frontend_input():
     assert fused.shape == (2, 100) and 0.0 <= fused.min() and fused.max() <= 1.0
 
 
+@pytest.mark.parametrize("prequantized", [False, True])
+def test_forward_block_picks_the_entry_form(prequantized):
+    """On the fixture, TFLiteSimRunner.forward_block takes either entry
+    form by its dtype: int8 entry codes go to the prequantized executor,
+    float features to the graph's own entry QUANTIZE; bit-equal to each
+    executor. The runner's entry_quant is the graph's, None on the
+    flagship."""
+    cfg = ModelConfig.load(FLAGSHIP_CONFIG)
+    flagship, fixture = _runners()
+    assert flagship.entry_quant is None
+    assert fixture.entry_quant == P.entry_quant_params(fixture.graph)
+    w = torch.from_numpy(_waves(6, 2, cfg.chunk_samples))
+    x = frontend_input(w, cfg, quant=fixture.entry_quant if prequantized else None)
+    assert (x.dtype == torch.int8) == prequantized
+    want = fixture.executor(2, prequantized_input=prequantized)(x).numpy()
+    np.testing.assert_array_equal(fixture.forward_block(x).numpy(), want)
+
+
 def test_int8_classify_matches_jax():
     """Port INT8 classify (fused leg, CPU) vs the JAX make_fused_classifier
     over its TFLiteSimRunner with the same fixture graph: cosine >= 0.999

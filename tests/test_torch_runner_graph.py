@@ -2,7 +2,7 @@
 TorchRunner keep, and on a card that the graph's replay is the eager call.
 
 INT8: on a CUDA device the runner replays its executor as one CUDA graph
-per (batch size, entry form, card) (models/runners.py::_GraphedExecutor;
+per (batch size, entry form, card) (models/runners.py::_GraphedCall;
 held on the card by tests/test_torch_cuda.py). On the CPU it keeps
 build_executor's eager executor itself: the same function object for a
 key across calls, the same scores bit for bit as a fresh build_executor,
@@ -39,7 +39,6 @@ from birdnet_stm32_tpu_torch.models.runners import (
     TFLiteSimRunner,
     TorchRunner,
     _GraphedCall,
-    _GraphedExecutor,
 )
 from birdnet_stm32_tpu_torch.parallel.steps import infer_block
 from birdnet_stm32_tpu_torch.quant.fake_quant import activation_fake_quant
@@ -64,7 +63,7 @@ def test_cpu_runner_keeps_the_eager_executor(fused):
     graph, x = _graph_and_input(fused)
     runner = TFLiteSimRunner(graph, device="cpu")
     fwd = runner.executor(B, prequantized_input=fused)
-    assert not isinstance(fwd, _GraphedExecutor)
+    assert not isinstance(fwd, _GraphedCall)
     assert runner.executor(B, prequantized_input=fused) is fwd
     ref = build_executor(graph, B, device="cpu", prequantized_input=fused)
     assert type(fwd) is type(ref) and fwd.__name__ == ref.__name__
@@ -128,7 +127,7 @@ def test_cpu_torch_runner_stays_eager(flagship_cfg, dtype):
     for got in (runner.forward_block(x), runner.forward_block(x.clone()), runner.forward(x)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     np.testing.assert_array_equal(runner.predict(x.numpy()), want.numpy())
-    assert runner._graphs == {}
+    assert runner._calls == {}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -156,7 +155,7 @@ def test_activation_fake_quant_keeps_the_runner_eager(flagship_cfg):
         hooked = runner.forward_block(x)
     assert runner.graphs_engage(card)
     assert not torch.equal(hooked, runner.forward_block(x))
-    assert runner._graphs == {}
+    assert runner._calls == {}
 
 
 @pytest.fixture
@@ -199,7 +198,7 @@ def test_torch_runner_replay_equals_eager_on_card(cuda, flagship_cfg, dtype, spa
     x = _features(flagship_cfg, ROWS, 3, "cuda")
     want = infer_block(runner.replicas, x, runner.dtype).cpu()
     first = runner.forward_block(x)
-    (call,) = runner._graphs.values()
+    (call,) = runner._calls.values()
     assert call.graph is not None and not call.eager_only, "the capture fell back to eager"
     assert spans_opened == []
     for got in (first, runner.forward_block(x), runner.forward_block(x.clone())):
@@ -220,7 +219,7 @@ def test_torch_runner_answers_are_its_own_on_card(cuda, flagship_cfg, dtype):
     runner.forward_block(b)
     ya = runner.forward_block(a)
     yb = runner.forward_block(b)
-    (call,) = runner._graphs.values()
+    (call,) = runner._calls.values()
     assert len({ya.data_ptr(), yb.data_ptr(), call.static_out.data_ptr()}) == 3
     torch.testing.assert_close(ya.cpu(), want_a, rtol=0, atol=0)
     torch.testing.assert_close(yb.cpu(), want_b, rtol=0, atol=0)
@@ -235,7 +234,7 @@ def test_torch_runner_checks_its_input_on_card(cuda, flagship_cfg):
     runner = _card_runner(flagship_cfg, "bfloat16")
     x = _features(flagship_cfg, ROWS, 4, "cuda")
     runner.forward_block(x)
-    (call,) = runner._graphs.values()
+    (call,) = runner._calls.values()
     assert call.graph is not None
     with pytest.raises(ValueError, match="TorchRunner forward for"):
         runner.forward_block(x[:, :, :1].contiguous())
@@ -244,7 +243,7 @@ def test_torch_runner_checks_its_input_on_card(cuda, flagship_cfg):
             call(bad)
     runner.forward_block(x[:8])
     runner.forward_block(x.to(torch.bfloat16))
-    assert len(runner._graphs) == 3
+    assert len(runner._calls) == 3
 
 
 @contextlib.contextmanager
@@ -264,7 +263,7 @@ def test_torch_runner_capture_failure_falls_back_on_card(cuda, flagship_cfg, mon
     want = infer_block(runner.replicas, x, runner.dtype).cpu()
     monkeypatch.setattr(torch.cuda, "graph", _refused_capture)
     got = [runner.forward_block(x) for _ in range(3)]
-    (call,) = runner._graphs.values()
+    (call,) = runner._calls.values()
     assert call.eager_only and call.graph is None
     warnings = [line for line in capsys.readouterr().err.splitlines() if "[warn]" in line]
     assert len(warnings) == 1 and "TorchRunner forward: CUDA graph capture failed" in warnings[0]
@@ -284,7 +283,7 @@ def test_efficientnet_runner_never_builds_a_graph_on_card(cuda, spans_opened):
     for _ in range(4):
         runner.forward_block(x)
     names = Counter(spans_opened)
-    assert runner._graphs == {} and not runner.graphable
+    assert runner._calls == {} and not runner.graphable
     assert names[MBCONV_DW] == 4 * len(runner.model.blocks) and names[TORCH_GRAPH] == 0
 
 
@@ -326,5 +325,5 @@ def test_torch_runner_mesh_two_entries_on_card(cuda, flagship_cfg):
         x = _features(flagship_cfg, 16, 20 + seed, "cuda")
         want = torch.cat([infer_block(runner.replicas, b, runner.dtype) for b in x.chunk(2)])
         torch.testing.assert_close(runner.forward(x), want, rtol=0, atol=0)
-    (call,) = runner._graphs.values()
+    (call,) = runner._calls.values()
     assert isinstance(call, _GraphedCall) and call.graph is not None
