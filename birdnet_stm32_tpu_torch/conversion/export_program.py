@@ -75,7 +75,12 @@ def export_int8_serving_fn(tflite_path: str | Path, cfg: ModelConfig, batch_size
                            device: str | torch.device = "cuda") -> bytes:
     """waveform [batch_size, chunk_samples] -> the INT8 integer executor's
     scores (quant/tflite_import.py::build_executor, bit-exact) as saved
-    torch.export program bytes."""
+    torch.export program bytes. On a card the executor's int8 convolution
+    kernels take their plain steps while it is traced, so the program holds
+    no kernel launch and computes the same codes: a custom op would tie
+    the program to this package, which must not be needed to load it. So
+    the loaded program runs the convolutions as the plain steps, slower on
+    a card than the executor that serves."""
     from birdnet_stm32_tpu_torch.quant.tflite_import import TFLiteGraph, build_executor
 
     dev = resolve_device(device)

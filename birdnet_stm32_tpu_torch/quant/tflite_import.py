@@ -19,6 +19,11 @@ package's jitted executor:
   (2^30 alone when right = 0), for every channel. The JAX package splits
   this product into 16-bit limbs because the TPU has no int64, and rewrites
   provably constant channels; both are bit-equal to the direct form;
+- on a CUDA device the convolutions `kernel_plan` names (depthwise and
+  one-input-channel convolutions, 1x1 CONV_2D) run as hand-written int8
+  kernels (ops/kernels/int8_conv_kernel.py) with the requantization, and a
+  residual ADD that follows a 1x1 conv, in their epilogue, bit-equal to
+  the plain steps, which the CPU runs;
 - requant="fast" (opt-in, as in the JAX package) replaces the convolutions'
   and FULLY_CONNECTED's requantization by round_half_away(float32(acc) *
   float32(multiplier)) + zp, one plain float32 multiply, and the int8 ->
@@ -61,6 +66,7 @@ import torch
 import torch.nn.functional as F
 
 from birdnet_stm32_tpu_torch.device import full_fp32, resolve_device
+from birdnet_stm32_tpu_torch.ops.kernels import int8_conv_kernel as K
 from birdnet_stm32_tpu_torch.quant import tflite_schema as fb
 from birdnet_stm32_tpu_torch.utils import tracing
 
@@ -214,6 +220,15 @@ def _mbqm_fn(qm, shift, device: torch.device) -> Callable[[torch.Tensor], torch.
     return mbqm
 
 
+def _requant_params(multipliers) -> tuple[list[int], list[int], np.ndarray]:
+    """Per-channel requantization constants of the real multipliers: the
+    MBQM (multiplier, shift) lists ('exact') and the float32 multipliers
+    ('fast'). The plain steps and the int8 kernels' epilogue read both."""
+    m = np.atleast_1d(np.asarray(multipliers, np.float64))
+    qms = [_quantize_multiplier(float(x)) for x in m]
+    return [q for q, _ in qms], [s for _, s in qms], m.astype(np.float32)
+
+
 def _requant_fn(multipliers, zp: int, lo: int, hi: int, device: torch.device,
                 requant: str = "exact"):
     """int64 accumulator [..., C] -> int8 codes, clamped to the activation
@@ -221,12 +236,12 @@ def _requant_fn(multipliers, zp: int, lo: int, hi: int, device: torch.device,
     'fast' is round_half_away(float32(acc) * float32(multiplier)) + zp
     (the JAX package's _requant_fast: one plain float32 multiply, at most
     one LSB from exact per op)."""
+    qm, shift, m32 = _requant_params(multipliers)
     if requant == "fast":
-        m = torch.as_tensor(np.atleast_1d(multipliers).astype(np.float32), device=device)
+        m = torch.as_tensor(m32, device=device)
         return lambda acc: torch.clamp(
             _round_away(acc.to(torch.float32) * m).to(torch.int32) + zp, lo, hi).to(torch.int8)
-    qms = [_quantize_multiplier(float(m)) for m in np.atleast_1d(multipliers)]
-    mbqm = _mbqm_fn([q for q, _ in qms], [s for _, s in qms], device)
+    mbqm = _mbqm_fn(qm, shift, device)
     return lambda acc: torch.clamp(mbqm(acc) + zp, lo, hi).to(torch.int8)
 
 
@@ -474,6 +489,79 @@ def layout_plan(graph: TFLiteGraph, entry_target: int | None = None) -> LayoutPl
     return plan
 
 
+# --- Kernel plan ----------------------------------------------------------------
+
+
+def _conv_class(graph: TFLiteGraph, op: OpInfo, plan: LayoutPlan) -> tuple[str, int]:
+    """How a CONV_2D / DEPTHWISE_CONV_2D computes, and its input channels (a
+    folded constant-pad CONCATENATION's leading ones): "affine" (a 1x1
+    stride-1 depthwise conv, a per-channel affine: the PWL / PCEN frontend
+    encodings), "taps" (a depthwise conv, or one input channel: shifted
+    multiply-adds), "pointwise" (any other 1x1 CONV_2D: a GEMM) or
+    "unfold" (any other CONV_2D: a GEMM of the unfolded taps)."""
+    _, kh, kw, w_last = graph.tensors[op.inputs[1]].shape  # CONV [O,kh,kw,I]; DW [1,kh,kw,C]
+    depthwise = op.name == "DEPTHWISE_CONV_2D"
+    fold = None if depthwise else plan.concat_fold.get(op.inputs[0])
+    c_in = graph.tensors[op.inputs[0]].shape[3] if fold is None else fold[0]
+    if (depthwise and kh == kw == 1 and tuple(op.options["strides"]) == (1, 1)
+            and tuple(op.options.get("dilation", (1, 1))) == (1, 1)
+            and graph.tensors[op.inputs[1]].shape[0] == 1 and w_last == c_in):
+        return "affine", c_in
+    if depthwise or c_in == 1:
+        return "taps", c_in
+    return ("pointwise" if kh == kw == 1 else "unfold"), c_in
+
+
+@dataclass
+class KernelPlan:
+    """What the hand-written int8 convolution kernels
+    (ops/kernels/int8_conv_kernel.py) compute in an executor on a CUDA
+    device; the CPU runs every op plain.
+
+    kernel: op index -> kernel name, for every "taps" convolution
+        (int8_conv_taps_kernel) and every "pointwise" one with at most
+        MAX_POINTWISE_IN input channels (int8_conv_pointwise_kernel).
+    fused_add: ADD op index -> the index of the pointwise convolution whose
+        kernel computes that ADD in its epilogue, where one ADD input is
+        that convolution's output, which no other op reads and which is
+        not a graph output, and the other a computed int8 tensor of the
+        same shape held in NHWC. The convolution then runs in the ADD's
+        place, as one step.
+    """
+
+    kernel: dict[int, str] = field(default_factory=dict)
+    fused_add: dict[int, int] = field(default_factory=dict)
+
+
+def kernel_plan(graph: TFLiteGraph, plan: LayoutPlan) -> KernelPlan:
+    """The KernelPlan of `graph` under the layout plan `plan`."""
+    kp = KernelPlan()
+    for i, op in enumerate(graph.ops):
+        if op.name not in ("CONV_2D", "DEPTHWISE_CONV_2D"):
+            continue
+        kind, c_in = _conv_class(graph, op, plan)
+        if kind == "taps":
+            kp.kernel[i] = K.TAPS_KERNEL
+        elif kind == "pointwise" and c_in <= K.MAX_POINTWISE_IN:
+            kp.kernel[i] = K.POINTWISE_KERNEL
+    producer = {op.outputs[0]: i for i, op in enumerate(graph.ops)}
+    cons = _consumers(graph)
+    for i, op in enumerate(graph.ops):
+        if op.name != "ADD" or op.inputs[0] == op.inputs[1]:
+            continue
+        for conv_out, res in (op.inputs[:2], op.inputs[1::-1]):
+            k = producer.get(conv_out)
+            t_conv, t_res = graph.tensors[conv_out], graph.tensors[res]
+            if (k is not None and kp.kernel.get(k) == K.POINTWISE_KERNEL
+                    and cons.get(conv_out) == [i] and conv_out not in graph.outputs
+                    and t_res.data is None and t_res.dtype == "int8"
+                    and res not in plan.pending_perm
+                    and t_res.shape == t_conv.shape == graph.tensors[op.outputs[0]].shape):
+                kp.fused_add[i] = k
+                break
+    return kp
+
+
 # --- Ops -----------------------------------------------------------------------
 #
 # Each _op_* function runs once per executor, on the host: it reads the op's
@@ -486,13 +574,17 @@ Step = Callable[[dict], None]
 
 @dataclass
 class _Build:
-    """What every _op_* function reads: the graph, the device, the requant mode
-    and the layout plan."""
+    """What every _op_* function reads: the graph, the device, the requant mode,
+    the layout plan, the kernel each op's output is computed by on a card
+    (output tensor -> kernel name; empty on the CPU) and whether the
+    executor returns every tensor."""
 
     graph: TFLiteGraph
     dev: torch.device
     requant: str
     plan: LayoutPlan
+    kernels: dict[int, str] = field(default_factory=dict)
+    return_all: bool = False
 
 
 def _sz(graph: TFLiteGraph, idx: int) -> tuple[float, int]:
@@ -716,9 +808,28 @@ def _tap_conv(xp: torch.Tensor, w: torch.Tensor, out_hw, strides, dil) -> torch.
     return acc
 
 
-def _op_conv(c: _Build, op) -> Step:
+def _kernel_or_plain(kernel: Step, plain: Step) -> Step:
+    """A step on a card: `kernel`, except while torch.export traces the
+    executor (a ctypes launch cannot be traced), where `plain`."""
+    def step(v):
+        (plain if torch.compiler.is_exporting() else kernel)(v)
+    return step
+
+
+def _kernel_epilogue(c: _Build, correction, multipliers, zp: int, lo: int, hi: int,
+                     channels: int) -> K.Epilogue:
+    """The requantization `_requant_fn` applies, uploaded for the kernels."""
+    return K.epilogue(correction, *_requant_params(multipliers), zp, lo, hi,
+                      c.requant == "fast", channels, c.dev)
+
+
+def _op_conv(c: _Build, op, add: OpInfo | None = None) -> Step:
+    """A CONV_2D / DEPTHWISE_CONV_2D; with `add` (a KernelPlan.fused_add
+    ADD of this pointwise conv's output), the conv and then the ADD."""
     graph, dev = c.graph, c.dev
     name, (i, wi), o = op.name, op.inputs[:2], op.outputs[0]
+    kind, c_in = _conv_class(graph, op, c.plan)
+    kernel = c.kernels.get(o)
     w = _host_const(graph, wi, f"{name} weights")  # CONV [O,kh,kw,I]; DW [1,kh,kw,C]
     bias = (_host_const(graph, op.inputs[2], f"{name} bias").astype(np.int64)
             if len(op.inputs) > 2 and op.inputs[2] >= 0 else np.zeros(1, np.int64))
@@ -729,10 +840,10 @@ def _op_conv(c: _Build, op) -> Step:
     dil = tuple(op.options.get("dilation", (1, 1)))
     same = op.options["padding"] == "SAME"
     lo, hi = _act_bounds(op.options["activation"], so, zo)
-    requant = _requant_fn(si * sw.astype(np.float64) / so, zo, lo, hi, dev, c.requant)
+    multipliers = si * sw.astype(np.float64) / so
+    requant = _requant_fn(multipliers, zo, lo, hi, dev, c.requant)
     depthwise = name == "DEPTHWISE_CONV_2D"
     kh, kw = w.shape[1], w.shape[2]
-    c_in = graph.tensors[i].shape[3]  # the logical NHWC shape
     # An elided TRANSPOSE: the value is untransposed, apply its perm here.
     perm = c.plan.pending_perm.get(i)
     if perm is None:
@@ -749,10 +860,9 @@ def _op_conv(c: _Build, op) -> Step:
     if fold is not None:
         n_lead, pad_code = fold
         pad_corr = w[:, :, :, n_lead:].astype(np.int64).sum(axis=(1, 2, 3)) * (pad_code - zi)
-        w, c_in = w[:, :, :, :n_lead], n_lead
+        w = w[:, :, :, :n_lead]
 
-    if depthwise and kh == kw == 1 and (sh, swd) == (1, 1) and dil == (1, 1) \
-            and w.shape[0] == 1 and w.shape[3] == c_in:
+    if kind == "affine":
         # 1x1 stride-1 depthwise conv == per-channel affine:
         # acc[..., c] = w_c * (x - zp) + bias_c (PWL/PCEN frontend encodings).
         wv = torch.as_tensor(w.reshape(-1).astype(np.int64), device=dev)
@@ -765,44 +875,89 @@ def _op_conv(c: _Build, op) -> Step:
     tap_axes = (0, 1, 2) if depthwise else (1, 2, 3)
     w_sum = w.astype(np.int64).sum(axis=tap_axes)
     # The zero-point fold: padding with zi makes sum w * (x - zi) exact.
-    correction = torch.as_tensor(bias - zi * w_sum + pad_corr, dtype=torch.int64, device=dev)
+    corr = bias - zi * w_sum + pad_corr
+    correction = torch.as_tensor(corr, dtype=torch.int64, device=dev)
+    if kernel is not None:
+        ep = _kernel_epilogue(c, corr, multipliers, zo, lo, hi,
+                              w.shape[3] if depthwise else w.shape[0])
+
+    def pads(x):
+        """The SAME pads ((top, bottom), (left, right)) of x, TF's split."""
+        if not same:
+            return (0, 0), (0, 0)
+        return (_tf_same_pads(x.shape[1], kh, sh, dil[0]),
+                _tf_same_pads(x.shape[2], kw, swd, dil[1]))
 
     def padded(x):
-        if not same:
-            return x
-        ph = _tf_same_pads(x.shape[1], kh, sh, dil[0])
-        pw = _tf_same_pads(x.shape[2], kw, swd, dil[1])
+        ph, pw = pads(x)
         return F.pad(x, (0, 0, *pw, *ph), value=zi) if any(ph + pw) else x
 
-    def out_hw(xp):
-        return ((xp.shape[1] - (kh - 1) * dil[0] - 1) // sh + 1,
-                (xp.shape[2] - (kw - 1) * dil[1] - 1) // swd + 1)
+    def out_hw(height, width):
+        """The output size over a (padded) input of that size."""
+        return ((height - (kh - 1) * dil[0] - 1) // sh + 1,
+                (width - (kw - 1) * dil[1] - 1) // swd + 1)
 
-    if depthwise or c_in == 1:
+    if kind == "taps":
         # Shifted int32 multiply-adds; depth_multiplier m repeats each input
         # channel m times (output channel c reads input channel c // m).
-        w_taps = (w[0] if depthwise else np.transpose(w[..., 0], (1, 2, 0)))
-        w_taps = torch.as_tensor(w_taps.astype(np.int32), device=dev)  # [kh, kw, C_out]
+        w_taps = (w[0] if depthwise else np.transpose(w[..., 0], (1, 2, 0)))  # [kh, kw, C_out]
         repeat = w.shape[3] // c_in if depthwise else 1
+        w_taps32 = torch.as_tensor(w_taps.astype(np.int32), device=dev)
 
         def step(v):
             xp = padded(x_in(v)).to(torch.int32)
             if repeat > 1:
                 xp = xp.repeat_interleave(repeat, dim=3)
-            acc = _tap_conv(xp, w_taps, out_hw(xp), (sh, swd), dil)
+            acc = _tap_conv(xp, w_taps32, out_hw(*xp.shape[1:3]), (sh, swd), dil)
             v[o] = requant(acc.to(torch.int64) + correction)
-        return step
+        if kernel is None:
+            return step
+        taps = K.taps_weights(w_taps, dev)
+
+        def on_card(v):
+            x = x_in(v)
+            ph, pw = pads(x)
+            size = out_hw(x.shape[1] + sum(ph), x.shape[2] + sum(pw))
+            v[o] = K.taps_conv(x, taps, ep, out_hw=size, strides=(sh, swd), dilation=dil,
+                               pads=(ph[0], pw[0]), repeat=w_taps.shape[2] // c_in, zi=zi)
+        return _kernel_or_plain(on_card, step)
 
     gemm = _gemm_dtype(w, tap_axes)
     O = w.shape[0]
-    if kh == kw == 1:
+    if kind == "pointwise":
         wt = torch.as_tensor(w.reshape(O, -1).T.copy(), dtype=gemm, device=dev)  # [I, O]
 
         def step(v):
             x = x_in(v)[:, ::sh, ::swd, :]
             acc = (x.to(gemm) @ wt).to(torch.int64)
             v[o] = requant(acc + correction)
-        return step
+        if kernel is None:
+            return step
+        weights = K.pointwise_weights(w.reshape(O, -1), dev)
+        if add is None:
+            def on_card(v):
+                v[o] = K.pointwise_conv(x_in(v), weights, ep, strides=(sh, swd))
+            return _kernel_or_plain(on_card, step)
+        ins, out_mbqm, add_zp, add_lo, add_hi = _add_params(graph, add)
+        ((res, z_res, qm_res, shift_res),) = [t for t in ins if t[0] != o]
+        ((_, z_conv, qm_conv, shift_conv),) = [t for t in ins if t[0] == o]
+        add_ep = K.AddEpilogue(z_res, qm_res, shift_res, z_conv, qm_conv, shift_conv,
+                               *out_mbqm, add_zp, add_lo, add_hi)
+        add_out, keep = add.outputs[0], c.return_all
+        plain_add = _op_add_sub(c, add)
+
+        def on_card(v):
+            got = K.pointwise_conv(x_in(v), weights, ep, strides=(sh, swd), residual=v[res],
+                                   add=add_ep, keep_conv=keep)
+            if keep:
+                v[add_out], v[o] = got
+            else:
+                v[add_out] = got
+
+        def plain(v):
+            step(v)
+            plain_add(v)
+        return _kernel_or_plain(on_card, plain)
 
     # Any other CONV_2D: unfold the zero-point-padded input into taps
     # (channel-major, as unfold orders them) and multiply.
@@ -811,7 +966,7 @@ def _op_conv(c: _Build, op) -> Step:
 
     def step(v):
         xp = padded(x_in(v))
-        Ho, Wo = out_hw(xp)
+        Ho, Wo = out_hw(*xp.shape[1:3])
         cols = F.unfold(xp.to(gemm).permute(0, 3, 1, 2), (kh, kw), dilation=dil,
                         stride=(sh, swd))  # [B, I*kh*kw, Ho*Wo]
         acc = (cols.transpose(1, 2) @ wt).to(torch.int64)
@@ -852,31 +1007,45 @@ def _op_fully_connected(c: _Build, op) -> Step:
     return step
 
 
+# TFLite int8 ADD / SUB rescale both inputs to this many fractional bits.
+ADD_LEFT_SHIFT = 20
+
+
+def _add_params(graph: TFLiteGraph, op) -> tuple:
+    """An int8 ADD / SUB's constants: per input (tensor, zero point, MBQM
+    multiplier, shift), the rescale to twice the larger input scale at
+    ADD_LEFT_SHIFT fractional bits; the output's MBQM (multiplier, shift),
+    zero point and activation bounds."""
+    (a, b), o = op.inputs[:2], op.outputs[0]
+    sa, za = _sz(graph, a)
+    sb, zb = _sz(graph, b)
+    so, zo = _sz(graph, o)
+    twice_max = 2.0 * max(sa, sb)
+    ins = [(idx, zp, *_quantize_multiplier(scale / twice_max))
+           for idx, zp, scale in ((a, za, sa), (b, zb, sb))]
+    out = _quantize_multiplier(twice_max / ((1 << ADD_LEFT_SHIFT) * so))
+    return (ins, out, zo, *_act_bounds(op.options["activation"], so, zo))
+
+
 def _op_add_sub(c: _Build, op) -> Step:
     # TFLite int8 ADD / SUB: rescale both inputs to twice the larger input
     # scale at 20 fractional bits, add or subtract, requantize. A constant
     # operand is rescaled once, on the host.
     graph, dev = c.graph, c.dev
-    (a, b), o = op.inputs[:2], op.outputs[0]
-    sa, za = _sz(graph, a)
-    sb, zb = _sz(graph, b)
-    so, zo = _sz(graph, o)
-    left_shift = 20
-    twice_max = 2.0 * max(sa, sb)
+    o = op.outputs[0]
+    ins, out_mbqm, zo, lo, hi = _add_params(graph, op)
 
-    def rescaled(idx, zp, scale):
-        qm, shift = _quantize_multiplier(scale / twice_max)
+    def rescaled(idx, zp, qm, shift):
         data = graph.tensors[idx].data
         if data is not None:
-            r = _mbqm_host((np.asarray(data, np.int64) - zp) << left_shift, qm, shift)
+            r = _mbqm_host((np.asarray(data, np.int64) - zp) << ADD_LEFT_SHIFT, qm, shift)
             r = torch.as_tensor(r, dtype=torch.int64, device=dev)
             return lambda v: r
         mbqm = _mbqm_fn(qm, shift, dev)
-        return lambda v: mbqm((v[idx].to(torch.int64) - zp) << left_shift)
+        return lambda v: mbqm((v[idx].to(torch.int64) - zp) << ADD_LEFT_SHIFT)
 
-    ra, rb = rescaled(a, za, sa), rescaled(b, zb, sb)
-    out = _mbqm_fn(*_quantize_multiplier(twice_max / ((1 << left_shift) * so)), dev)
-    lo, hi = _act_bounds(op.options["activation"], so, zo)
+    ra, rb = (rescaled(*t) for t in ins)
+    out = _mbqm_fn(*out_mbqm, dev)
     sign = 1 if op.name == "ADD" else -1
 
     def step(v):
@@ -1126,12 +1295,19 @@ def build_executor(graph: TFLiteGraph, batch_size: int, device: str | torch.devi
         layout_prepasses: Run the layout pre-passes (`layout_plan`); False
             runs every op as the graph lists it, the same values.
 
+    On a CUDA device the convolutions of `kernel_plan` run as the
+    hand-written int8 kernels (ops/kernels/int8_conv_kernel.py, whose
+    library this builds on first use), each fused ADD in its convolution's
+    epilogue, bit-equal to the plain steps the CPU runs; while torch.export
+    traces the executor they take the plain steps.
+
     Returns:
         f(x: [B, ...] float32, or int8 with prequantized_input) -> [B, ...]
-        float32, on `device`. f.steps is the number of ops it computes
-        (aliased, skipped and dead ops not counted). While a profiler
-        records, each computed op runs in a span `tflite.<OP>`
-        (utils/tracing.py): f.steps spans a call.
+        float32, on `device`. f.steps is the number of steps a call runs:
+        the ops it computes (aliased, skipped and dead ops not counted), a
+        convolution and its fused ADD one step. While a profiler records,
+        each step runs in a span `tflite.<OP>`, a fused one in
+        `tflite.CONV_2D+ADD` (utils/tracing.py): f.steps spans a call.
     """
     if requant not in REQUANT_MODES:
         raise ValueError(f"Invalid requant: {requant!r} (expected one of {REQUANT_MODES})")
@@ -1144,11 +1320,17 @@ def build_executor(graph: TFLiteGraph, batch_size: int, device: str | torch.devi
         entry_skip = {0, 1}
         entry_target = graph.ops[1].outputs[0]
     plan = layout_plan(graph, entry_target) if layout_prepasses else LayoutPlan()
-    build = _Build(graph, dev, requant, plan)
+    kernels = kernel_plan(graph, plan) if dev.type == "cuda" else KernelPlan()
+    if kernels.kernel:
+        K.library()
+    build = _Build(graph, dev, requant, plan,
+                   {graph.ops[k].outputs[0]: name for k, name in kernels.kernel.items()},
+                   return_all)
+    fused_convs = set(kernels.fused_add.values())
 
     steps, traced_steps, n_compute = [], [], 0
     for op_index, op in enumerate(graph.ops):
-        if op_index in entry_skip or op_index in plan.dead_ops:
+        if op_index in entry_skip or op_index in plan.dead_ops or op_index in fused_convs:
             continue
         if op.name not in _OPS:
             raise NotImplementedError(f"TFLite op {op.name} not supported")
@@ -1158,8 +1340,12 @@ def build_executor(graph: TFLiteGraph, batch_size: int, device: str | torch.devi
             steps.append(lambda v, src=src, dst=dst: v.__setitem__(dst, v[src]))
             traced_steps.append(steps[-1])
             continue
-        steps.append(_OPS[op.name](build, op))
-        traced_steps.append(_spanned(steps[-1], tracing.OP_PREFIX + op.name))
+        if op_index in kernels.fused_add:
+            steps.append(_op_conv(build, graph.ops[kernels.fused_add[op_index]], add=op))
+            traced_steps.append(_spanned(steps[-1], tracing.FUSED_CONV_ADD))
+        else:
+            steps.append(_OPS[op.name](build, op))
+            traced_steps.append(_spanned(steps[-1], tracing.OP_PREFIX + op.name))
         n_compute += 1
     consts = {t.index: torch.as_tensor(t.data.copy(), device=dev)
               for t in graph.tensors if t.data is not None}

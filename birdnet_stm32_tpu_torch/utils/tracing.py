@@ -28,7 +28,9 @@ TorchRunner) and models/blocks.py::mbconv_block; cli/benchmark.py
 - serve.egress: the scores to the host, or their gather;
 - tflite.<OP> (for example tflite.CONV_2D): each computed step of the
   eager integer executor. Aliased, skipped and dead ops get none, so a
-  call holds `executor.steps` of them;
+  call holds `executor.steps` of them; on a card a 1x1 CONV_2D and the
+  ADD its kernel computes in its epilogue are one step,
+  tflite.CONV_2D+ADD;
 - tflite.GRAPH: one replay of the integer executor as a CUDA graph
   (models/runners.py::TFLiteSimRunner on a CUDA device): the input copy,
   the replay and the output clone, so every kernel of the call is
@@ -69,6 +71,7 @@ MODEL = "serve.model"
 EGRESS = "serve.egress"
 OP_PREFIX = "tflite."
 GRAPH = OP_PREFIX + "GRAPH"
+FUSED_CONV_ADD = OP_PREFIX + "CONV_2D+ADD"
 TORCH_GRAPH = "torch.GRAPH"
 MBCONV_EXPAND = "mbconv.expand"
 MBCONV_DW = "mbconv.dw"

@@ -58,6 +58,17 @@ It imports nothing of JAX. In order it:
    (d) one warm 64-chunk batch of each leg by part (copy, frontend,
        executor, whole), and the CUDA launches its executor makes with
        their summed device time (torch.profiler);
+   (e) on each leg one warm served model call (runner.forward_block at
+       B=64, a CUDA graph replay: the wrappers' launch counter must stay
+       at zero) launches int8_conv_taps_kernel 12 times and
+       int8_conv_pointwise_kernel 11 times, counted by name on the card
+       (torch.profiler), with their device time;
+5b. int8 conv phase: the flagship executor at B=64 launches each int8
+   convolution kernel once per served op (12 taps, 11 pointwise, 7 of
+   them with the residual ADD); each served op's kernel step is bit-equal
+   to its plain step on the card and is timed beside its byte bound, the
+   plain step and a cuDNN float32 convolution of the same shape; the two
+   kernels join the `kernels` line with (e)'s launches and device time;
 6. bf16 phase: the flagship in bf16 at full width (seeded init_model)
    through make_fused_classifier(TorchRunner(model, cfg,
    dtype=torch.bfloat16), cfg) on the hybrid requests (3 x 64 + 37):
@@ -342,6 +353,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -364,6 +376,7 @@ PERCH_T, PERCH_SR, PERCH_WIDTH, PERCH_MELS = 160000, 32000, 500, 160
 # boundary flips one entry code, and the bit-exact executor carries it on.
 BENCH_MIN_COSINE = 0.998
 KERNEL_SOURCE = "birdnet_stm32_tpu_torch/ops/csrc/frontend_kernel.cu"
+INT8_CONV_SOURCE = "birdnet_stm32_tpu_torch/ops/csrc/int8_conv_kernel.cu"
 JAX_KERNEL = "birdnet_stm32_tpu/ops/pallas/frontend_kernel.py"
 FP32_PEAK_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -868,10 +881,12 @@ def slice_phase(torch, np) -> dict[str, int]:
     return launches
 
 
-def device_activity(torch, fn) -> dict:
+def device_activity(torch, fn, prefix: str | None = None) -> dict:
     """The CUDA kernels, copies and memsets one call of fn() puts on the
     card, and the sum of their device times (ms), by torch.profiler; both
-    None when the profiler sees no device event."""
+    None when the profiler sees no device event. With `prefix`, also
+    `by_name`: {kernel name: [launches, ms]} of the kernels whose name
+    (less its return type and template arguments) starts with it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -885,18 +900,29 @@ def device_activity(torch, fn) -> dict:
         print(json.dumps({"device_activity_not_measured": str(e)}))
         events = []
     busy = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    return {"cuda_launches": len(events) or None, "device_busy_ms": busy if events else None}
+    out = {"cuda_launches": len(events) or None, "device_busy_ms": busy if events else None}
+    if prefix is not None:
+        by_name = {}
+        for e in events:
+            name = re.split(r"[<(]", e.name.removeprefix("void "), maxsplit=1)[0]
+            if name.startswith(prefix):
+                n, ms = by_name.get(name, (0, 0.0))
+                by_name[name] = [n + 1, ms + e.time_range.elapsed_us() / 1e3]
+        out["by_name"] = by_name
+    return out
 
 
-def int8_phase(torch, np, flagship_cfg) -> dict[str, int]:
-    """The INT8 leg, (a)-(d) of the module docstring; returns the int8
-    kernel launches of the fused leg."""
+def int8_phase(torch, np, flagship_cfg) -> tuple[dict[str, int], dict[str, list]]:
+    """The INT8 leg, (a)-(e) of the module docstring; returns the int8
+    frontend kernel's launches on the fused leg, and {int8 conv kernel:
+    [launches, device ms]} of one served batch of the flagship leg."""
     from birdnet_stm32_tpu_torch.models.runners import TFLiteSimRunner
     from birdnet_stm32_tpu_torch.models.serving import (
         classify_in_batches,
         make_fused_classifier,
     )
     from birdnet_stm32_tpu_torch.ops.kernels import frontend_kernel
+    from birdnet_stm32_tpu_torch.ops.kernels import int8_conv_kernel as K
     from birdnet_stm32_tpu_torch.quant.tflite_import import build_executor
     from tests.int8_fixture import entry_transpose_fixture, flagship_features
 
@@ -967,8 +993,31 @@ def int8_phase(torch, np, flagship_cfg) -> dict[str, int]:
                 "classify_total": cuda_ms(torch, lambda: classify(requests[0])),
             }, "executor_per_batch": device_activity(
                 torch, lambda: runner.forward_block(feats))}))
+
+    # (e) the served model call, warm (a CUDA graph replay, which leaves
+    # the wrappers' launch counter still), launches the int8 conv kernels
+    # once per body convolution, counted by name on the card.
+    served = {}
+    for leg, (classify, runner, _, _) in legs.items():
+        with torch.no_grad():
+            feats = frontend_kernel.frontend_input(x, cfg, quant=classify.entry_quant)
+            runner.forward_block(feats)
+            K.launches.clear()
+            activity = device_activity(torch, lambda: runner.forward_block(feats),
+                                       prefix="int8_conv")
+        by_name = activity["by_name"]
+        print(json.dumps({"int8_leg": leg, "served_int8_conv_b64": by_name,
+                          "eager_launches_during_replay": dict(K.launches)}))
+        counts = {k: n for k, (n, _) in by_name.items()}
+        if counts != {K.TAPS_KERNEL: 12, K.POINTWISE_KERNEL: 11}:
+            fail(f"INT8 {leg}: the served model call launched {counts}, want "
+                 f"{K.TAPS_KERNEL} x 12 and {K.POINTWISE_KERNEL} x 11")
+        if K.launches:
+            fail(f"INT8 {leg}: the served model call ran eagerly ({dict(K.launches)}), "
+                 "not as its CUDA graph")
+        served[leg] = by_name
     name = frontend_kernel.kernel_name("linear", "none", quant=True)
-    return {name: legs["fixture"][3]}
+    return {name: legs["fixture"][3]}, served["flagship"]
 
 
 # The serve phase's files: (name, rate, seconds, channels, sample format).
@@ -986,6 +1035,105 @@ ULAW_MIN_COSINE, ULAW_MAX_ABS = 0.995, 0.1
 # The gate the port applies to INT8 feeds that may move an entry code.
 FEED_MIN_COSINE = 0.999
 RESAMPLE_RATES = (48000, 44100, 16000)
+
+
+def int8_conv_phase(torch, np, served: dict[str, list]) -> list[dict]:
+    """(5b): each int8 convolution kernel at the flagship's shapes (B=64)
+    against the executor's plain step on the card: bit-equal, and its
+    device time per call (torch.profiler: the call's kernels summed, so
+    the host's issue time, which exceeds a kernel's here, is left out)
+    beside its byte bound (each input code read once, the residual and the
+    weights once, each output code written once, at HBM_BYTES_PER_S), the
+    plain step's device time and that of one cuDNN float32 convolution of
+    the same shape (`library_ms`, the accumulation alone; the port never
+    calls it). Returns one `kernels` entry per kernel: its launches and
+    device ms in the served batch of the INT8 phase (`served`, {kernel:
+    [launches, ms]}), its ops' bounds, plain and library times summed."""
+    import torch.nn.functional as F
+
+    from birdnet_stm32_tpu_torch.ops.kernels import int8_conv_kernel as K
+    from birdnet_stm32_tpu_torch.quant import tflite_import as P
+    from tests.int8_fixture import flagship_features
+
+    graph = P.TFLiteGraph(FLAGSHIP_TFLITE)
+    plan = P.layout_plan(graph)
+    kplan = P.kernel_plan(graph, plan)
+    x = torch.from_numpy(flagship_features(B)).cuda()
+    K.launches.clear()
+    vals = P.build_executor(graph, B, device="cuda", return_all=True)(x)
+    launches = dict(K.launches)
+    if launches != {K.TAPS_KERNEL: 12, K.POINTWISE_KERNEL: 11}:
+        fail(f"int8 conv: the flagship executor launched {launches}, want 12 taps + 11 pointwise")
+    dev = torch.device("cuda")
+    kernels = {graph.ops[k].outputs[0]: name for k, name in kplan.kernel.items()}
+    fused = {conv: add for add, conv in kplan.fused_add.items()}
+    rows, totals = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    sums = {name: dict.fromkeys(totals, 0.0) for name in served}
+    calls = 10
+
+    def per_call_ms(fn):
+        """Device ms per call of fn(), over `calls` calls after a warm one."""
+        fn()
+        busy = device_activity(torch, lambda: [fn() for _ in range(calls)])["device_busy_ms"]
+        return None if busy is None else busy / calls
+
+    for k in sorted(kplan.kernel):
+        op = graph.ops[k]
+        add = graph.ops[fused[k]] if k in fused else None
+        out = op.outputs[0] if add is None else add.outputs[0]
+        inputs = {t: vals[t] for t in (op.inputs[0], *(add.inputs[:2] if add else ()))}
+        on_card = P._op_conv(P._Build(graph, dev, "exact", plan, kernels), op, add=add)
+        plain_steps = [P._op_conv(P._Build(graph, dev, "exact", plan), op)]
+        if add is not None:
+            plain_steps.append(P._op_add_sub(P._Build(graph, dev, "exact", plan), add))
+
+        def kernel_call(step=on_card, inputs=inputs):
+            v = dict(inputs)
+            step(v)
+            return v
+
+        def plain_call(steps=plain_steps, inputs=inputs):
+            v = dict(inputs)
+            for step in steps:
+                step(v)
+            return v
+
+        got = kernel_call()[out]
+        if not torch.equal(got, plain_call()[out]) or not torch.equal(got, vals[out]):
+            fail(f"int8 conv op {k} ({op.name}{' + ADD' if add else ''}): the kernel differs "
+                 "from the plain step")
+        xin, w = vals[op.inputs[0]], graph.tensors[op.inputs[1]].data
+        n_bytes = xin.numel() + got.numel() * (2 if add else 1) + w.size
+        depthwise = op.name == "DEPTHWISE_CONV_2D"
+        wf = torch.from_numpy(np.transpose(w, (3, 0, 1, 2) if depthwise else (0, 3, 1, 2)))
+        wf = wf.float().cuda()
+        xf = xin.float().permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        pad = tuple(n // 2 for n in w.shape[1:3]) if op.options["padding"] == "SAME" else 0
+
+        def library_call(xf=xf, wf=wf, pad=pad, op=op, groups=xin.shape[3] if depthwise else 1):
+            return F.conv2d(xf, wf, stride=op.options["strides"], padding=pad, groups=groups)
+
+        row = {"op": k, "name": op.name + ("+ADD" if add else ""),
+               "kernel": kernels[op.outputs[0]], "in": list(xin.shape), "out": list(got.shape),
+               "ms": per_call_ms(kernel_call), "plain_ms": per_call_ms(plain_call),
+               "library_ms": per_call_ms(library_call),
+               "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+        row["fraction_of_bound"] = row["bound_ms"] / row["ms"] if row["ms"] else None
+        rows.append(row)
+        for key in totals:
+            totals[key] += row[key] or 0.0
+            sums[row["kernel"]][key] += row[key] or 0.0
+    print(json.dumps({"int8_conv_kernels_b64": rows, "body_totals": totals, "card": card()}))
+    entries = []
+    for name, (n, ms) in served.items():
+        entries.append({"name": name, "route": "cuda", "source": INT8_CONV_SOURCE,
+                        "replaces": None, "launches": n, "max_abs_err": 0.0, "ms": ms,
+                        "isolated_ms": sums[name]["ms"], "plain_ms": sums[name]["plain_ms"],
+                        "bound_ms": sums[name]["bound_ms"], "bound_by": "bytes",
+                        "fraction_of_bound": sums[name]["bound_ms"] / ms,
+                        "library_ms": sums[name]["library_ms"],
+                        "served_path": "INT8 leg: TFLiteSimRunner.forward_block, graph replay"})
+    return entries
 
 
 def cosine(np, a, b) -> float:
@@ -3141,7 +3289,9 @@ def main() -> None:
     timed("perch_geometry", perch_geometry_phase, torch)
     launches = timed("slice", slice_phase, torch, np)
     flagship = ModelConfig.load(ROOT / "artifacts/flagship/bundle/model_config.json")
-    launches.update(timed("int8", int8_phase, torch, np, flagship))
+    int8_launches, served_conv = timed("int8", int8_phase, torch, np, flagship)
+    launches.update(int8_launches)
+    conv_entries = timed("int8_conv", int8_conv_phase, torch, np, served_conv)
     phase_launches = [timed("bf16", bf16_phase, torch, np, flagship),
                       timed("fuzz", fuzz_phase, torch, np)]
     timed("prepass", prepass_phase, torch, np)
@@ -3215,7 +3365,7 @@ def main() -> None:
             entry["mesh_launches"] = n
     for entry in tile_entries:
         entry["launches"] = bench_launches.get(entry["name"], 0)
-    entries += tile_entries
+    entries += tile_entries + conv_entries
     for entry in entries:
         if entry["launches"] == 0 and entry["served_path"] is not None:
             fail(f"{entry['name']} was never launched on its served path")
